@@ -1,0 +1,172 @@
+"""Attention: grouped-query / multi-head self attention for prefill.
+
+Counterpart of the prefill half of ``src/repro/models/attention.py``
+(decode caches, MLA and cross attention follow with the paths that need
+them).
+
+Routing, as the JAX package routes with ``attn_impl="pallas"``: causal
+attention over more than one position goes to
+``kernels.flash_attention.ops.flash_attention`` — the hand-written kernel
+for a CUDA tensor, its plain version for a CPU tensor — with K/V *not*
+expanded (the kernel maps query heads to their K/V head by index).
+Everything else (the ViT's and the DiT's non-causal attention) goes
+through :func:`_sdpa`, written out as two matrix products around a float32
+softmax; those products are the ones the JAX package leaves to XLA.
+``cfg.attn_impl`` is kept as a field and not consulted.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from ..kernels.flash_attention import ops as fa_ops
+from .layers import apply_rope, dense, linear_spec
+from .sharding import spec
+
+
+# ============================================================== specs
+def attn_specs(cfg, layers: Optional[int] = None, cross: bool = False) -> Dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    out = {
+        "wq": linear_spec(d, H * hd, ("d_model", "q_heads"), layers),
+        "wk": linear_spec(d, KV * hd, ("d_model", "kv_heads"), layers),
+        "wv": linear_spec(d, KV * hd, ("d_model", "kv_heads"), layers),
+        "wo": linear_spec(H * hd, d, ("q_heads", "d_model"), layers),
+    }
+    if cfg.qkv_bias and not cross:
+        out["bq"] = _bias(H * hd, "q_heads", layers)
+        out["bk"] = _bias(KV * hd, "kv_heads", layers)
+        out["bv"] = _bias(KV * hd, "kv_heads", layers)
+    return out
+
+
+def _bias(n, axis, layers):
+    if layers is None:
+        return spec((n,), (axis,), init="zeros")
+    return spec((layers, n), ("layers", axis), init="zeros")
+
+
+# ============================================================== core attention
+# Above this many score elements (S*T) the written-out path switches to the
+# blocked online-softmax formulation, which never materialises the full
+# (S, T) score matrix.
+_BLOCK_THRESHOLD = 2048 * 2048
+_BQ, _BK = 2048, 8192
+_NEG = -1e30
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          causal: bool, q_pos: Optional[torch.Tensor] = None,
+          kv_len=None) -> torch.Tensor:
+    """q: (B,S,H,D); k,v: (B,H,T,D) (already GQA-expanded). fp32 softmax."""
+    B, S, H, D = q.shape
+    T = k.shape[2]
+    if S * T > _BLOCK_THRESHOLD and S > 1:
+        return _blocked_sdpa(q, k, v, causal=causal, kv_len=kv_len)
+    scale = D ** -0.5
+    logits = torch.einsum("bshd,bhtd->bhst", q.float(), k.float()) * scale
+    mask = None
+    if causal and S > 1:
+        qp = q_pos if q_pos is not None else torch.arange(S, device=q.device)
+        mask = qp[:, None] >= torch.arange(T, device=q.device)[None, :]
+    if kv_len is not None:
+        lm = torch.arange(T, device=q.device)[None, :] < kv_len
+        mask = lm if mask is None else (mask & lm)
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full_like(logits, _NEG))
+    w = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bhtd->bshd", w, v)
+
+
+def _blocked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, kv_len=None,
+                  bq: int = _BQ, bk: int = _BK) -> torch.Tensor:
+    """Flash-style attention in Python loops: per (q-chunk, kv-block) online
+    softmax; causally dead blocks are skipped.  Peak memory per step is
+    O(bq*bk) scores instead of O(S*T)."""
+    B, S, H, D = q.shape
+    T = k.shape[2]
+    Dv = v.shape[-1]
+    scale = D ** -0.5
+    bq = min(bq, S)
+    bk = min(bk, T)
+    dev = q.device
+    outs = []
+    for qi in range(0, S, bq):
+        nq = min(bq, S - qi)
+        qc = q[:, qi:qi + nq]                            # (B,nq,H,D)
+        m = torch.full((B, H, nq, 1), _NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, H, nq, 1), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, nq, H, Dv), dtype=torch.float32, device=dev)
+        for ki in range(0, T, bk):
+            if causal and ki > qi + nq - 1:
+                continue                                  # dead block
+            nk = min(bk, T - ki)
+            kc = k[:, :, ki:ki + nk]
+            vc = v[:, :, ki:ki + nk]
+            s = torch.einsum("bshd,bhtd->bhst", qc.float(), kc.float()) * scale
+            kpos = ki + torch.arange(nk, device=dev)
+            if causal:
+                qpos = qi + torch.arange(nq, device=dev)
+                s = torch.where(qpos[:, None] >= kpos[None, :], s,
+                                torch.full_like(s, _NEG))
+            if kv_len is not None:
+                s = torch.where(kpos[None, :] < kv_len, s,
+                                torch.full_like(s, _NEG))
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.where(m_new <= _NEG / 2, torch.zeros_like(s),
+                            torch.exp(s - m_new))
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(dim=-1, keepdim=True)
+            pv = torch.einsum("bhst,bhtd->bshd", p.to(v.dtype), vc).float()
+            acc = acc * alpha.permute(0, 2, 1, 3) + pv
+            m = m_new
+        l = torch.where(l == 0.0, torch.ones_like(l), l)
+        outs.append((acc / l.permute(0, 2, 1, 3)).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B,KV,T,D) -> (B,H,T,D)."""
+    KV = k.shape[1]
+    if KV == n_heads:
+        return k
+    return k.repeat_interleave(n_heads // KV, dim=1)
+
+
+# ============================================================== GQA forward
+def _qkv(cfg, p, x):
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = dense(x, p["wq"])
+    k = dense(x, p["wk"])
+    v = dense(x, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    B, S = x.shape[:2]
+    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
+            v.reshape(B, S, KV, hd))
+
+
+def attn_forward(cfg, p, x, positions, *, causal=True, rope=True,
+                 return_kv=False, impl=None):
+    """Full-sequence self attention (prefill).  ``impl`` is accepted for
+    signature parity and ignored: the device of ``x`` decides."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(cfg, p, x)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if causal and S > 1:
+        out = fa_ops.flash_attention(q, k, v, causal=True)
+    else:
+        kt = k.permute(0, 2, 1, 3)   # (B,KV,T,D)
+        vt = v.permute(0, 2, 1, 3)
+        out = _sdpa(q, _expand_kv(kt, cfg.n_heads),
+                    _expand_kv(vt, cfg.n_heads), causal=causal,
+                    q_pos=positions[0] if positions.dim() == 2 else positions)
+    y = dense(out.reshape(B, S, -1), p["wo"])
+    if return_kv:
+        return y, {"k": k.reshape(B, S, -1), "v": v.reshape(B, S, -1)}
+    return y
