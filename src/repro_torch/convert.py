@@ -1,4 +1,4 @@
-"""Carry a parameter tree of the JAX package across as numpy arrays.
+"""Carry parameter trees of the JAX package across as numpy arrays.
 
 The parity tests initialise on the JAX side, turn every leaf into a numpy
 array and hand the tree to :func:`from_numpy_tree`; both packages then run
@@ -58,3 +58,26 @@ def _convert(tree, specs, dev, dtype, path):
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t
+
+
+LSTM_KEYS = ("wx", "wh", "b", "head")
+
+
+def lstm_params_from_numpy(tree: dict, device="cuda") -> dict:
+    """The JAX package's LSTM predictor parameters (``init_lstm`` or a
+    trained ``Predictor.params``, as numpy) -> the port's, so that
+    ``repro_torch.core.predictor.lstm_forward`` computes what the JAX
+    ``lstm_forward`` does.  Both keep the same keys and layouts: ``wx``
+    ``(1, 4H)``, ``wh`` ``(H, 4H)``, ``b`` ``(4H,)``, ``head`` ``(H, 1)``,
+    the gates ``i, f, o, u`` in that order along the ``4H`` axis."""
+    if set(tree) != set(LSTM_KEYS):
+        raise KeyError(f"LSTM parameters have keys {sorted(tree)}, "
+                       f"expected {sorted(LSTM_KEYS)}")
+    H = np.shape(tree["wh"])[0]
+    want = {"wx": (1, 4 * H), "wh": (H, 4 * H), "b": (4 * H,),
+            "head": (H, 1)}
+    for k, shape in want.items():
+        if tuple(np.shape(tree[k])) != shape:
+            raise ValueError(f"LSTM parameter {k}: shape "
+                             f"{tuple(np.shape(tree[k]))} != {shape}")
+    return from_numpy_tree(tree, device, dtype=torch.float32)

@@ -7,8 +7,8 @@ with ``ctypes``.  The library lives in a ``build/`` directory at the root
 of the checkout, keyed by a hash of the sources and flags, so a second
 process finds it built.
 
-No ``--use_fast_math``: the int8 codec needs IEEE division and ``rintf``
-to stay bit-equal to its plain version.
+No ``--use_fast_math``: the int8 and int4 codecs need IEEE division and
+``rintf`` to stay bit-equal to their plain versions.
 
 Importing this module builds nothing; :func:`lib` does.  A missing
 ``nvcc`` or a failed compile raises with the compiler's output — nothing
@@ -38,6 +38,10 @@ SIGNATURES: Dict[str, list] = {
     "rt_quantize_int8": [_P, _P, _P, _L, _I, _P],
     # q, scales, out, n_blocks, dtype code, stream
     "rt_dequantize_int8": [_P, _P, _P, _L, _I, _P],
+    # x, packed, scales, n_tiles (256 columns each), dtype code, stream
+    "rt_quantize_int4": [_P, _P, _P, _L, _I, _P],
+    # packed, scales, out, n_tiles, dtype code, stream
+    "rt_dequantize_int4": [_P, _P, _P, _L, _I, _P],
     # q, k, v, o, B, S, T, H, KV, D, 4 x (batch, seq, head) strides,
     # scale, causal, dtype code, stream
     "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -22,8 +22,11 @@ so ``decode(merge(chunks)) == decode(payload)`` exactly and the streamed
 forward (``run_streamed``) is bit-identical to the monolithic one.
 
 Both tiers run on the one device the executor was made for and share one
-parameter tree, as in the JAX package.  ``LMSplitExecutor`` and the
-temporal-delta transport are not ported yet.
+parameter tree, as in the JAX package.  On the card both codecs launch
+their hand-written kernels (int8: ``quantize`` / ``dequantize``; packed
+int4: ``quantize_int4`` / ``dequantize_int4``); int4 at a width that is no
+multiple of 256 raises here, before any kernel.  ``LMSplitExecutor`` and
+the temporal-delta transport are not ported yet.
 """
 from __future__ import annotations
 

@@ -229,6 +229,54 @@ def test_raw_executor_against_jax(which, request):
         np.testing.assert_allclose(t2np(act_t), to_np(act_j), atol=1e-6)
 
 
+def test_int4_executor_against_jax():
+    """CogACT cut down to a width the int4 codec takes (``d_model`` 256,
+    4 heads of 64), float32, converted weights, the same DiT noise.  The
+    two executors' cut activations agree to float32 rounding only (sums in
+    another order), so: the packed nibbles are equal byte for byte at these
+    inputs, the block scales (abs-max of those activations times 1/7) are
+    within 1e-5, and the port's codec turns the JAX executor's own cut
+    activation into the JAX payload exactly — nibbles and scales.  The
+    action is within the 2e-4 of ``tests/test_runtime.py``."""
+    kw = dict(n_layers=4, dtype="float32", d_model=256, n_heads=4,
+              n_kv_heads=4, head_dim=64, d_ff=512)
+    cj = j_get_config("cogact-7b").reduced().replace(**kw)
+    ct = get_config("cogact-7b").reduced().replace(**kw)
+    pj, pt = both_params(j_build(cj), build(ct), seed=3, fill_zeros=True)
+    rng = np.random.default_rng(12)
+    patches = rng.standard_normal((B, cj.n_patches, cj.vit_dim)).astype(
+        np.float32)
+    tokens = rng.integers(0, cj.vocab_size, (B, N_TOK))
+    Lv = cj.vit_layers
+    key = jax.random.PRNGKey(6)
+    noise = np.array(jax.random.normal(
+        key, (B, cj.action_horizon, cj.action_dim), jnp.float32))
+    exj = j_part.VLASplitExecutor(cj, j_part.SplitPlan(Lv + 1, Lv + 3,
+                                                       codec="int4"))
+    raw_j = j_part.VLASplitExecutor(cj, j_part.SplitPlan(Lv + 1, Lv + 3))
+    ext = VLASplitExecutor(ct, SplitPlan(Lv + 1, Lv + 3, codec="int4"),
+                           device="cpu")
+    for cut in (Lv + 1, Lv + 2, Lv + 3):
+        act_j, pay_j = exj.run(pj, jnp.asarray(patches), jnp.asarray(tokens),
+                               cut, key)
+        act_t, pay_t = ext.run(pt, torch.from_numpy(patches),
+                               torch.from_numpy(tokens), cut,
+                               torch.from_numpy(noise))
+        assert set(pay_t) == set(pay_j) == {"q4", "s"}
+        assert payload_bytes(pay_t) == j_part.payload_bytes(pay_j) == \
+            B * (cj.n_patches + N_TOK) * (256 // 2 + 2 * 4)
+        assert np.array_equal(pay_t["q4"].numpy(), np.asarray(pay_j["q4"]))
+        np.testing.assert_allclose(pay_t["s"].numpy(), np.asarray(pay_j["s"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(t2np(act_t), to_np(act_j), atol=2e-4)
+        _, cut_j = raw_j.run(pj, jnp.asarray(patches), jnp.asarray(tokens),
+                             cut, key)
+        again = encode_activation(torch.from_numpy(np.array(cut_j["x"])),
+                                  "int4")
+        assert np.array_equal(again["q4"].numpy(), np.asarray(pay_j["q4"]))
+        assert np.array_equal(again["s"].numpy(), np.asarray(pay_j["s"]))
+
+
 # ------------------------------------------------------------- the plan
 def test_split_plan_use_codec_deprecation_shim():
     with pytest.warns(DeprecationWarning, match="use_codec"):
