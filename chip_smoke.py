@@ -5,10 +5,13 @@
 
 Drives the port's main paths at full width and depth with random weights
 made from a seed — OpenVLA-7B and CogACT-7B action requests served by split
-co-inference (``repro_torch.runtime.partition.VLASplitExecutor``), and the
+co-inference (``repro_torch.runtime.partition.VLASplitExecutor``), the
 paper's closed loop (``repro_torch.core.RoboECC``) choosing the cut and the
-codec of every CogACT request — and holds every hand-written kernel on those
-paths against its plain PyTorch version on the card.  Needs one card,
+codec of every CogACT request, Llama-3.2-3B prefill and greedy decode
+(``repro_torch.runtime.serving.greedy_generate``) and Llama-3.2-3B requests
+served by split co-inference (``LMSplitExecutor``) — and holds every
+hand-written kernel on those paths against its plain PyTorch version on the
+card.  Needs one card,
 ``nvcc`` and no network; the kernels are built from
 ``src/repro_torch/kernels/csrc`` into ``build/`` at first use.  Any phase
 that fails raises, and the process then exits non-zero.
@@ -28,15 +31,23 @@ Phases, one JSON line each:
                 loop, each request served at the tick's cut and codec:
                 codec and split mix, forecast time against request wall,
                 planner-priced against shipped bytes
+  generate      Llama-3.2-3B: a 512-token prompt and 64 greedy steps at
+                batch 1 and 4, exact launch counts, step walls, a profiled
+                step, the logits against one full forward
+  serve_lm      Llama-3.2-3B split at a cut walking the pool of
+                ``launch/serve.py``, int8 on the cut, batches of 4 requests
+                of 17 tokens, one two-pool request, the checks on what came
+                out
 
 then the card's name and power limit as ``nvidia-smi`` prints them, a
 ``{"kernels": [...]}`` summary of every kernel (launch count on the main
 paths, error, time, plain version's time, the card's bound, the library
 call's time) and, last, ``{"ok": true, "device": {...}}``.
 
-``--llm-layers`` / ``--vit-layers`` cut the depth of the served models, for
-finding faults (the controller still plans the published CogACT-7B); with
-no arguments everything runs in full.
+``--llm-layers`` / ``--vit-layers`` cut the depth of the served VLA models,
+for finding faults (the controller still plans the published CogACT-7B;
+Llama-3.2-3B always runs in full); with no arguments everything runs in
+full.
 """
 from __future__ import annotations
 
@@ -62,14 +73,21 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels.activation_codec import ops as codec_ops
 from repro_torch.kernels.activation_codec import ref as codec_ref
+from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import build
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.sharding import tree_leaves, tree_map
+from repro_torch.models.transformer import lm_hidden, lm_logits
 from repro_torch.models.vla import vla_backbone
-from repro_torch.runtime.partition import (SplitPlan, VLASplitExecutor,
+from repro_torch.runtime.kvcache import cache_bytes, pad_cache
+from repro_torch.runtime.partition import (LMSplitExecutor, SplitPlan,
+                                           VLASplitExecutor,
                                            decode_activation,
                                            encode_activation, payload_bytes)
+from repro_torch.runtime.scheduler import MicroBatcher, Request
+from repro_torch.runtime.serving import (greedy_generate, make_serve_step,
+                                         prefill_and_pad)
 
 # NVIDIA H100 SXM data-sheet peaks (dense), used for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -77,6 +95,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 SEED = 0
 DEV = "cuda"
+
+# the LM paths: generate's prompt and greedy steps, its batches, and
+# serve_lm's requests (tokens each) and micro-batch
+LM_PROMPT, LM_STEPS, LM_BATCHES = 512, 64, (1, 4)
+LM_SEQ, LM_MICRO_BATCH = 17, 4
 
 
 def emit(obj) -> None:
@@ -164,8 +187,12 @@ def phase_env() -> dict:
 def phase_build() -> None:
     _build.lib()
     log = _build.build_log.splitlines()
-    spills = [ln for ln in log
-              if "bytes spill" in ln and " 0 bytes spill stores" not in ln]
+    spills, entry = [], None
+    for ln in log:
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+        elif "bytes spill" in ln and " 0 bytes spill stores" not in ln:
+            spills.append(f"{entry}: {ln.split(':')[-1].strip()}")
     nvcc = subprocess.run([_build._find_nvcc(), "--version"], check=True,
                           capture_output=True, text=True).stdout
     emit({"phase": "build", "seconds": _build.build_seconds,
@@ -175,7 +202,7 @@ def phase_build() -> None:
           "flags": " ".join(_build.NVCC_FLAGS),
           "kernels_compiled": sum("Compiling entry function" in ln
                                   for ln in log),
-          "kernels_with_spills": len(spills)})
+          "kernels_with_spills": len(spills), "spills": spills})
 
 
 # ================================================================= kernels
@@ -308,12 +335,125 @@ def check_attn(B, S, T, H, KV, D, dtype, causal, seed, strided=False) -> dict:
     return case
 
 
-def phase_kernels(cfg) -> dict:
-    """Every kernel against its plain version, then times at the main
-    path's shapes.  Returns the per-kernel records for the summary line."""
+DECODE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _decode_inputs(B, H, KV, T, D, dtype, seed, flat=False):
+    """q (B, H, D) and k, v as (B, KV, T, D).  ``flat``: k and v are views
+    of a model's flat (B, T, KV*D) cache, read through its strides."""
+    g = gen(seed)
+
+    def draw(shape):
+        return torch.randn(shape, generator=g, device=DEV,
+                           dtype=torch.float32).to(dtype)
+
+    q = draw((B, H, D))
+    if flat:
+        kc, vc = draw((B, T, KV * D)), draw((B, T, KV * D))
+        return (q, kc.view(B, T, KV, D).permute(0, 2, 1, 3),
+                vc.view(B, T, KV, D).permute(0, 2, 1, 3))
+    return q, draw((B, KV, T, D)), draw((B, KV, T, D))
+
+
+def check_decode(B, H, KV, T, D, kv_len, dtype, seed, flat=False,
+                 device_len=False) -> dict:
+    q, k, v = _decode_inputs(B, H, KV, T, D, dtype, seed, flat)
+    n = torch.tensor(kv_len, dtype=torch.int32, device=DEV) if device_len \
+        else kv_len
+    out = da_ops.decode_attention(q, k, v, n)
+    ref = da_ops.decode_attention_plain(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or out.dtype != dtype:
+        raise AssertionError(f"decode_attention: wrong output {out.shape} "
+                             f"{out.dtype}")
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError("decode_attention: output is not finite")
+    err = (out.float() - ref.float()).abs().max().item()
+    chunk, n_split = da_ops.split_plan(T, B * KV, da_ops.sm_count(q.device))
+    case = {"B": B, "H": H, "KV": KV, "T": T, "D": D, "kv_len": kv_len,
+            "dtype": str(dtype).split(".")[-1], "flat_cache": flat,
+            "device_kv_len": device_len, "n_split": n_split,
+            "live_splits": -(-min(kv_len, T) // chunk), "max_err": err,
+            "tol": DECODE_TOL[dtype]}
+    if err > DECODE_TOL[dtype]:
+        raise AssertionError(f"decode_attention disagrees with its plain "
+                             f"version: {case}")
+    return case
+
+
+def decode_cases(lcfg) -> list:
+    """B6 cases; the served ones at Llama-3.2-3B's heads and the buffer of
+    ``generate`` (prompt + steps), on its flat cache."""
+    bf, f32 = torch.bfloat16, torch.float32
+    H, KV, hd = lcfg.n_heads, lcfg.n_kv_heads, lcfg.resolved_head_dim
+    T = LM_PROMPT + LM_STEPS
+    cases = []
+    seed = 200
+    for b, h, kv, t, d in ((2, 4, 2, 256, 32), (1, 8, 8, 512, 64)):
+        for kv_len in (1, 7, 100, 256, t):             # tests/test_kernels.py
+            for dt in (f32, bf):
+                seed += 1
+                cases.append(check_decode(b, h, kv, t, d, kv_len, dt, seed))
+    for B in LM_BATCHES:                               # the served shape
+        for kv_len in (1, 300, LM_PROMPT + 1, T):
+            seed += 1
+            cases.append(check_decode(B, H, KV, T, hd, kv_len, bf, seed,
+                                      flat=True))
+        cases.append(check_decode(B, H, KV, T, hd, T - 31, f32, seed + 50,
+                                  flat=True))
+        cases.append(check_decode(B, H, KV, T, hd, T, bf, seed + 60))
+    for kv_len in (1, 100, 200):                       # ragged buffer
+        for dt in (f32, bf):
+            seed += 1
+            cases.append(check_decode(1, 6, 2, 200, 64, kv_len, dt, seed))
+    # many splits, most of them dead; the kv_len read from the card
+    cases.append(check_decode(1, 8, 2, 4096, 128, 100, bf, 301))
+    cases.append(check_decode(1, 8, 2, 4096, 128, 4000, f32, 302))
+    cases.append(check_decode(1, H, KV, T, hd, LM_PROMPT + 8, bf, 303,
+                              flat=True, device_len=True))
+    cases.append(check_decode(2, 6, 3, 100, 16, 77, f32, 304,
+                              device_len=True))
+    cases.append(check_decode(1, 32, 2, 8192, 128, 8192, bf, 305))  # GQA 16x
+    if not any(c["n_split"] > c["live_splits"] > 1 for c in cases):
+        raise AssertionError("no case left a split dead")
+    return cases
+
+
+def time_decode(B, H, KV, T, D, kv_len, max_err) -> dict:
+    """Times of the flash-decode kernel on a flat bf16 cache at live length
+    ``kv_len``: the kernel, the plain version, and as the yardstick
+    ``F.scaled_dot_product_attention`` on the same q and the live K/V prefix
+    (grouped heads by ``enable_gqa``; the port calls it nowhere)."""
+    bf = torch.bfloat16
+    q, k, v = _decode_inputs(B, H, KV, T, D, bf, 400 + T, flat=True)
+    q4, kl, vl = q[:, :, None], k[:, :, :kv_len], v[:, :, :kv_len]
+    nbytes = 2 * (2 * B * KV * kv_len * D + 2 * B * H * D)
+    b_ms, b_by = bound(nbytes, 4.0 * B * H * kv_len * D, bf)
+    return {"route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
+            "shape": [B, H, KV, T, D], "kv_len": kv_len, "dtype": "bfloat16",
+            "max_abs_err": max_err,
+            "ms": time_ms(lambda: da_ops.decode_attention(q, k, v, kv_len)),
+            "host_ms": host_ms(
+                lambda: da_ops.decode_attention(q, k, v, kv_len)),
+            "plain_ms": time_ms(
+                lambda: da_ops.decode_attention_plain(q, k, v, kv_len)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q4, kl, vl, enable_gqa=True))}
+
+
+def phase_kernels(cfg, lcfg) -> dict:
+    """Every kernel against its plain version, at the shapes the main paths
+    give it (``cfg`` the served VLA, ``lcfg`` Llama-3.2-3B) and at awkward
+    ones, then times at the main path's shapes.  Returns the per-kernel
+    records for the summary line."""
     S_main = cfg.n_patches + 17
     d, H, KV, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
+    d_l, H_l, KV_l, hd_l = (lcfg.d_model, lcfg.n_heads, lcfg.n_kv_heads,
+                            lcfg.resolved_head_dim)
     bf, f32 = torch.bfloat16, torch.float32
 
     codec_cases = [
@@ -324,6 +464,8 @@ def phase_kernels(cfg) -> dict:
         check_codec((5, 128), f32, 5),                # D = one block
         check_codec((5, 128), bf, 6),
         check_codec((2, 17, 256), bf, 7),
+        check_codec((LM_MICRO_BATCH, LM_SEQ, d_l), bf, 8),   # serve_lm cut
+        check_codec((LM_MICRO_BATCH, LM_SEQ, d_l), f32, 9),
     ]
     codec4_cases = [
         check_codec4((1, S_main, d), bf, 40),         # uplink, main path
@@ -348,9 +490,20 @@ def phase_kernels(cfg) -> dict:
         check_attn(1, 130, 130, 2, 1, 64, f32, True, 18),
         check_attn(1, 130, 130, 2, 2, 128, bf, False, 19),
     ]
+    for i, B in enumerate(LM_BATCHES):            # generate's prefill, GQA 3x
+        attn_cases.append(check_attn(B, LM_PROMPT, LM_PROMPT, H_l, KV_l, hd_l,
+                                     bf, True, 50 + i))
+    attn_cases += [
+        check_attn(1, LM_PROMPT, LM_PROMPT, H_l, KV_l, hd_l, f32, True, 52),
+        check_attn(LM_MICRO_BATCH, LM_SEQ, LM_SEQ, H_l, KV_l, hd_l, bf, True,
+                   53),                                   # serve_lm blocks
+        check_attn(LM_MICRO_BATCH, LM_SEQ, LM_SEQ, H_l, KV_l, hd_l, f32, True,
+                   54),
+    ]
     for i, S in enumerate((1, 2, 17, 63, 64, 65)):                # ragged
         attn_cases.append(check_attn(2, S, S, 2, 2, 16, f32, True, 20 + i))
         attn_cases.append(check_attn(2, S, S, 2, 1, 64, bf, False, 30 + i))
+    dec_cases = decode_cases(lcfg)
 
     # ---- times at the main path's shapes
     x = _codec_input((1, S_main, d), bf, 1)
@@ -426,17 +579,31 @@ def phase_kernels(cfg) -> dict:
         # yardstick only: the port calls this nowhere
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))}
+    # the served shape (Llama-3.2-3B, generate's buffer, live length at its
+    # end) and an 8192-position cache
+    dec_err = max(c["max_err"] for c in dec_cases if c["dtype"] == "bfloat16")
+    T_l = LM_PROMPT + LM_STEPS
+    rec["decode_attention"] = time_decode(1, H_l, KV_l, T_l, hd_l, T_l,
+                                          dec_err)
+    rec["decode_attention"]["at_8192"] = {
+        k: v for k, v in time_decode(1, H_l, KV_l, 8192, hd_l, 8192,
+                                     dec_err).items()
+        if k in ("shape", "kv_len", "ms", "host_ms", "plain_ms", "bound_ms",
+                 "bound_by", "library_ms")}
     emit({"phase": "kernels",
           "tolerances": {"quantize_int8": "bit-equal",
                          "dequantize_int8": "bit-equal",
                          "quantize_int4": "bit-equal",
                          "dequantize_int4": "bit-equal",
                          "flash_attention": {"float32": 2e-5,
-                                             "bfloat16": 2e-2}},
+                                             "bfloat16": 2e-2},
+                         "decode_attention": {"float32": 1e-5,
+                                              "bfloat16": 2e-2}},
           "timing": "device time: CUDA events, median of 20 x 10 calls "
                     "queued behind other work; host_ms: time to issue a call",
           "codec_cases": codec_cases, "codec4_cases": codec4_cases,
           "attention_cases": attn_cases,
+          "decode_cases": dec_cases,
           "at_main_shapes": rec})
     return rec
 
@@ -446,7 +613,8 @@ WRAPPERS = {"quantize_int8": codec_ops.quantize,
             "dequantize_int8": codec_ops.dequantize,
             "quantize_int4": codec_ops.quantize_int4,
             "dequantize_int4": codec_ops.dequantize_int4,
-            "flash_attention": fa_ops.flash_attention}
+            "flash_attention": fa_ops.flash_attention,
+            "decode_attention": da_ops.decode_attention}
 
 
 def _counts() -> dict:
@@ -462,11 +630,14 @@ def _moved(before: dict) -> dict:
     return {k: v - before[k] for k, v in _counts().items()}
 
 
-def _want(n_llm: int, codec: str = "", codec2: str = "") -> dict:
+def _want(n_llm: int, codec: str = "", codec2: str = "",
+          decode: int = 0) -> dict:
     """Launches one request makes: one flash attention per LLM block, one
-    quantise and one dequantise per leg that ships through a codec."""
+    quantise and one dequantise per leg that ships through a codec, and
+    ``decode`` flash-decode launches."""
     want = dict.fromkeys(WRAPPERS, 0)
     want["flash_attention"] = n_llm
+    want["decode_attention"] = decode
     for c in (codec, codec2):
         if c:
             want[f"quantize_{c}"] += 1
@@ -538,7 +709,86 @@ def small_reference_check() -> dict:
             raise AssertionError(f"{name} reduced: action on the card is "
                                  f"{a_err} from the CPU's (limit {a_tol})")
         out[name] = {"hidden_max_err": h_err, "action_max_err": a_err}
+    out["llama3.2-3b"] = small_decode_check()
     return out
+
+
+def _plain_decode_attention(q, k, v, kv_len):
+    return da_ops.decode_attention_plain(q[:, 0] if q.dim() == 4 else q,
+                                         k, v, kv_len)
+
+
+def small_decode_check() -> dict:
+    """Llama-3.2-3B reduced, float32, GQA switched on (the stock reduced
+    config has as many KV heads as query heads): prefill plus decode on the
+    card against the full forward (2e-3, tests/test_decode_equivalence.py),
+    the decode logits with B6 against those with the plain decode attention
+    on the same card (1e-5), and the split executor at d_model 256 with the
+    int8 codec on the card against the one on the CPU."""
+    cfg = get_config("llama3.2-3b").reduced().replace(n_kv_heads=2,
+                                                      dtype="float32")
+    model = build(cfg)
+    params = model.init(gen(SEED + 40), DEV)
+    B, P, T = 2, 5, 12
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen(SEED + 41),
+                           device=DEV)
+    h, _ = lm_hidden(cfg, params, tokens)
+    full = lm_logits(cfg, params, h)
+
+    def decode_all():
+        logits, cache = prefill_and_pad(model, params,
+                                        {"tokens": tokens[:, :P]}, T)
+        steps = [logits[:, 0]]
+        for i in range(P, T):
+            logits, cache = model.decode(params, cache, tokens[:, i:i + 1], i)
+            steps.append(logits[:, 0])
+        return torch.stack(steps, 1)                  # positions P-1 .. T-1
+
+    before = da_ops.decode_attention.launches
+    with_kernel = decode_all()
+    if da_ops.decode_attention.launches - before != cfg.n_layers * (T - P):
+        raise AssertionError("reduced decode did not launch B6 per layer "
+                             "and step")
+    da_ops.decode_attention = _plain_decode_attention     # swapped, then back
+    with_plain = decode_all()
+    da_ops.decode_attention = WRAPPERS["decode_attention"]
+    full_err = (with_kernel - full[:, P - 1:]).abs().max().item()
+    plain_err = (with_kernel - with_plain).abs().max().item()
+    if full_err > 2e-3:
+        raise AssertionError(f"reduced prefill + decode is {full_err} from "
+                             "the full forward (limit 2e-3)")
+    if plain_err > 1e-5:
+        raise AssertionError(f"reduced decode logits with B6 are {plain_err} "
+                             "from those with the plain version (limit 1e-5)")
+
+    cfg2 = get_config("llama3.2-3b").reduced().replace(
+        n_layers=4, n_kv_heads=2, d_model=256, dtype="float32")
+    params2 = build(cfg2).init(gen(SEED + 42), DEV)
+    params2_cpu = tree_map(lambda t: t.cpu(), params2)
+    tok2 = torch.randint(0, cfg2.vocab_size, (B, 17), generator=gen(SEED + 43),
+                         device=DEV)
+    ex_err, card = {}, {}
+    for codec in ("", "int8"):
+        plan = SplitPlan(1, 3, codec=codec)
+        card[codec], pc = LMSplitExecutor(cfg2, plan).run(params2, tok2, 2)
+        lh, ph = LMSplitExecutor(cfg2, plan, device="cpu").run(
+            params2_cpu, tok2.cpu(), 2)
+        ex_err[codec or "raw"] = (card[codec].cpu() - lh).abs().max().item()
+        if payload_bytes(pc) != payload_bytes(ph):
+            raise AssertionError("reduced LM payload bytes differ card/CPU")
+    if ex_err["raw"] > 2e-4:
+        raise AssertionError(f"reduced LM executor on the card is "
+                             f"{ex_err['raw']} from the CPU's (limit 2e-4)")
+    rel = ((card["int8"] - card[""]).abs().max()
+           / card[""].abs().max()).item()
+    if rel > 0.05:            # tests/test_runtime.py's bound for the codec
+        raise AssertionError(f"reduced LM int8 logits {rel} relative from "
+                             "the raw ones (limit 0.05)")
+    return {"decode_vs_full_forward_max_err": full_err,
+            "decode_b6_vs_plain_max_err": plain_err,
+            "logits_max_abs": with_plain.abs().max().item(),
+            "executor_card_vs_cpu_max_err": ex_err,
+            "executor_int8_rel_err": rel}
 
 
 def profile_request(fn) -> dict:
@@ -559,8 +809,8 @@ def profile_request(fn) -> dict:
     groups = {}
     for key, us, count in rows:
         low = key.lower()
-        ours = re.search(r"(flash_attention_\w+|\w*quantize_int[48])_kernel",
-                         key)
+        ours = re.search(r"(flash_attention_\w+?|decode_(?:split|combine)"
+                         r"|\w*quantize_int[48])_kernel", key)
         if ours:
             name = "hand-written: " + ours.group(1)
         elif any(w in low for w in ("nvjet", "gemm", "gemv", "cutlass",
@@ -585,12 +835,14 @@ def profile_request(fn) -> dict:
 
 
 def phase_serve(cfg, n_requests: int = 8) -> dict:
+    held_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     model = build(cfg)
     t0 = time.perf_counter()
     params = model.init(gen(SEED), DEV)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    peak_init = torch.cuda.max_memory_allocated()
     n_params = sum(t.numel() for t in tree_leaves(params))
 
     Lv, L = cfg.vit_layers, cfg.n_layers
@@ -738,6 +990,10 @@ def phase_serve(cfg, n_requests: int = 8) -> dict:
             "codec_off_hidden_max_err": raw_err,
             "streamed_equals_run": True,
             "small_reference": small,
+            "held_before_init_bytes": held_before,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(params)),
+            "peak_at_init_bytes": peak_init,
             "peak_memory_bytes": peak}
     emit(info)
     return info
@@ -792,6 +1048,7 @@ def setup_cogact(cfg) -> dict:
     params = model.init(gen(SEED + 20), DEV)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    peak_init = torch.cuda.max_memory_allocated()
     lo, hi = (executor_cut(cfg, ctl, s)[0]
               for s in (ctl.pool.start, ctl.pool.end))
     executors = {w: VLASplitExecutor(cfg, SplitPlan(lo, hi, codec=w))
@@ -799,6 +1056,7 @@ def setup_cogact(cfg) -> dict:
     return {"cfg": cfg, "ctl": ctl, "params": params, "init_s": init_s,
             "held_before_bytes": held_before,
             "peak_after_reset_bytes": peak_after_reset,
+            "peak_at_init_bytes": peak_init,
             "param_bytes": sum(t.numel() * t.element_size()
                                for t in tree_leaves(params)),
             "pool": (lo, hi), "executors": executors,
@@ -954,6 +1212,7 @@ def phase_serve_cogact(st: dict, n_requests: int = 8) -> dict:
             "streamed_equals_run": True,
             "held_before_init_bytes": st["held_before_bytes"],
             "peak_after_reset_bytes": st["peak_after_reset_bytes"],
+            "peak_at_init_bytes": st["peak_at_init_bytes"],
             "param_bytes": st["param_bytes"],
             "peak_memory_bytes": peak}
     emit(info)
@@ -1059,6 +1318,234 @@ def phase_control(st: dict, n_ticks: int = 60) -> dict:
     return info
 
 
+# ================================================================ generate
+def setup_llama() -> dict:
+    """Llama-3.2-3B at full width and depth, bf16, weights from a seed."""
+    cfg = get_config("llama3.2-3b")
+    model = build(cfg)
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(gen(SEED + 30), DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    return {"cfg": cfg, "model": model, "params": params, "init_s": init_s,
+            "held_before_bytes": held_before,
+            "n_params": sum(t.numel() for t in tree_leaves(params)),
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(params)),
+            "gen": gen(SEED + 31)}
+
+
+def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
+    cfg, model, params = st["cfg"], st["model"], st["params"]
+    L, max_len = cfg.n_layers, prompt + steps
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                           generator=st["gen"], device=DEV)
+    greedy_generate(model, params, {"tokens": tokens[:, :64]}, 2)  # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts set to 0 just before, read just after
+    _reset_counts()
+    wall, out = _wall_ms(lambda: greedy_generate(
+        model, params, {"tokens": tokens}, steps, max_len=max_len))
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches != _want(L, decode=L * steps):
+        raise AssertionError(f"greedy_generate at batch {batch} launched "
+                             f"{launches}, expected {L} flash attention and "
+                             f"{L * steps} decode attention")
+    if tuple(out.shape) != (batch, steps) or out.min().item() < 0 \
+            or out.max().item() >= cfg.vocab_size:
+        raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
+                             "range")
+
+    # ---- the same loop, each stage synchronised, logits kept
+    step = make_serve_step(model)
+    ms_prefill, (logits, cache) = _wall_ms(lambda: prefill_and_pad(
+        model, params, {"tokens": tokens}, max_len))
+    cur = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    toks, step_logits, step_ms = [], [], []
+    for i in range(steps):
+        toks.append(cur)
+        before = _counts()
+        ms, (logits, cache) = _wall_ms(
+            lambda: step(params, cache, cur, prompt + i))
+        if _moved(before) != _want(0, decode=L):
+            raise AssertionError(f"decode step {i}: launches {_moved(before)}")
+        step_ms.append(ms)
+        step_logits.append(logits[:, 0])
+        cur = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    toks = torch.cat(toks, 1)
+    kv_bytes = cache_bytes(cache)
+    prof = profile_request(lambda: step(params, cache, cur, max_len - 1))
+
+    # ---- each step's logits against one full forward over prompt + tokens
+    h, _ = lm_hidden(cfg, params, torch.cat([tokens, toks], 1))
+    full = lm_logits(cfg, params, h[:, prompt:])
+    dec = torch.stack(step_logits, 1)
+    if not torch.isfinite(dec.float()).all():
+        raise AssertionError("decode logits are not finite")
+    err = (dec.float() - full.float()).abs()
+    agree = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
+    busy = prof.get("device_busy_ms")
+    med = statistics.median(step_ms)
+    return {"batch": batch, "prompt": prompt, "steps": steps,
+            "max_len": max_len,
+            "generate_wall_ms": wall,
+            "generate_tokens_per_s": batch * steps / wall * 1e3,
+            "prefill_wall_ms": ms_prefill,
+            "decode_step_wall_ms": step_ms,
+            "decode_step_wall_ms_median": med,
+            "decode_tokens_per_s": batch * steps / sum(step_ms) * 1e3,
+            "profile_one_step": prof,
+            "device_idle_share_one_step": (1 - busy / med)
+            if isinstance(busy, float) else "not measured",
+            "launches": launches,
+            "tokens_equal_greedy_generate": bool(torch.equal(toks, out)),
+            "kv_cache_bytes": kv_bytes,
+            "held_before_bytes": base,
+            "peak_during_generate_bytes": peak,
+            "peak_above_held_bytes": peak - base,
+            "logits_max_abs": full.float().abs().max().item(),
+            "logits_vs_full_forward_max_err": err.max().item(),
+            "logits_vs_full_forward_mean_err": err.mean().item(),
+            "argmax_agreement": agree}
+
+
+def phase_generate(st: dict, prompt: int = LM_PROMPT,
+                   steps: int = LM_STEPS) -> dict:
+    """``runtime/serving.py::greedy_generate`` on Llama-3.2-3B at full width
+    and depth: a 512-token prompt and 64 greedy steps, at batch 1 and 4."""
+    runs = [_generate_at(st, b, prompt, steps) for b in LM_BATCHES]
+    launches = {k: sum(r["launches"][k] for r in runs) for k in WRAPPERS}
+    cfg = st["cfg"]
+    info = {"phase": "generate", "model": cfg.name, "n_params": st["n_params"],
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+            "dtype": cfg.dtype, "init_s": st["init_s"],
+            "held_before_init_bytes": st["held_before_bytes"],
+            "param_bytes": st["param_bytes"], "runs": runs,
+            "launches": launches}
+    emit(info)
+    return info
+
+
+# ================================================================ serve_lm
+def phase_serve_lm(st: dict, n_batches: int = 8, seq: int = LM_SEQ) -> dict:
+    """``LMSplitExecutor`` as ``launch/serve.py`` drives it, at full width
+    and depth: requests of 17 tokens batched by 4 (``MicroBatcher``), the
+    int8 codec on the cut, the cut walking the pool of ``launch/serve.py``
+    ``[n//2 - 1, n//2 + 2)``; one two-pool request."""
+    cfg, model, params = st["cfg"], st["model"], st["params"]
+    n = cfg.n_layers
+    lo = max(n // 2 - 1, 0)
+    hi = min(lo + 3, n)
+    ex = LMSplitExecutor(cfg, SplitPlan(lo, hi, codec="int8"))
+    alg1 = {}
+    for codec in (False, True):
+        ctl = core.RoboECC(cfg, core.ORIN, core.A100,
+                           workload=core.Workload(s_new=seq),
+                           cloud_budget_bytes=0.9 * cfg.n_params() * 2,
+                           use_codec=codec)
+        alg1["codec" if codec else "raw"] = {
+            "split": ctl.seg.split, "graph_len": len(ctl.graph),
+            "pool": [ctl.pool.start, ctl.pool.end],
+            "graph_names_at_split": [c.name for c in
+                                     ctl.graph[max(ctl.seg.split - 1, 0):
+                                               ctl.seg.split + 1]]}
+    g = st["gen"]
+    batcher = MicroBatcher(batch_size=LM_MICRO_BATCH, max_wait_s=0.02)
+    batches = []
+    mb = LM_MICRO_BATCH
+    for rid in range(mb * n_batches):         # arrivals 1 ms apart
+        batcher.add(Request(rid, rid * 1e-3, seq))
+        b = batcher.maybe_form(rid * 1e-3)
+        if b is not None:
+            batches.append(torch.randint(0, cfg.vocab_size,
+                                         (len(b.requests), seq), generator=g,
+                                         device=DEV))
+    if [t.shape[0] for t in batches] != [mb] * n_batches:
+        raise AssertionError(f"batches {[t.shape[0] for t in batches]}")
+    cuts = [lo + i % (hi - lo + 1) for i in range(n_batches)]
+    ex.run(params, batches[0], cuts[0])                  # warm-up
+    torch.cuda.synchronize()
+
+    want_bytes = codec_ref.wire_bytes((mb, seq, cfg.d_model))
+    if want_bytes != mb * seq * cfg.d_model \
+            + mb * seq * cfg.d_model // 128 * 4:
+        raise AssertionError(f"wire_bytes gives {want_bytes}")
+    walls = []
+    _reset_counts()
+    for tokens, cut in zip(batches, cuts):
+        before = _counts()
+        ms, (logits, payload) = _wall_ms(
+            lambda: ex.run(params, tokens, cut))
+        walls.append(ms)
+        if _moved(before) != _want(n, "int8"):
+            raise AssertionError(f"LM request launches {_moved(before)}")
+        if tuple(logits.shape[:2]) != (mb, seq) \
+                or not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"LM logits {tuple(logits.shape)}")
+        if set(payload) != {"q", "s"} or payload_bytes(payload) != want_bytes:
+            raise AssertionError(f"LM payload {payload_bytes(payload)} bytes, "
+                                 f"expected {want_bytes}")
+    launches = _counts()
+
+    # ---- streamed == run, bit for bit
+    tokens, cut = batches[0], cuts[1]
+    l_run, _ = ex.run(params, tokens, cut)
+    l_str, chunks = ex.run_streamed(params, tokens, cut, 4)
+    if len(chunks) != 4 or not torch.equal(l_run, l_str):
+        raise AssertionError("LM run_streamed(n_chunks=4) differs from run")
+
+    # ---- codec off equals the monolithic forward exactly, at every cut
+    ex_raw = LMSplitExecutor(cfg, SplitPlan(lo, hi))
+    mono = model.forward(params, {"tokens": tokens})
+    raw_err = 0.0
+    for c in range(lo, hi + 1):
+        lr, _ = ex_raw.run(params, tokens, c)
+        raw_err = max(raw_err, (lr.float() - mono.float()).abs().max().item())
+    if raw_err != 0.0:
+        raise AssertionError(f"LM codec off: split logits are {raw_err} from "
+                             "the monolithic ones; expected equality")
+    rel = ((l_run.float() - mono.float()).abs().max()
+           / mono.float().abs().max()).item()
+
+    # ---- one two-pool request: the tail and the LM head back on the edge
+    ex2 = LMSplitExecutor(cfg, SplitPlan(lo, hi, codec="int8",
+                                         pool2_start=n - 2, pool2_end=n,
+                                         codec2="int8"))
+    before = _counts()
+    ms2, (l2, pay2) = _wall_ms(lambda: ex2.run(params, tokens, cut, n - 1))
+    if _moved(before) != _want(n, "int8", "int8"):
+        raise AssertionError(f"LM two-pool launches {_moved(before)}")
+    if payload_bytes(pay2["down"]) != want_bytes \
+            or not torch.isfinite(l2.float()).all():
+        raise AssertionError("LM two-pool downlink or logits")
+
+    prof = profile_request(lambda: ex.run(params, tokens, cut))
+    busy = prof.get("device_busy_ms")
+    med = statistics.median(walls)
+    info = {"phase": "serve_lm", "model": cfg.name, "batch": mb, "seq": seq,
+            "alg1_full_config": alg1,
+            "executor_pool": [lo, hi], "cuts": cuts,
+            "request_wall_ms": walls, "request_wall_ms_median": med,
+            "two_pool_request_wall_ms": ms2,
+            "profile_one_request": prof,
+            "device_idle_share_one_request": (1 - busy / med)
+            if isinstance(busy, float) else "not measured",
+            "payload_bytes": want_bytes,
+            "downlink_payload_bytes": payload_bytes(pay2["down"]),
+            "codec_off_logits_max_err": raw_err,
+            "int8_logits_rel_err": rel,
+            "streamed_equals_run": True,
+            "launches": launches}
+    emit(info)
+    return info
+
+
 # ==================================================================== main
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1078,13 +1565,19 @@ def main() -> None:
         cogact = cogact.replace(vit_layers=args.vit_layers)
 
     phase_build()
-    kernels = phase_kernels(cfg)
+    kernels = phase_kernels(cfg, get_config("llama3.2-3b"))
     runs = {"serve": phase_serve(cfg)["launches"]}
     gc.collect()                    # the OpenVLA parameters go before CogACT
     torch.cuda.empty_cache()
     cst = setup_cogact(cogact)
     runs["serve_cogact"] = phase_serve_cogact(cst)["launches"]
     runs["control"] = phase_control(cst)["launches"]
+    del cst                         # the CogACT parameters go before Llama
+    gc.collect()
+    torch.cuda.empty_cache()
+    lst = setup_llama()
+    runs["generate"] = phase_generate(lst)["launches"]
+    runs["serve_lm"] = phase_serve_lm(lst)["launches"]
 
     print(env["nvidia_smi"], flush=True)
     summary = []
@@ -1100,7 +1593,9 @@ def main() -> None:
                         "ms": r["ms"], "host_ms": r["host_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        **({"at_8192": r["at_8192"]} if "at_8192" in r
+                           else {})})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

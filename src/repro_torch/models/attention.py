@@ -1,18 +1,24 @@
-"""Attention: grouped-query / multi-head self attention for prefill.
+"""Attention: grouped-query / multi-head self attention, prefill and decode.
 
-Counterpart of the prefill half of ``src/repro/models/attention.py``
-(decode caches, MLA and cross attention follow with the paths that need
-them).
+Counterpart of the GQA half of ``src/repro/models/attention.py`` (MLA and
+cross attention follow with the paths that need them).
 
 Routing, as the JAX package routes with ``attn_impl="pallas"``: causal
 attention over more than one position goes to
-``kernels.flash_attention.ops.flash_attention`` — the hand-written kernel
-for a CUDA tensor, its plain version for a CPU tensor — with K/V *not*
-expanded (the kernel maps query heads to their K/V head by index).
-Everything else (the ViT's and the DiT's non-causal attention) goes
-through :func:`_sdpa`, written out as two matrix products around a float32
-softmax; those products are the ones the JAX package leaves to XLA.
-``cfg.attn_impl`` is kept as a field and not consulted.
+``kernels.flash_attention.ops.flash_attention``, and one decode token
+against the cache to ``kernels.decode_attention.ops.decode_attention`` —
+each the hand-written kernel for a CUDA tensor, its plain version for a
+CPU tensor — with K/V *not* expanded (the kernels map query heads to their
+K/V head by index).  Everything else (the ViT's and the DiT's non-causal
+attention) goes through :func:`_sdpa`, written out as two matrix products
+around a float32 softmax; those products are the ones the JAX package
+leaves to XLA.  ``cfg.attn_impl`` is kept as a field and not consulted.
+
+Decode caches are stored flat as ``(B, S_max, KV*hd)``, as in the JAX
+package.  :func:`attn_decode` writes the new token's K/V into the cache
+**in place** (the JAX package returns an updated copy, which its serving
+step donates) and hands the kernel a strided ``(B, KV, T, hd)`` view of
+it, so no step copies the cache.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ from typing import Dict, Optional
 
 import torch
 
+from .. import to_dtype
+from ..kernels.decode_attention import ops as da_ops
 from ..kernels.flash_attention import ops as fa_ops
 from .layers import apply_rope, dense, linear_spec
 from .sharding import spec
@@ -170,3 +178,48 @@ def attn_forward(cfg, p, x, positions, *, causal=True, rope=True,
     if return_kv:
         return y, {"k": k.reshape(B, S, -1), "v": v.reshape(B, S, -1)}
     return y
+
+
+def _position(pos, device) -> torch.Tensor:
+    """The decode position as a (1,) int64 tensor on ``device``: an int
+    becomes a fill on the device (no copy from the host), a tensor is
+    moved there as it is."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int64).reshape(1)
+    return torch.full((1,), int(pos), dtype=torch.int64, device=device)
+
+
+def attn_decode(cfg, p, x, pos, cache: Dict):
+    """One-token decode. cache: {"k","v"}: (B, S_max, KV*hd); pos: the
+    token's position (int or 0-dim tensor).  The new K/V are written into
+    ``cache`` in place and the same tensors are returned."""
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"attn_decode takes one token, got {S}")
+    hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads
+    q, k, v = _qkv(cfg, p, x)
+    positions = _position(pos, x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    kc, vc = cache["k"], cache["v"]
+    kc.index_copy_(1, positions, k.reshape(B, 1, KV * hd).to(kc.dtype))
+    vc.index_copy_(1, positions, v.reshape(B, 1, KV * hd).to(vc.dtype))
+    T = kc.shape[1]
+    k4 = kc.view(B, T, KV, hd).permute(0, 2, 1, 3)      # (B,KV,T,hd) views
+    v4 = vc.view(B, T, KV, hd).permute(0, 2, 1, 3)
+    out = da_ops.decode_attention(q[:, 0], k4, v4, pos + 1)
+    y = dense(out.reshape(B, 1, -1), p["wo"])
+    return y, {"k": kc, "v": vc}
+
+
+def kv_cache_specs(cfg, batch: int, max_len: int) -> Dict:
+    hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads
+    if cfg.decode_attn == "sp":
+        ax = ("batch", "cache_seq_sp", None)
+    else:
+        ax = ("batch", None, "kv_heads")
+    dt = to_dtype(cfg.dtype)
+    return {
+        "k": spec((batch, max_len, KV * hd), ax, dtype=dt, init="zeros"),
+        "v": spec((batch, max_len, KV * hd), ax, dtype=dt, init="zeros"),
+    }

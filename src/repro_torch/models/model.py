@@ -2,9 +2,12 @@
 
 Counterpart of ``src/repro/models/model.py`` for the families ported so
 far: ``build(cfg)`` returns a :class:`Model` exposing ``param_specs`` (the
-ParamSpec tree), ``init(generator, device)`` (random parameters) and
+ParamSpec tree), ``init(generator, device)`` (random parameters),
 ``forward(params, batch, ...)`` — the action for a VLA, the logits of the
-whole sequence for a dense LM.
+whole sequence for a dense LM — and the serving triple ``prefill(params,
+batch)``, ``decode(params, cache, tokens, pos)`` and ``cache_specs(batch,
+max_len)``.  A VLA re-prefills every request: its ``prefill`` and
+``decode`` raise and its cache is empty, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,6 +29,9 @@ class Model:
     cfg: ModelConfig
     param_specs: Tree
     forward: Callable
+    prefill: Callable
+    decode: Callable
+    cache_specs: Callable
 
     def init(self, generator: torch.Generator, device="cuda") -> Tree:
         """Random parameters on ``device`` (the card unless the caller asks
@@ -41,14 +47,34 @@ def build(cfg: ModelConfig) -> Model:
             h, _ = T.lm_hidden(cfg, params, batch["tokens"])
             return T.lm_logits(cfg, params, h)
 
-        return Model(cfg, T.lm_specs(cfg), forward)
+        def prefill(params, batch):
+            return T.lm_prefill(cfg, params, batch["tokens"])
+
+        def decode(params, cache, tokens, pos):
+            return T.lm_decode(cfg, params, cache, tokens, pos)
+
+        def cache_specs(batch, max_len, **_):
+            return T.lm_cache_specs(cfg, batch, max_len)
+
+        return Model(cfg, T.lm_specs(cfg), forward, prefill, decode,
+                     cache_specs)
 
     if fam == "vla":
         def forward(params, batch, noise=None, generator=None):
             return V.vla_forward(cfg, params, batch["patches"],
                                  batch["tokens"], noise, generator)
 
-        return Model(cfg, V.vla_specs(cfg), forward)
+        def prefill(params, batch):
+            raise NotImplementedError("VLA serves whole requests; use forward")
+
+        def decode(params, cache, tokens, pos):
+            raise NotImplementedError("VLA serves whole requests; use forward")
+
+        def cache_specs(batch, max_len, **_):
+            return {}
+
+        return Model(cfg, V.vla_specs(cfg), forward, prefill, decode,
+                     cache_specs)
 
     if fam in ("moe", "ssm", "hybrid", "audio", "vlm"):
         raise NotImplementedError(f"family {fam!r} is not ported yet")

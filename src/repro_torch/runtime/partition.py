@@ -1,13 +1,13 @@
 """Edge/cloud partitioned execution — RoboECC's runtime artifact.
 
 Counterpart of ``src/repro/runtime/partition.py`` for the VLA request
-path.  The model's layer stack is cut at a *dynamic* split index that
-lives inside a static **parameter-sharing pool** ``[pool_start,
-pool_end)``: both tiers hold the pool layers' weights, so moving the split
-inside the pool ships no weight and rebuilds nothing.  The JAX package
-keeps the cut a traced argument and runs each pool layer under a
-``lax.cond``; in eager PyTorch a Python ``if`` per pool layer gives the
-same guarantee.
+path and the dense LM.  The model's layer stack is cut at a *dynamic*
+split index that lives inside a static **parameter-sharing pool**
+``[pool_start, pool_end)``: both tiers hold the pool layers' weights, so
+moving the split inside the pool ships no weight and rebuilds nothing.
+The JAX package keeps the cut a traced argument and runs each pool layer
+under a ``lax.cond``; in eager PyTorch a Python ``if`` per pool layer gives
+the same guarantee.
 
 A two-pool plan adds a second pool ``[pool2_start, pool2_end)`` around the
 cloud→edge tail cut of an edge→cloud→edge placement and ships two
@@ -25,8 +25,9 @@ Both tiers run on the one device the executor was made for and share one
 parameter tree, as in the JAX package.  On the card both codecs launch
 their hand-written kernels (int8: ``quantize`` / ``dequantize``; packed
 int4: ``quantize_int4`` / ``dequantize_int4``); int4 at a width that is no
-multiple of 256 raises here, before any kernel.  ``LMSplitExecutor`` and
-the temporal-delta transport are not ported yet.
+multiple of 256 raises here, before any kernel.  ``LMSplitExecutor``
+serves the dense family (MoE raises until its blocks are ported); the
+temporal-delta transport is not ported yet.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ import torch
 
 from .. import require_device, to_dtype
 from ..kernels.activation_codec import ops as codec
+from ..models import transformer as T
 from ..models import vla as V
 from ..models.layers import embed, rmsnorm, unembed
 from ..models.sharding import tree_leaves, tree_map
@@ -195,6 +197,160 @@ def merge_chunks(chunks: List[Dict]) -> Dict:
     return {k: torch.cat([c[k] for c in chunks], dim=1) for k in chunks[0]}
 
 
+def _check_recorder(recorder) -> None:
+    if recorder is not None:
+        raise NotImplementedError(
+            "executor spans need the flight recorder, which is not "
+            "ported yet; pass recorder=None")
+
+
+def _check_device(device: torch.device, **tensors) -> None:
+    for name, t in tensors.items():
+        if t.device.type != device.type:
+            raise ValueError(f"{name} lie on {t.device}; this executor "
+                             f"runs on {device}")
+
+
+# ================================================================ LM executor
+class LMSplitExecutor:
+    """Dense decoder-only LM split at a block boundary.
+
+    Layer indexing: 0..L-1 are transformer blocks; embed always on edge.
+    Single-pool plans keep final-norm + unembed cloud-side; a two-pool plan
+    returns the tail — pool-2 layers with ``i >= split2``, the blocks after
+    ``pool2_end`` and the LM head — to the edge, shipping a second
+    (downlink) payload.
+
+    ``device`` is where both tiers run: the card by default, and the
+    constructor raises when there is none; ``device="cpu"`` is for callers
+    that ask for the plain versions (the tests)."""
+
+    def __init__(self, cfg, plan: SplitPlan, device="cuda"):
+        if cfg.family == "moe":
+            raise NotImplementedError("MoE blocks are not ported yet")
+        if cfg.family != "dense":
+            raise ValueError(f"LMSplitExecutor serves the dense family, "
+                             f"got {cfg.family!r}")
+        if not 0 <= plan.pool_start <= plan.pool_end <= cfg.n_layers:
+            raise ValueError(f"pool [{plan.pool_start}, {plan.pool_end}) "
+                             f"must lie in [0, {cfg.n_layers}]")
+        if plan.two_pool and not plan.pool2_end <= cfg.n_layers:
+            raise ValueError(f"second pool [{plan.pool2_start}, "
+                             f"{plan.pool2_end}) must end by {cfg.n_layers}")
+        self.cfg = cfg
+        self.plan = plan
+        self.device = require_device(device)
+
+    def _blocks(self, params, start: int, end: int) -> Tree:
+        """Stacked block params [start, end) (one pool's weights, views)."""
+        return tree_map(lambda w: w[start:end], params["blocks"])
+
+    def _run_blocks(self, params, x, positions, start: int, end: int):
+        for i in range(start, end):
+            x, _, _ = block_forward(self.cfg, _layer_slice(params["blocks"], i),
+                                    x, positions)
+        return x
+
+    def _pool(self, params, x, positions, split: int, start: int, end: int,
+              side: str):
+        if end > start:
+            x = _masked_stack(self.cfg, self._blocks(params, start, end), x,
+                              positions, split, start, side)
+        return x
+
+    # -- edge side: embed + [0, pool_start) + masked pool
+    def _edge_hidden(self, params, tokens, split: int):
+        cfg, plan = self.cfg, self.plan
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = embed(params["embed"], tokens).to(to_dtype(cfg.dtype))
+        x = self._run_blocks(params, x, positions, 0, plan.pool_start)
+        return self._pool(params, x, positions, split, plan.pool_start,
+                          plan.pool_end, "edge")
+
+    def _edge_fwd(self, params, tokens, split: int) -> Dict:
+        return encode_activation(self._edge_hidden(params, tokens, split),
+                                 self.plan.wire_codec)
+
+    # -- cloud side (single-pool): masked pool + [pool_end, L)
+    def _cloud_hidden(self, params, x, split: int):
+        cfg, plan = self.cfg, self.plan
+        positions = torch.arange(x.shape[1], device=x.device)
+        x = self._pool(params, x, positions, split, plan.pool_start,
+                       plan.pool_end, "cloud")
+        return self._run_blocks(params, x, positions, plan.pool_end,
+                                cfg.n_layers)
+
+    def _cloud_fwd(self, params, payload: Dict, split: int):
+        x = decode_activation(payload, self.cfg.dtype)
+        return T.lm_logits(self.cfg, params,
+                           self._cloud_hidden(params, x, split))
+
+    # -- cloud side (two-pool): masked pool + mid blocks + masked pool 2
+    def _cloud_mid_fwd(self, params, payload: Dict, split: int, split2: int
+                       ) -> Dict:
+        plan = self.plan
+        x = decode_activation(payload, self.cfg.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x = self._pool(params, x, positions, split, plan.pool_start,
+                       plan.pool_end, "cloud")
+        x = self._run_blocks(params, x, positions, plan.pool_end,
+                             plan.pool2_start)
+        # cloud owns the BELOW-split2 half of pool 2 ("edge" predicate)
+        x = self._pool(params, x, positions, split2, plan.pool2_start,
+                       plan.pool2_end, "edge")
+        return encode_activation(x, plan.codec2)
+
+    # -- edge tail (two-pool): masked pool 2 + [pool2_end, L) + head
+    def _tail_fwd(self, params, payload: Dict, split2: int):
+        cfg, plan = self.cfg, self.plan
+        x = decode_activation(payload, cfg.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x = self._pool(params, x, positions, split2, plan.pool2_start,
+                       plan.pool2_end, "cloud")
+        x = self._run_blocks(params, x, positions, plan.pool2_end,
+                             cfg.n_layers)
+        return T.lm_logits(cfg, params, x)
+
+    # -- public API
+    def _finish(self, params, payload, wire, split: int, split2):
+        """Everything after the uplink: ``payload`` is what the cloud
+        decodes, ``wire`` what is reported as shipped."""
+        if not self.plan.two_pool:
+            return self._cloud_fwd(params, payload, split), wire
+        split2 = self.plan.clamp2(
+            split2 if split2 is not None else self.plan.pool2_end)
+        down = self._cloud_mid_fwd(params, payload, split, split2)
+        logits = self._tail_fwd(params, down, split2)
+        return logits, {"up": wire, "down": down}
+
+    @torch.no_grad()
+    def run(self, params, tokens, split: int, split2: Optional[int] = None,
+            recorder=None):
+        """One co-inference.  Single-pool plans return
+        ``(logits, uplink_payload)``; two-pool plans take the second cut
+        ``split2`` and return ``(logits, {"up": ..., "down": ...})`` — the
+        logits computed on the edge tail."""
+        _check_recorder(recorder)
+        _check_device(self.device, tokens=tokens)
+        split = self.plan.clamp(split)
+        payload = self._edge_fwd(params, tokens, split)
+        return self._finish(params, payload, payload, split, split2)
+
+    @torch.no_grad()
+    def run_streamed(self, params, tokens, split: int, n_chunks: int,
+                     split2: Optional[int] = None):
+        """One co-inference with the uplink payload shipped in
+        ``n_chunks`` token-axis chunk slices.  Returns ``(logits, chunks)``
+        (two-pool: ``(logits, {"up": chunks, "down": payload})`` — the
+        small downlink tail never streams).  Bit-identical to ``run``."""
+        _check_device(self.device, tokens=tokens)
+        split = self.plan.clamp(split)
+        payload = self._edge_fwd(params, tokens, split)
+        chunks = chunk_payload(payload, n_chunks)
+        return self._finish(params, merge_chunks(chunks), chunks, split,
+                            split2)
+
+
 # ================================================================ VLA executor
 class VLASplitExecutor:
     """ViT + LLM (+ action head) split; pool(s) inside the LLM block range.
@@ -344,14 +500,8 @@ class VLASplitExecutor:
 
     # -- public API
     def _prepare(self, patches, tokens, noise, generator, recorder):
-        if recorder is not None:
-            raise NotImplementedError(
-                "executor spans need the flight recorder, which is not "
-                "ported yet; pass recorder=None")
-        for name, t in (("patches", patches), ("tokens", tokens)):
-            if t.device.type != self.device.type:
-                raise ValueError(f"{name} lie on {t.device}; this executor "
-                                 f"runs on {self.device}")
+        _check_recorder(recorder)
+        _check_device(self.device, patches=patches, tokens=tokens)
         if self.cfg.vla_action_head == "dit" and noise is None:
             noise = V.draw_noise(self.cfg, patches.shape[0], patches.device,
                                  generator)

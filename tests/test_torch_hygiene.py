@@ -89,6 +89,9 @@ def test_the_package_lists_every_module_of_the_slice():
                  "core.pipeline", "core.placement", "core.segmentation",
                  "core.pool", "core.network", "core.adjustment",
                  "core.predictor", "core.controller",
+                 "kernels.decode_attention.ops", "kernels.decode_attention.ref",
+                 "runtime.kvcache", "runtime.serving", "runtime.scheduler",
+                 "launch", "launch.serve",
                  *(f"configs.{m}" for m in (
                      "command_r_35b", "deepseek_v2_lite_16b", "glm4_9b",
                      "granite_moe_3b_a800m", "llama_3_2_vision_11b",
@@ -97,13 +100,18 @@ def test_the_package_lists_every_module_of_the_slice():
         assert f"repro_torch.{want}" in names
     from repro_torch.kernels import _build
     assert {p.name for p in _build.sources()} == {"activation_codec.cu",
-                                                  "flash_attention.cu"}
+                                                  "flash_attention.cu",
+                                                  "decode_attention.cu"}
     assert {"rt_quantize_int8", "rt_dequantize_int8", "rt_quantize_int4",
-            "rt_dequantize_int4", "rt_flash_attention"} == set(_build.SIGNATURES)
+            "rt_dequantize_int4", "rt_flash_attention",
+            "rt_decode_attention"} == set(_build.SIGNATURES)
     src = (_build.CSRC / "activation_codec.cu").read_text()
     for name in _build.SIGNATURES:
         if "quantize" in name:
             assert f'extern "C" int {name}(' in src
+    src = (_build.CSRC / "decode_attention.cu").read_text()
+    assert 'extern "C" int rt_decode_attention(' in src
+    assert "decode_attention_pallas" in src
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
@@ -126,6 +134,14 @@ def test_wrappers_raise_on_a_device_they_have_no_version_for():
     with pytest.raises(ValueError):                   # mixed devices
         fa.flash_attention(torch.zeros(1, 4, 2, 16), q, q)
     assert codec.quantize.launches == 0 and fa.flash_attention.launches == 0
+    from repro_torch.kernels.decode_attention import ops as da
+    qd = torch.empty((1, 4, 16), device="meta")
+    kd = torch.empty((1, 2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        da.decode_attention(qd, kd, kd, 3)
+    with pytest.raises(ValueError):                   # mixed devices
+        da.decode_attention(torch.zeros(1, 4, 16), kd, kd, 3)
+    assert da.decode_attention.launches == 0
 
 
 def test_a_block_the_kernels_do_not_take_raises_on_the_card(monkeypatch):
@@ -231,3 +247,52 @@ def test_int4_launches_its_kernel_on_a_cuda_tensor(monkeypatch):
         codec.dequantize_int4(p, s, torch.float16)
     assert len(fake.calls) == 2
     assert codec.quantize_int4.launches == codec.dequantize_int4.launches == 1
+
+
+def test_decode_attention_launches_its_kernel_on_a_cuda_tensor(monkeypatch):
+    """On a CUDA tensor the flash-decode wrapper launches its kernel once,
+    reading the model's flat cache in place through its strides, with the
+    split plan of the buffer length and ``kv_len`` as an int, and counts
+    the launch; what the kernel does not take raises before any launch."""
+    import contextlib
+    import types
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import ops as da
+    fake = _FakeLib()
+    monkeypatch.setattr(_build, "lib", lambda: fake)
+    monkeypatch.setattr(da, "_device_kind", lambda ts: "cuda")
+    monkeypatch.setattr(da.torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(da.torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(da.decode_attention, "launches", 0)
+    asked = []
+    monkeypatch.setattr(da, "sm_count",
+                        lambda d: asked.append(d) or 132)   # an H100 SXM
+    B, S_max, H, KV, hd = 1, 576, 24, 8, 128      # llama3.2-3b, served
+    cache = torch.zeros((2, B, S_max, KV * hd), dtype=torch.bfloat16)
+    kc = cache[1]                                  # layer 1 of the stack
+    k4 = kc.view(B, S_max, KV, hd).permute(0, 2, 1, 3)
+    q = torch.ones((B, 1, H, hd), dtype=torch.bfloat16)
+    out = da.decode_attention(q, k4, k4, 513)
+    assert out.shape == (B, 1, H, hd) and out.dtype == torch.bfloat16
+    ((name, a),) = fake.calls
+    assert name == "rt_decode_attention"
+    assert a[1] == a[2] == kc.data_ptr()           # no copy of the cache
+    assert a[6:12] == (B, H, KV, S_max, hd, 513)
+    assert a[12] is None and a[13:15] == (32, 18)
+    assert asked == [q.device]                     # the SMs of q's card
+    assert a[15:17] == (H * hd, hd)                            # q
+    assert a[17:20] == a[20:23] == (S_max * KV * hd, hd, KV * hd)  # k, v
+    assert a[23:25] == (H * hd, hd)                            # out
+    assert a[25] == hd ** -0.5 and a[26] == 1
+    assert da.decode_attention.launches == 1
+    with pytest.raises(ValueError, match="head dim"):
+        da.decode_attention(q[..., :48], k4[..., :48], k4[..., :48], 5)
+    with pytest.raises(TypeError):
+        da.decode_attention(q.half(), k4.half(), k4.half(), 5)
+    with pytest.raises(ValueError, match="belong together"):
+        da.decode_attention(q[:, :, :7], k4, k4, 5)
+    with pytest.raises(ValueError, match="empty cache"):
+        da.decode_attention(q, k4, k4, 0)
+    assert len(fake.calls) == 1 and da.decode_attention.launches == 1
