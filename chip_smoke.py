@@ -8,8 +8,9 @@ made from a seed — OpenVLA-7B and CogACT-7B action requests served by split
 co-inference (``repro_torch.runtime.partition.VLASplitExecutor``), the
 paper's closed loop (``repro_torch.core.RoboECC``) choosing the cut and the
 codec of every CogACT request, Llama-3.2-3B prefill and greedy decode
-(``repro_torch.runtime.serving.greedy_generate``) and Llama-3.2-3B requests
-served by split co-inference (``LMSplitExecutor``) — and holds every
+(``repro_torch.runtime.serving.greedy_generate``), Llama-3.2-3B requests
+served by split co-inference (``LMSplitExecutor``), and prefill and greedy
+decode of Mamba2-1.3B (SSM) and Zamba2-1.2B (hybrid) — and holds every
 hand-written kernel on those paths against its plain PyTorch version on the
 card.  Needs one card,
 ``nvcc`` and no network; the kernels are built from
@@ -38,6 +39,13 @@ Phases, one JSON line each:
                 ``launch/serve.py``, int8 on the cut, batches of 4 requests
                 of 17 tokens, one two-pool request, the checks on what came
                 out
+  generate_ssm  Mamba2-1.3B as ``generate`` does Llama (the SSD scan in
+                every layer of the prefill and of the full forward), after
+                its reduced config in float32 against the full forward and
+                against the plain versions on the card
+  generate_hybrid  Zamba2-1.2B the same way (the shared attention block at
+                7 sites: flash attention in the prefill, flash-decode in
+                every step)
 
 then the card's name and power limit as ``nvidia-smi`` prints them, a
 ``{"kernels": [...]}`` summary of every kernel (launch count on the main
@@ -75,12 +83,15 @@ from repro_torch.kernels.activation_codec import ops as codec_ops
 from repro_torch.kernels.activation_codec import ref as codec_ref
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import build
+from repro_torch.models.hybrid import n_sites
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.sharding import tree_leaves, tree_map
+from repro_torch.models.ssm import ssd_step
 from repro_torch.models.transformer import lm_hidden, lm_logits
 from repro_torch.models.vla import vla_backbone
-from repro_torch.runtime.kvcache import cache_bytes, pad_cache
+from repro_torch.runtime.kvcache import cache_bytes
 from repro_torch.runtime.partition import (LMSplitExecutor, SplitPlan,
                                            VLASplitExecutor,
                                            decode_activation,
@@ -444,11 +455,183 @@ def time_decode(B, H, KV, T, D, kv_len, max_err) -> dict:
                 q4, kl, vl, enable_gqa=True))}
 
 
-def phase_kernels(cfg, lcfg) -> dict:
+def _ssd_inputs(B, T, H, P, N, dtype, seed, a_init=False):
+    """The distribution of tests/test_kernels.py: x * 0.5, dt =
+    softplus(normal), A = -exp(0.3 normal) (or -1, as ``A_log``'s zero
+    init gives), B and C * 0.3; x, B, C in ``dtype``, dt and A float32."""
+    g = gen(seed)
+
+    def draw(shape):
+        return torch.randn(shape, generator=g, device=DEV,
+                           dtype=torch.float32)
+
+    x = (draw((B, T, H, P)) * 0.5).to(dtype)
+    dt = F.softplus(draw((B, T, H)))
+    A = -torch.ones(H, device=DEV) if a_init else -torch.exp(draw((H,)) * 0.3)
+    Bm = (draw((B, T, N)) * 0.3).to(dtype)
+    Cm = (draw((B, T, N)) * 0.3).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+# B7 limits, stated before the first run on the card.  float32: the
+# reference's 2e-5 (tests/test_kernels.py), scaled by the largest value
+# where it passes 1.  bf16 inputs: against the plain version fed the same
+# inputs upcast, y within two bf16 rounding units (2 * 2^-8) of the largest
+# |y| (the kernel rounds y once) and the float32 state as in float32;
+# against the plain version in bf16 (which rounds xdt, the scores and the
+# chunk states to bf16), 3e-2 of the largest value.
+SSD_F32_TOL = 2e-5
+SSD_BF16_Y_REL = 2 * 2.0 ** -8
+SSD_BF16_PLAIN_REL = 3e-2
+
+
+def _err_and_max(got, want) -> tuple:
+    err = (got.float() - want.float()).abs().max().item()
+    return err, want.float().abs().max().item()
+
+
+def check_ssd(B, T, H, P, N, chunk, dtype, seed, a_init=False) -> dict:
+    x, dt, A, Bm, Cm = _ssd_inputs(B, T, H, P, N, dtype, seed, a_init)
+    y, s = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    y32, s32 = ssd_ops.ssd_scan_plain(x.float(), dt, A, Bm.float(),
+                                      Cm.float(), chunk)
+    torch.cuda.synchronize()
+    if tuple(y.shape) != (B, T, H, P) or y.dtype != dtype \
+            or tuple(s.shape) != (B, H, N, P) or s.dtype != torch.float32:
+        raise AssertionError(f"ssd_scan: wrong output {tuple(y.shape)} "
+                             f"{y.dtype} {tuple(s.shape)} {s.dtype}")
+    if not (torch.isfinite(y.float()).all() and torch.isfinite(s).all()):
+        raise AssertionError("ssd_scan: output is not finite")
+    y_err, y_max = _err_and_max(y, y32)
+    s_err, s_max = _err_and_max(s, s32)
+    case = {"B": B, "T": T, "H": H, "P": P, "N": N, "chunk": chunk,
+            "dtype": str(dtype).split(".")[-1], "A_minus_one": a_init,
+            "p_tile": ssd_ops.p_tile(P, B * H, ssd_ops.sm_count(x.device)),
+            "y_max_err_vs_f32": y_err, "y_max_abs": y_max,
+            "state_max_err_vs_f32": s_err, "state_max_abs": s_max,
+            "state_tol": SSD_F32_TOL * max(1.0, s_max),
+            "max_err": max(y_err, s_err)}
+    ok = s_err <= case["state_tol"]
+    if dtype == torch.float32:
+        case["y_tol"] = SSD_F32_TOL * max(1.0, y_max)
+        ok = ok and y_err <= case["y_tol"]
+    else:
+        case["y_tol"] = SSD_BF16_Y_REL * y_max
+        yb, sb = ssd_ops.ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
+        yb_err, yb_max = _err_and_max(y, yb)
+        sb_err, sb_max = _err_and_max(s, sb)
+        case.update({"y_max_err_vs_plain_bf16": yb_err,
+                     "state_max_err_vs_plain_bf16": sb_err,
+                     "y_tol_vs_plain_bf16": SSD_BF16_PLAIN_REL * yb_max,
+                     "state_tol_vs_plain_bf16": SSD_BF16_PLAIN_REL * sb_max})
+        ok = (ok and y_err <= case["y_tol"]
+              and yb_err <= case["y_tol_vs_plain_bf16"]
+              and sb_err <= case["state_tol_vs_plain_bf16"])
+    if not ok:
+        raise AssertionError(f"ssd_scan disagrees with its plain version: "
+                             f"{case}")
+    return case
+
+
+def check_ssd_recurrence() -> dict:
+    """tests/test_kernels.py::test_ssd_state_equals_sequential on the card:
+    (1, 48, 2, 8, 16) at chunk 16, y and the final state against the
+    per-token recurrence ``ssd_step``, 1e-4."""
+    B, T, H, P, N = 1, 48, 2, 8, 16
+    x, dt, A, Bm, Cm = _ssd_inputs(B, T, H, P, N, torch.float32, 90)
+    y, s = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+    S = torch.zeros((B, H, N, P), device=DEV)
+    ys = []
+    for t in range(T):
+        yt, S = ssd_step(S, x[:, t], dt[:, t], A, Bm[:, t], Cm[:, t])
+        ys.append(yt)
+    y_err = (y - torch.stack(ys, 1)).abs().max().item()
+    s_err = (s - S).abs().max().item()
+    case = {"B": B, "T": T, "H": H, "P": P, "N": N, "chunk": 16,
+            "dtype": "float32", "against": "ssd_step recurrence",
+            "y_max_err": y_err, "state_max_err": s_err, "tol": 1e-4,
+            "max_err": max(y_err, s_err)}
+    if max(y_err, s_err) > 1e-4:
+        raise AssertionError(f"ssd_scan disagrees with the recurrence: "
+                             f"{case}")
+    return case
+
+
+def ssd_cases(mcfg, zcfg) -> list:
+    """B7 cases: the reference's sweep, the recurrence, the served shapes
+    of Mamba2-1.3B and Zamba2-1.2B (prompt ``LM_PROMPT``, batch 1 and 4) in
+    float32 and bf16, a ragged and a short prompt, the reduced widths."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [check_ssd(*shape, f32, 500 + i) for i, shape in enumerate((
+        (2, 128, 3, 16, 32, 32), (1, 256, 2, 32, 16, 64),
+        (1, 64, 1, 8, 8, 64)))]                      # tests/test_kernels.py
+    cases.append(check_ssd_recurrence())
+    seed = 510
+    for cfg in (mcfg, zcfg):
+        H, P, N, Q = (cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state,
+                      cfg.ssm_chunk)
+        for B in LM_BATCHES:
+            for dt in (f32, bf):
+                seed += 1
+                cases.append(check_ssd(B, LM_PROMPT, H, P, N, Q, dt, seed))
+        for T in (300, 17):                          # ragged, T < chunk
+            for dt in (f32, bf):
+                seed += 1
+                cases.append(check_ssd(1, T, H, P, N, Q, dt, seed))
+    H, P, N, Q = (mcfg.ssm_nheads, mcfg.ssm_headdim, mcfg.ssm_state,
+                  mcfg.ssm_chunk)
+    cases.append(check_ssd(1, LM_PROMPT, H, P, N, Q, bf, 530, a_init=True))
+    r = mcfg.reduced()
+    cases.append(check_ssd(2, 70, r.ssm_nheads, r.ssm_headdim, r.ssm_state,
+                           r.ssm_chunk, f32, 531))      # N = P = 16, chunk 32
+    return cases
+
+
+def ssd_bound(B, T, H, P, N, chunk, dtype) -> tuple:
+    """The card's least time for one scan: each input read and each output
+    written once; the multiply-adds of the four products in their least
+    form (C B^T once per batch row and chunk and only its lower triangle,
+    the intra-chunk product lower-triangular), at the inputs' type's peak."""
+    es = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * B * T * H * P * es + B * H * N * P * 4 + 2 * B * T * N * es
+              + B * T * H * 4 + H * 4)
+    macs = 0
+    for c0 in range(0, T, chunk):
+        q = min(chunk, T - c0)
+        tri = q * (q + 1) // 2
+        macs += B * tri * N + B * H * (tri * P + 2 * q * N * P)
+    return bound(nbytes, 2.0 * macs, dtype) + (nbytes, 2.0 * macs)
+
+
+def time_ssd(B, T, H, P, N, chunk, max_err) -> dict:
+    """Times of the SSD scan kernel in bf16 at a served shape: the kernel,
+    its host time and the plain version; no single PyTorch call computes
+    the scan, so there is no library time."""
+    bf = torch.bfloat16
+    x, dt, A, Bm, Cm = _ssd_inputs(B, T, H, P, N, bf, 600 + B + N)
+    b_ms, b_by, nbytes, flops = ssd_bound(B, T, H, P, N, chunk, bf)
+    return {"route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:74",
+            "shape": [B, T, H, P, N], "chunk": chunk, "dtype": "bfloat16",
+            "p_tile": ssd_ops.p_tile(P, B * H, ssd_ops.sm_count(x.device)),
+            "max_abs_err": max_err,
+            "ms": time_ms(lambda: ssd_ops.ssd_scan(x, dt, A, Bm, Cm,
+                                                   chunk=chunk)),
+            "host_ms": host_ms(lambda: ssd_ops.ssd_scan(x, dt, A, Bm, Cm,
+                                                        chunk=chunk)),
+            "plain_ms": time_ms(lambda: ssd_ops.ssd_scan_plain(
+                x, dt, A, Bm, Cm, chunk), warmup=2, reps=5, inner=2),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "flops": flops, "library_ms": None}
+
+
+def phase_kernels(cfg, lcfg, mcfg, zcfg) -> dict:
     """Every kernel against its plain version, at the shapes the main paths
-    give it (``cfg`` the served VLA, ``lcfg`` Llama-3.2-3B) and at awkward
-    ones, then times at the main path's shapes.  Returns the per-kernel
-    records for the summary line."""
+    give it (``cfg`` the served VLA, ``lcfg`` Llama-3.2-3B, ``mcfg``
+    Mamba2-1.3B, ``zcfg`` Zamba2-1.2B) and at awkward ones, then times at
+    the main path's shapes.  Returns the per-kernel records for the summary
+    line."""
     S_main = cfg.n_patches + 17
     d, H, KV, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
@@ -504,6 +687,18 @@ def phase_kernels(cfg, lcfg) -> dict:
         attn_cases.append(check_attn(2, S, S, 2, 2, 16, f32, True, 20 + i))
         attn_cases.append(check_attn(2, S, S, 2, 1, 64, bf, False, 30 + i))
     dec_cases = decode_cases(lcfg)
+    for i, B in enumerate(LM_BATCHES):    # Zamba2's 7 sites, MHA 32 x 64
+        for kv_len in (LM_PROMPT + 1, LM_PROMPT + LM_STEPS):
+            dec_cases.append(check_decode(
+                B, zcfg.n_heads, zcfg.n_kv_heads, LM_PROMPT + LM_STEPS,
+                zcfg.resolved_head_dim, kv_len, bf, 320 + 2 * i + kv_len,
+                flat=True))
+    ssd = ssd_cases(mcfg, zcfg)
+    # Zamba2's shared block: MHA 32 x 64, causal over the prompt
+    for i, B in enumerate(LM_BATCHES):
+        attn_cases.append(check_attn(B, LM_PROMPT, LM_PROMPT, zcfg.n_heads,
+                                     zcfg.n_kv_heads, zcfg.resolved_head_dim,
+                                     bf, True, 55 + i))
 
     # ---- times at the main path's shapes
     x = _codec_input((1, S_main, d), bf, 1)
@@ -590,6 +785,17 @@ def phase_kernels(cfg, lcfg) -> dict:
                                      dec_err).items()
         if k in ("shape", "kv_len", "ms", "host_ms", "plain_ms", "bound_ms",
                  "bound_by", "library_ms")}
+    # Mamba2-1.3B's scan at batch 1 heads the summary; the other served
+    # shapes (batch 4, Zamba2's N = 64) beside it
+    ssd_err = max(c.get("max_err", 0.0) for c in ssd)
+    served = [time_ssd(B, LM_PROMPT, c.ssm_nheads, c.ssm_headdim,
+                       c.ssm_state, c.ssm_chunk, ssd_err)
+              for c in (mcfg, zcfg) for B in LM_BATCHES]
+    rec["ssd_scan"] = dict(served[0])
+    rec["ssd_scan"]["served"] = [
+        {k: v for k, v in r.items() if k in (
+            "shape", "p_tile", "ms", "host_ms", "plain_ms", "bound_ms",
+            "bound_by", "bytes", "flops", "library_ms")} for r in served]
     emit({"phase": "kernels",
           "tolerances": {"quantize_int8": "bit-equal",
                          "dequantize_int8": "bit-equal",
@@ -598,12 +804,20 @@ def phase_kernels(cfg, lcfg) -> dict:
                          "flash_attention": {"float32": 2e-5,
                                              "bfloat16": 2e-2},
                          "decode_attention": {"float32": 1e-5,
-                                              "bfloat16": 2e-2}},
+                                              "bfloat16": 2e-2},
+                         "ssd_scan": {
+                             "float32": f"{SSD_F32_TOL} x max(1, max|ref|)",
+                             "recurrence": 1e-4,
+                             "bfloat16_vs_f32": f"y {SSD_BF16_Y_REL} x max|y|"
+                                                f", state as float32",
+                             "bfloat16_vs_plain_bf16":
+                                 f"{SSD_BF16_PLAIN_REL} x max|ref|"}},
           "timing": "device time: CUDA events, median of 20 x 10 calls "
                     "queued behind other work; host_ms: time to issue a call",
           "codec_cases": codec_cases, "codec4_cases": codec4_cases,
           "attention_cases": attn_cases,
           "decode_cases": dec_cases,
+          "ssd_cases": ssd,
           "at_main_shapes": rec})
     return rec
 
@@ -614,7 +828,8 @@ WRAPPERS = {"quantize_int8": codec_ops.quantize,
             "quantize_int4": codec_ops.quantize_int4,
             "dequantize_int4": codec_ops.dequantize_int4,
             "flash_attention": fa_ops.flash_attention,
-            "decode_attention": da_ops.decode_attention}
+            "decode_attention": da_ops.decode_attention,
+            "ssd_scan": ssd_ops.ssd_scan}
 
 
 def _counts() -> dict:
@@ -631,13 +846,14 @@ def _moved(before: dict) -> dict:
 
 
 def _want(n_llm: int, codec: str = "", codec2: str = "",
-          decode: int = 0) -> dict:
+          decode: int = 0, ssd: int = 0) -> dict:
     """Launches one request makes: one flash attention per LLM block, one
-    quantise and one dequantise per leg that ships through a codec, and
-    ``decode`` flash-decode launches."""
+    quantise and one dequantise per leg that ships through a codec,
+    ``decode`` flash-decode and ``ssd`` SSD scan launches."""
     want = dict.fromkeys(WRAPPERS, 0)
     want["flash_attention"] = n_llm
     want["decode_attention"] = decode
+    want["ssd_scan"] = ssd
     for c in (codec, codec2):
         if c:
             want[f"quantize_{c}"] += 1
@@ -810,7 +1026,7 @@ def profile_request(fn) -> dict:
     for key, us, count in rows:
         low = key.lower()
         ours = re.search(r"(flash_attention_\w+?|decode_(?:split|combine)"
-                         r"|\w*quantize_int[48])_kernel", key)
+                         r"|\w*quantize_int[48]|ssd_scan)_kernel", key)
         if ours:
             name = "hand-written: " + ours.group(1)
         elif any(w in low for w in ("nvjet", "gemm", "gemv", "cutlass",
@@ -1319,26 +1535,41 @@ def phase_control(st: dict, n_ticks: int = 60) -> dict:
 
 
 # ================================================================ generate
-def setup_llama() -> dict:
-    """Llama-3.2-3B at full width and depth, bf16, weights from a seed."""
-    cfg = get_config("llama3.2-3b")
+def setup_lm(name: str, seed: int) -> dict:
+    """An LM at full width and depth, bf16, weights from a seed, with the
+    launches its prefill (and its full forward) and one decode step make:
+    dense, one flash attention per block and one flash-decode per block and
+    step; ssm, one SSD scan per Mamba layer and nothing per step; hybrid,
+    the shared block's flash attention at each site and the scans, and one
+    flash-decode per site and step."""
+    cfg = get_config(name)
     model = build(cfg)
     held_before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    params = model.init(gen(SEED + 30), DEV)
+    params = model.init(gen(seed), DEV)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    L = cfg.n_layers
+    if cfg.family == "dense":
+        per_prefill, per_step = _want(L), _want(0, decode=L)
+    elif cfg.family == "ssm":
+        per_prefill, per_step = _want(0, ssd=L), _want(0)
+    else:
+        ns = n_sites(cfg)
+        per_prefill, per_step = _want(ns, ssd=L), _want(0, decode=ns)
     return {"cfg": cfg, "model": model, "params": params, "init_s": init_s,
             "held_before_bytes": held_before,
             "n_params": sum(t.numel() for t in tree_leaves(params)),
             "param_bytes": sum(t.numel() * t.element_size()
                                for t in tree_leaves(params)),
-            "gen": gen(SEED + 31)}
+            "per_prefill": per_prefill, "per_step": per_step,
+            "gen": gen(seed + 1)}
 
 
 def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
     cfg, model, params = st["cfg"], st["model"], st["params"]
-    L, max_len = cfg.n_layers, prompt + steps
+    per_prefill, per_step = st["per_prefill"], st["per_step"]
+    max_len = prompt + steps
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
                            generator=st["gen"], device=DEV)
     greedy_generate(model, params, {"tokens": tokens[:, :64]}, 2)  # warm-up
@@ -1352,10 +1583,10 @@ def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
         model, params, {"tokens": tokens}, steps, max_len=max_len))
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
-    if launches != _want(L, decode=L * steps):
+    want = {k: per_prefill[k] + steps * per_step[k] for k in WRAPPERS}
+    if launches != want:
         raise AssertionError(f"greedy_generate at batch {batch} launched "
-                             f"{launches}, expected {L} flash attention and "
-                             f"{L * steps} decode attention")
+                             f"{launches}, expected {want}")
     if tuple(out.shape) != (batch, steps) or out.min().item() < 0 \
             or out.max().item() >= cfg.vocab_size:
         raise AssertionError(f"generated tokens {tuple(out.shape)} out of "
@@ -1363,8 +1594,11 @@ def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
 
     # ---- the same loop, each stage synchronised, logits kept
     step = make_serve_step(model)
+    before = _counts()
     ms_prefill, (logits, cache) = _wall_ms(lambda: prefill_and_pad(
         model, params, {"tokens": tokens}, max_len))
+    if _moved(before) != per_prefill:
+        raise AssertionError(f"prefill launched {_moved(before)}")
     cur = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
     toks, step_logits, step_ms = [], [], []
     for i in range(steps):
@@ -1372,22 +1606,27 @@ def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
         before = _counts()
         ms, (logits, cache) = _wall_ms(
             lambda: step(params, cache, cur, prompt + i))
-        if _moved(before) != _want(0, decode=L):
+        if _moved(before) != per_step:
             raise AssertionError(f"decode step {i}: launches {_moved(before)}")
         step_ms.append(ms)
         step_logits.append(logits[:, 0])
         cur = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
     toks = torch.cat(toks, 1)
-    kv_bytes = cache_bytes(cache)
+    n_cache = cache_bytes(cache)
     prof = profile_request(lambda: step(params, cache, cur, max_len - 1))
 
     # ---- each step's logits against one full forward over prompt + tokens
-    h, _ = lm_hidden(cfg, params, torch.cat([tokens, toks], 1))
-    full = lm_logits(cfg, params, h[:, prompt:])
-    dec = torch.stack(step_logits, 1)
-    if not torch.isfinite(dec.float()).all():
+    before = _counts()
+    full = model.forward(params, {"tokens": torch.cat([tokens, toks], 1)}
+                         )[:, prompt:]
+    if _moved(before) != per_prefill:
+        raise AssertionError(f"full forward launched {_moved(before)}")
+    V = cfg.vocab_size                 # the pad slots past it hold -1e30
+    dec = torch.stack(step_logits, 1)[..., :V].float()
+    full = full[..., :V].float()
+    if not torch.isfinite(dec).all():
         raise AssertionError("decode logits are not finite")
-    err = (dec.float() - full.float()).abs()
+    err = (dec - full).abs()
     agree = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
     busy = prof.get("device_busy_ms")
     med = statistics.median(step_ms)
@@ -1398,38 +1637,174 @@ def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
             "prefill_wall_ms": ms_prefill,
             "decode_step_wall_ms": step_ms,
             "decode_step_wall_ms_median": med,
+            "decode_step_wall_ms_min_max": [min(step_ms), max(step_ms)],
             "decode_tokens_per_s": batch * steps / sum(step_ms) * 1e3,
             "profile_one_step": prof,
             "device_idle_share_one_step": (1 - busy / med)
             if isinstance(busy, float) else "not measured",
             "launches": launches,
+            "launches_per_prefill": per_prefill,
+            "launches_per_step": per_step,
             "tokens_equal_greedy_generate": bool(torch.equal(toks, out)),
-            "kv_cache_bytes": kv_bytes,
+            "cache_bytes": n_cache,
             "held_before_bytes": base,
             "peak_during_generate_bytes": peak,
             "peak_above_held_bytes": peak - base,
-            "logits_max_abs": full.float().abs().max().item(),
+            "logits_max_abs": full.abs().max().item(),
             "logits_vs_full_forward_max_err": err.max().item(),
             "logits_vs_full_forward_mean_err": err.mean().item(),
+            "logits_vs_full_forward_mean_err_first_last_step": [
+                err[:, 0].mean().item(), err[:, -1].mean().item()],
             "argmax_agreement": agree}
 
 
-def phase_generate(st: dict, prompt: int = LM_PROMPT,
-                   steps: int = LM_STEPS) -> dict:
-    """``runtime/serving.py::greedy_generate`` on Llama-3.2-3B at full width
-    and depth: a 512-token prompt and 64 greedy steps, at batch 1 and 4."""
+def phase_generate(st: dict, name: str = "generate", prompt: int = LM_PROMPT,
+                   steps: int = LM_STEPS, small: dict = None) -> dict:
+    """``runtime/serving.py::greedy_generate`` on an LM at full width and
+    depth: a 512-token prompt (two SSD chunks) and 64 greedy steps, at
+    batch 1 and 4."""
     runs = [_generate_at(st, b, prompt, steps) for b in LM_BATCHES]
     launches = {k: sum(r["launches"][k] for r in runs) for k in WRAPPERS}
     cfg = st["cfg"]
-    info = {"phase": "generate", "model": cfg.name, "n_params": st["n_params"],
+    info = {"phase": name, "model": cfg.name, "family": cfg.family,
+            "n_params": st["n_params"], "n_params_analytic": cfg.n_params(),
             "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-            "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
             "dtype": cfg.dtype, "init_s": st["init_s"],
             "held_before_init_bytes": st["held_before_bytes"],
             "param_bytes": st["param_bytes"], "runs": runs,
             "launches": launches}
+    if cfg.family in ("dense", "hybrid"):
+        info["heads"] = [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim]
+    if cfg.family in ("ssm", "hybrid"):
+        info["ssm"] = {"d_inner": cfg.d_inner, "heads": cfg.ssm_nheads,
+                       "head_dim": cfg.ssm_headdim, "state": cfg.ssm_state,
+                       "chunk": cfg.ssm_chunk}
+    if cfg.family == "hybrid":
+        info["shared_block_sites"] = n_sites(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        info["full_width_float32"] = full_width_f32_check(st)
+    if small is not None:
+        info["small_reference"] = small
     emit(info)
     return info
+
+
+# limit of the float32 check below, stated before its first run: relative
+# to the largest logit (a 24-layer, d_model 512 Mamba2 on the CPU gives
+# 7.5e-6 of it)
+FULL_F32_REL = 5e-5
+
+
+def full_width_f32_check(st: dict, steps: int = 8) -> dict:
+    """The served model at full width and depth with float32 activations
+    (the parameters stay bf16, as the specs store them): prefill of the
+    512-token prompt plus ``steps`` decode steps at batch 1 against one
+    full forward, within ``FULL_F32_REL`` of the largest logit.  In bf16
+    the decode recurrence and the chunked scan round at other places and
+    drift apart with depth and steps; in float32 they must agree."""
+    cfg = st["cfg"].replace(dtype="float32")
+    model = build(cfg)
+    params, V = st["params"], cfg.vocab_size
+    tokens = torch.randint(0, V, (1, LM_PROMPT + steps), generator=st["gen"],
+                           device=DEV)
+    before = _counts()
+    full = model.forward(params, {"tokens": tokens})[
+        :, LM_PROMPT - 1:, :V].float()
+    logits, cache = prefill_and_pad(model, params,
+                                    {"tokens": tokens[:, :LM_PROMPT]},
+                                    LM_PROMPT + steps)
+    outs = [logits[:, 0]]
+    for i in range(LM_PROMPT, LM_PROMPT + steps):
+        logits, cache = model.decode(params, cache, tokens[:, i:i + 1], i)
+        outs.append(logits[:, 0])
+    moved = _moved(before)
+    want = {k: 2 * v + steps * st["per_step"][k]
+            for k, v in st["per_prefill"].items()}
+    if moved != want:
+        raise AssertionError(f"float32 check launched {moved}, expected "
+                             f"{want}")
+    dec = torch.stack(outs, 1)[..., :V].float()
+    top = full.abs().max().item()
+    err = (dec - full[:, :steps + 1]).abs().max().item()
+    if not err <= FULL_F32_REL * top:
+        raise AssertionError(f"{cfg.name} float32 at full width: prefill + "
+                             f"decode is {err} from the full forward (limit "
+                             f"{FULL_F32_REL * top})")
+    return {"dtype": "float32", "batch": 1, "prompt": LM_PROMPT,
+            "steps": steps, "max_err": err, "limit": FULL_F32_REL * top,
+            "logits_max_abs": top}
+
+
+def _plain_ssd_scan(x, dt, A, Bm, Cm, *, chunk):
+    return ssd_ops.ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
+
+
+# limit of the reduced gate below, stated before its first run: logits with
+# the kernels against logits with the plain versions, relative to the
+# largest logit (float32; about 3e-7 of it on the CPU with the kernel's
+# arithmetic written out)
+SMALL_KERNEL_REL = 4e-6
+
+
+def small_ssm_check(name: str) -> dict:
+    """The reduced config in float32, its own depth, on the card: prefill
+    of a two-chunk prompt (37 positions, chunk 32) plus 6 decode steps
+    against the full forward (2e-3, tests/test_decode_equivalence.py), and
+    the logits of both with the kernels against those with every kernel of
+    the path swapped for its plain version (``SMALL_KERNEL_REL`` of the
+    largest logit)."""
+    cfg = get_config(name).reduced().replace(dtype="float32")
+    model = build(cfg)
+    params = model.init(gen(SEED + 60), DEV)
+    B, P, T = 2, 37, 43
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen(SEED + 61),
+                           device=DEV)
+
+    def run():
+        full = model.forward(params, {"tokens": tokens})
+        logits, cache = prefill_and_pad(model, params,
+                                        {"tokens": tokens[:, :P]}, T)
+        steps = [logits[:, 0]]
+        for i in range(P, T):
+            logits, cache = model.decode(params, cache, tokens[:, i:i + 1], i)
+            steps.append(logits[:, 0])
+        return full, torch.stack(steps, 1)            # positions P-1 .. T-1
+
+    before = _counts()
+    full_k, dec_k = run()
+    n_sites_ = n_sites(cfg) if cfg.family == "hybrid" else 0
+    want = {k: 2 * v for k, v in _want(n_sites_, ssd=cfg.n_layers).items()}
+    want["decode_attention"] = n_sites_ * (T - P)
+    if _moved(before) != want:
+        raise AssertionError(f"{name} reduced: launches {_moved(before)}, "
+                             f"expected {want}")
+    swapped = (ssd_ops.ssd_scan, fa_ops.flash_attention,
+               da_ops.decode_attention)
+    ssd_ops.ssd_scan = _plain_ssd_scan                # swapped, then back
+    fa_ops.flash_attention = fa_ops.flash_attention_plain
+    da_ops.decode_attention = _plain_decode_attention
+    full_p, dec_p = run()
+    ssd_ops.ssd_scan, fa_ops.flash_attention, da_ops.decode_attention = \
+        swapped
+    full_err = (dec_k - full_k[:, P - 1:]).abs().max().item()
+    top = full_p.abs().max().item()
+    plain_err = max((full_k - full_p).abs().max().item(),
+                    (dec_k - dec_p).abs().max().item())
+    if full_err > 2e-3:
+        raise AssertionError(f"{name} reduced prefill + decode is {full_err} "
+                             "from the full forward (limit 2e-3)")
+    if plain_err > SMALL_KERNEL_REL * top:
+        raise AssertionError(f"{name} reduced logits with the kernels are "
+                             f"{plain_err} from those with the plain "
+                             f"versions (limit {SMALL_KERNEL_REL * top})")
+    return {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "state": cfg.ssm_state, "head_dim": cfg.ssm_headdim,
+                       "chunk": cfg.ssm_chunk, "dtype": cfg.dtype},
+            "batch": B, "prompt": P, "steps": T - P,
+            "decode_vs_full_forward_max_err": full_err,
+            "kernels_vs_plain_max_err": plain_err,
+            "kernels_vs_plain_limit": SMALL_KERNEL_REL * top,
+            "logits_max_abs": top}
 
 
 # ================================================================ serve_lm
@@ -1565,7 +1940,9 @@ def main() -> None:
         cogact = cogact.replace(vit_layers=args.vit_layers)
 
     phase_build()
-    kernels = phase_kernels(cfg, get_config("llama3.2-3b"))
+    kernels = phase_kernels(cfg, get_config("llama3.2-3b"),
+                            get_config("mamba2-1.3b"),
+                            get_config("zamba2-1.2b"))
     runs = {"serve": phase_serve(cfg)["launches"]}
     gc.collect()                    # the OpenVLA parameters go before CogACT
     torch.cuda.empty_cache()
@@ -1575,9 +1952,18 @@ def main() -> None:
     del cst                         # the CogACT parameters go before Llama
     gc.collect()
     torch.cuda.empty_cache()
-    lst = setup_llama()
+    lst = setup_lm("llama3.2-3b", SEED + 30)
     runs["generate"] = phase_generate(lst)["launches"]
     runs["serve_lm"] = phase_serve_lm(lst)["launches"]
+    del lst                         # the Llama parameters go before Mamba2
+    for phase, name, seed in (("generate_ssm", "mamba2-1.3b", SEED + 70),
+                              ("generate_hybrid", "zamba2-1.2b", SEED + 80)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        small = small_ssm_check(name)
+        st = setup_lm(name, seed)
+        runs[phase] = phase_generate(st, phase, small=small)["launches"]
+        del st
 
     print(env["nvidia_smi"], flush=True)
     summary = []
@@ -1594,8 +1980,7 @@ def main() -> None:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        **({"at_8192": r["at_8192"]} if "at_8192" in r
-                           else {})})
+                        **{k: r[k] for k in ("at_8192", "served") if k in r}})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

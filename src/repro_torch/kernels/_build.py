@@ -54,6 +54,11 @@ SIGNATURES: Dict[str, list] = {
     "rt_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                             _L, _F, _I, _P],
+    # x, dt, A, Bm, Cm, y, state, B, T, H, P, N, chunk, p_tile,
+    # x (batch, seq, head), dt (batch, seq), Bm and Cm (batch, seq) strides,
+    # dtype code, stream
+    "rt_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _P],
 }
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 

@@ -1,0 +1,127 @@
+"""Wrapper: the Mamba2 SSD chunked scan in the model layout (B, T, H, P)
+-> the SSD scan kernel.
+
+Counterpart of ``src/repro/kernels/ssd_scan/ops.py``.
+
+``ssd_scan`` replaces the TPU kernel ``ssd_scan_pallas`` of
+``src/repro/kernels/ssd_scan/kernel.py`` with the CUDA kernel of
+``csrc/ssd_scan.cu``: one block per (batch, head) and tile of the head
+dim's columns, the chunks in order inside the block with the float32
+state in shared memory, the intra-chunk product cut into 64-position row
+blocks.  The kernel reads x, dt, B and C where the model keeps them
+(through strides: no transpose to ``(B*H, T, P)``, no padded copy) and
+treats positions past ``T`` as zero padding, so a ragged last chunk and a
+prompt shorter than one chunk need nothing from the wrapper.  Its
+arithmetic is float32 throughout, as the TPU kernel's; ``y`` is rounded
+to x's type once.
+
+Dispatch is by where the tensors lie: CPU tensors take the plain version
+(``ssd_scan_plain``, the model's ``ssd_chunked``), CUDA tensors launch the
+kernel or the call raises.  State dims ``STATE_DIMS`` and head dims
+``HEAD_DIMS`` are built, chunks of 1 to ``MAX_CHUNK`` positions; anything
+else raises.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import _build
+from ..decode_attention.ops import sm_count
+from . import ref
+
+ssd_scan_plain = ref.ssd
+STATE_DIMS = (8, 16, 32, 64, 128)   # N, the instantiations in the CUDA source
+HEAD_DIMS = (8, 16, 32, 64)         # P
+MAX_CHUNK = 256                     # one position per thread in the cumsum
+ROWS = 64                           # positions per row block of a chunk
+
+
+def p_tile(P: int, n_bh: int, n_sm: int) -> int:
+    """Columns of P per block: 32 for a head dim up to 32; for P = 64 a
+    whole head (64) when the ``n_bh`` (batch, head) pairs fill the card's
+    ``n_sm`` SMs, else two tiles of 32, which doubles the blocks at the
+    cost of computing C B^T twice."""
+    if P <= 32:
+        return 32
+    return 64 if n_bh >= n_sm else 32
+
+
+def _device_kind(tensors) -> str:
+    kinds = {t.device.type for t in tensors}
+    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
+        raise ValueError(f"ssd_scan: no implementation for tensors on "
+                         f"{[str(t.device) for t in tensors]}; have cpu "
+                         "(plain) and cuda (kernel)")
+    return kinds.pop()
+
+
+def _inner_contiguous(t: torch.Tensor) -> torch.Tensor:
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B,T,H,P); dt: (B,T,H); A: (H,); Bm/Cm: (B,T,N).
+
+    Returns (y (B,T,H,P) in x's type, final state (B,H,N,P) float32) —
+    the contract of ``models.ssm.ssd_chunked``."""
+    kind = _device_kind((x, dt, A, Bm, Cm))
+    if kind == "cpu":
+        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 3 \
+            or Cm.shape != Bm.shape:
+        raise ValueError(f"shapes {tuple(x.shape)}, {tuple(dt.shape)}, "
+                         f"{tuple(A.shape)}, {tuple(Bm.shape)}, "
+                         f"{tuple(Cm.shape)} are not (B,T,H,P), (B,T,H), "
+                         "(H,), (B,T,N), (B,T,N)")
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    if tuple(dt.shape) != (B, T, H) or tuple(A.shape) != (H,) \
+            or tuple(Bm.shape[:2]) != (B, T):
+        raise ValueError(f"x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)} and B {tuple(Bm.shape)} do not "
+                         "belong together")
+    if N not in STATE_DIMS or P not in HEAD_DIMS:
+        raise ValueError(f"state dim {N} and head dim {P}: the kernel is "
+                         f"built for N in {STATE_DIMS}, P in {HEAD_DIMS}")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk}: the kernel takes 1 to {MAX_CHUNK}")
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"ssd_scan kernel takes x, B and C in float32 or "
+                        f"bfloat16, one type, got {x.dtype}, {Bm.dtype}, "
+                        f"{Cm.dtype}")
+    if not (dt.is_floating_point() and A.is_floating_point()):
+        raise TypeError(f"dt and A must be floating, got {dt.dtype}, "
+                        f"{A.dtype}")
+    dev = x.device
+    if any(t.device != dev for t in (dt, A, Bm, Cm)):
+        raise ValueError("x, dt, A, B and C lie on different cards")
+    y = torch.empty((B, T, H, P), dtype=x.dtype, device=dev)
+    state = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
+    if B == 0 or H == 0:
+        return y, state
+    if T == 0:
+        return y, state.zero_()
+    x, Bm, Cm = (_inner_contiguous(t) for t in (x, Bm, Cm))
+    dt = _inner_contiguous(dt.float())
+    A = A.float().contiguous()
+    pt = p_tile(P, B * H, sm_count(dev))
+    with torch.cuda.device(dev):
+        rc = _build.lib().rt_ssd_scan(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
+            B, T, H, P, N, int(chunk), pt,
+            *x.stride()[:3], *dt.stride()[:2], *Bm.stride()[:2],
+            *Cm.stride()[:2],
+            _build.DTYPE_CODES[str(x.dtype).split(".")[-1]],
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch("ssd_scan", rc)
+    ssd_scan.launches += 1
+    return y, state
+
+
+ssd_scan.launches = 0

@@ -91,7 +91,8 @@ def test_the_package_lists_every_module_of_the_slice():
                  "core.predictor", "core.controller",
                  "kernels.decode_attention.ops", "kernels.decode_attention.ref",
                  "runtime.kvcache", "runtime.serving", "runtime.scheduler",
-                 "launch", "launch.serve",
+                 "launch", "launch.serve", "models.ssm", "models.hybrid",
+                 "kernels.ssd_scan.ops", "kernels.ssd_scan.ref",
                  *(f"configs.{m}" for m in (
                      "command_r_35b", "deepseek_v2_lite_16b", "glm4_9b",
                      "granite_moe_3b_a800m", "llama_3_2_vision_11b",
@@ -101,10 +102,11 @@ def test_the_package_lists_every_module_of_the_slice():
     from repro_torch.kernels import _build
     assert {p.name for p in _build.sources()} == {"activation_codec.cu",
                                                   "flash_attention.cu",
-                                                  "decode_attention.cu"}
+                                                  "decode_attention.cu",
+                                                  "ssd_scan.cu"}
     assert {"rt_quantize_int8", "rt_dequantize_int8", "rt_quantize_int4",
             "rt_dequantize_int4", "rt_flash_attention",
-            "rt_decode_attention"} == set(_build.SIGNATURES)
+            "rt_decode_attention", "rt_ssd_scan"} == set(_build.SIGNATURES)
     src = (_build.CSRC / "activation_codec.cu").read_text()
     for name in _build.SIGNATURES:
         if "quantize" in name:
@@ -112,6 +114,9 @@ def test_the_package_lists_every_module_of_the_slice():
     src = (_build.CSRC / "decode_attention.cu").read_text()
     assert 'extern "C" int rt_decode_attention(' in src
     assert "decode_attention_pallas" in src
+    src = (_build.CSRC / "ssd_scan.cu").read_text()
+    assert 'extern "C" int rt_ssd_scan(' in src
+    assert "ssd_scan_pallas" in src
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
@@ -142,6 +147,12 @@ def test_wrappers_raise_on_a_device_they_have_no_version_for():
     with pytest.raises(ValueError):                   # mixed devices
         da.decode_attention(torch.zeros(1, 4, 16), kd, kd, 3)
     assert da.decode_attention.launches == 0
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    xs = torch.empty((1, 8, 2, 16), device="meta")
+    bs = torch.empty((1, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        ssd.ssd_scan(xs, xs[..., 0], xs[0, 0, :, 0], bs, bs, chunk=8)
+    assert ssd.ssd_scan.launches == 0
 
 
 def test_a_block_the_kernels_do_not_take_raises_on_the_card(monkeypatch):
