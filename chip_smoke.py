@@ -50,12 +50,18 @@ Phases, one JSON line each:
 then the card's name and power limit as ``nvidia-smi`` prints them, a
 ``{"kernels": [...]}`` summary of every kernel (launch count on the main
 paths, error, time, plain version's time, the card's bound, the library
-call's time) and, last, ``{"ok": true, "device": {...}}``.
+call's time; flash attention, flash-decode and the SSD scan with a
+``served`` list of every shape their main paths give them) and, last,
+``{"ok": true, "device": {...}}``.
 
 ``--llm-layers`` / ``--vit-layers`` cut the depth of the served VLA models,
 for finding faults (the controller still plans the published CogACT-7B;
 Llama-3.2-3B always runs in full); with no arguments everything runs in
-full.
+full.  ``--attention-only`` runs the flash attention and flash-decode
+cases and times alone, and counts the kernels of one Llama-3.2-3B and one
+Zamba2-1.2B decode step (about a minute); with ``--src DIR`` it does so
+for the ``repro_torch`` under ``DIR``, e.g. a parent commit unpacked
+beside this one, so that two versions are compared in one call.
 """
 from __future__ import annotations
 
@@ -69,8 +75,19 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+
+
+def _src_dir() -> str:
+    """The ``src`` whose ``repro_torch`` this script drives: this
+    checkout's, or the one after ``--src`` (to run the same cases and times
+    on another checkout, such as a parent commit unpacked with ``git
+    archive``, beside this one's in one call)."""
+    if "--src" in sys.argv[1:-1]:
+        return os.path.abspath(sys.argv[sys.argv.index("--src") + 1])
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+
+
+sys.path.insert(0, _src_dir())
 
 import torch
 import torch.nn.functional as F
@@ -425,16 +442,140 @@ def decode_cases(lcfg) -> list:
     cases.append(check_decode(2, 6, 3, 100, 16, 77, f32, 304,
                               device_len=True))
     cases.append(check_decode(1, 32, 2, 8192, 128, 8192, bf, 305))  # GQA 16x
+    # one split in all (a 32-position buffer); one live split of many,
+    # written straight out; the most splits a plan gives (one pair, 8192
+    # positions: 128 splits of one tile); dead splits behind a kv_len read
+    # from the card
+    for dt in (f32, bf):
+        cases.append(check_decode(1, H, KV, 32, hd, 32, dt, 306, flat=True))
+        cases.append(check_decode(1, H, KV, T, hd, 20, dt, 307, flat=True))
+        cases.append(check_decode(1, 8, 1, 8192, 128, 8192, dt, 308))
+        cases.append(check_decode(1, 8, 2, 4096, 128, 100, dt, 309,
+                                  device_len=True))
     if not any(c["n_split"] > c["live_splits"] > 1 for c in cases):
         raise AssertionError("no case left a split dead")
+    if not any(c["n_split"] == 1 for c in cases) \
+            or not any(c["n_split"] > c["live_splits"] == 1 for c in cases):
+        raise AssertionError("no case ran a single (live) split")
     return cases
+
+
+def check_repeat(name, fn) -> dict:
+    """Two calls in a row on the same inputs must be bit-equal: a merge
+    ticket left dirty, or a merge order that depends on which block came
+    last, would show here."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two calls on the same inputs differ "
+                             f"by {(a.float() - b.float()).abs().max().item()}")
+    return {"case": name, "bit_equal": True}
+
+
+def attention_cases(cfg, lcfg, zcfg) -> tuple:
+    """B5 and B6 against their plain versions at the shapes the main paths
+    give them (``cfg`` the served VLA, ``lcfg`` Llama-3.2-3B, ``zcfg``
+    Zamba2-1.2B) and at awkward ones, and repeated calls held bit-equal.
+    Returns (B5 cases, B6 cases)."""
+    S_main = cfg.n_patches + 17
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    H_l, KV_l, hd_l = lcfg.n_heads, lcfg.n_kv_heads, lcfg.resolved_head_dim
+    H_z, KV_z, hd_z = zcfg.n_heads, zcfg.n_kv_heads, zcfg.resolved_head_dim
+    T_l = LM_PROMPT + LM_STEPS
+    bf, f32 = torch.bfloat16, torch.float32
+    attn_cases = [
+        check_attn(1, S_main, S_main, H, KV, hd, bf, True, 10),   # main path
+        check_attn(1, S_main, S_main, H, KV, hd, f32, True, 11),
+        check_attn(1, S_main, S_main, H, KV, hd, bf, True, 12, strided=True),
+        check_attn(2, 200, 200, 8, 2, 64, bf, True, 13),          # GQA 4x
+        check_attn(2, 200, 200, 8, 2, 64, f32, True, 14),
+        check_attn(1, 100, 333, 4, 4, 32, f32, False, 15),        # S != T
+        check_attn(1, 100, 333, 4, 2, 32, bf, False, 16),
+        check_attn(1, 384, 384, 8, 2, 32, f32, True, 17),
+        check_attn(1, 130, 130, 2, 1, 64, f32, True, 18),
+        check_attn(1, 130, 130, 2, 2, 128, bf, False, 19),
+    ]
+    for i, B in enumerate(LM_BATCHES):            # generate's prefill, GQA 3x
+        attn_cases.append(check_attn(B, LM_PROMPT, LM_PROMPT, H_l, KV_l, hd_l,
+                                     bf, True, 50 + i))
+    attn_cases += [
+        check_attn(1, LM_PROMPT, LM_PROMPT, H_l, KV_l, hd_l, f32, True, 52),
+        check_attn(LM_MICRO_BATCH, LM_SEQ, LM_SEQ, H_l, KV_l, hd_l, bf, True,
+                   53),                                   # serve_lm blocks
+        check_attn(LM_MICRO_BATCH, LM_SEQ, LM_SEQ, H_l, KV_l, hd_l, f32, True,
+                   54),
+        # S < one 64-row query tile, not causal; T > S, so K/V tiles ring
+        check_attn(LM_MICRO_BATCH, LM_SEQ, 150, H_l, KV_l, hd_l, bf, False,
+                   57),
+        check_attn(1, S_main, S_main, H_z, KV_z, hd_z, bf, True, 58),  # D 64
+    ]
+    for i, S in enumerate((1, 2, 17, 63, 64, 65)):                # ragged
+        attn_cases.append(check_attn(2, S, S, 2, 2, 16, f32, True, 20 + i))
+        attn_cases.append(check_attn(2, S, S, 2, 1, 64, bf, False, 30 + i))
+    for i, B in enumerate(LM_BATCHES):    # Zamba2's shared block, MHA 32 x 64
+        attn_cases.append(check_attn(B, LM_PROMPT, LM_PROMPT, H_z, KV_z, hd_z,
+                                     bf, True, 55 + i))
+    q, k, v = _attn_inputs(1, S_main, S_main, H, KV, hd, bf, 10)
+    attn_cases.append(check_repeat(
+        "flash_attention (1, 273, 32 x 128) causal, twice",
+        lambda: fa_ops.flash_attention(q, k, v, causal=True)))
+
+    dec_cases = decode_cases(lcfg)
+    for i, B in enumerate(LM_BATCHES):    # Zamba2's 7 sites, MHA 32 x 64
+        for kv_len in (LM_PROMPT + 1, T_l):
+            dec_cases.append(check_decode(B, H_z, KV_z, T_l, hd_z, kv_len, bf,
+                                          320 + 2 * i + kv_len, flat=True))
+    for B, h, kv, t, d in ((1, H_l, KV_l, T_l, hd_l), (4, H_l, KV_l, T_l, hd_l),
+                           (1, H_l, KV_l, 8192, hd_l), (4, H_z, KV_z, T_l, hd_z),
+                           (1, 32, 2, 8192, 128)):
+        q, k, v = _decode_inputs(B, h, kv, t, d, bf, 330 + B + t, flat=True)
+        n = torch.tensor(t - 3, dtype=torch.int32, device=DEV)
+        dec_cases.append(check_repeat(
+            f"decode_attention ({B}, {h}/{kv}, {t}, {d}), kv_len {t - 3} on "
+            "the card, twice",
+            lambda: da_ops.decode_attention(q, k, v, n)))
+    return attn_cases, dec_cases
+
+
+def attn_bound(B, S, T, H, KV, D, causal) -> tuple:
+    """The card's least time for one bf16 prefill attention: q, k, v read
+    and the output written once; the two products over the (query, key)
+    pairs the mask keeps."""
+    pairs = S * (S + 1) / 2 if causal and S == T else S * T
+    return bound(2 * B * (2 * H * S + 2 * KV * T) * D, 4.0 * B * H * D * pairs,
+                 torch.bfloat16)
+
+
+def time_attn(B, S, H, KV, D, max_err) -> dict:
+    """Times of the flash attention kernel at a served bf16 causal shape:
+    the kernel, its host time, the plain version, and as the yardstick
+    ``F.scaled_dot_product_attention`` on (B, H, S, D) views of the same
+    tensors (grouped heads by ``enable_gqa``; the port calls it nowhere)."""
+    q, k, v = _attn_inputs(B, S, S, H, KV, D, torch.bfloat16, 10 + B + S + D)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    b_ms, b_by = attn_bound(B, S, S, H, KV, D, True)
+    return {"route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
+            "shape": [B, S, H, KV, D], "dtype": "bfloat16", "causal": True,
+            "max_abs_err": max_err,
+            "ms": time_ms(lambda: fa_ops.flash_attention(q, k, v,
+                                                         causal=True)),
+            "host_ms": host_ms(
+                lambda: fa_ops.flash_attention(q, k, v, causal=True)),
+            "plain_ms": time_ms(
+                lambda: fa_ops.flash_attention_plain(q, k, v, causal=True)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=KV != H))}
 
 
 def time_decode(B, H, KV, T, D, kv_len, max_err) -> dict:
     """Times of the flash-decode kernel on a flat bf16 cache at live length
-    ``kv_len``: the kernel, the plain version, and as the yardstick
-    ``F.scaled_dot_product_attention`` on the same q and the live K/V prefix
-    (grouped heads by ``enable_gqa``; the port calls it nowhere)."""
+    ``kv_len``: the kernel, its host time, the plain version, and as the
+    yardstick ``F.scaled_dot_product_attention`` on the same q and the live
+    K/V prefix (grouped heads by ``enable_gqa``; the port calls it
+    nowhere)."""
     bf = torch.bfloat16
     q, k, v = _decode_inputs(B, H, KV, T, D, bf, 400 + T, flat=True)
     q4, kl, vl = q[:, :, None], k[:, :, :kv_len], v[:, :, :kv_len]
@@ -444,6 +585,8 @@ def time_decode(B, H, KV, T, D, kv_len, max_err) -> dict:
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
             "shape": [B, H, KV, T, D], "kv_len": kv_len, "dtype": "bfloat16",
+            "split_plan": list(da_ops.split_plan(T, B * KV,
+                                                 da_ops.sm_count(q.device))),
             "max_abs_err": max_err,
             "ms": time_ms(lambda: da_ops.decode_attention(q, k, v, kv_len)),
             "host_ms": host_ms(
@@ -452,7 +595,46 @@ def time_decode(B, H, KV, T, D, kv_len, max_err) -> dict:
                 lambda: da_ops.decode_attention_plain(q, k, v, kv_len)),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q4, kl, vl, enable_gqa=True))}
+                q4, kl, vl, enable_gqa=KV != H))}
+
+
+SERVED_KEYS = ("shape", "kv_len", "split_plan", "ms", "host_ms", "plain_ms",
+               "bound_ms", "bound_by", "library_ms")
+
+
+def attention_times(cfg, lcfg, zcfg, attn_cases, dec_cases) -> dict:
+    """B5 and B6 timed at every shape the main paths give them, each with
+    its bound and its library time: B5 at the VLA's 273 tokens (``serve``,
+    ``serve_cogact``, ``control``), ``serve_lm``'s 4 x 17, and the
+    512-token prefills of Llama-3.2-3B and Zamba2-1.2B at batch 1 and 4; B6
+    at ``generate``'s and ``generate_hybrid``'s 576-position buffers at
+    batch 1 and 4, and Llama-3.2-3B's heads at 8192 positions.  The first
+    shape of each heads its record; all of them are in its ``served``
+    list."""
+    H_l, KV_l, hd_l = lcfg.n_heads, lcfg.n_kv_heads, lcfg.resolved_head_dim
+    H_z, KV_z, hd_z = zcfg.n_heads, zcfg.n_kv_heads, zcfg.resolved_head_dim
+    T_l = LM_PROMPT + LM_STEPS
+    attn_err = max(c["max_err"] for c in attn_cases
+                   if c.get("dtype") == "bfloat16")
+    served = [time_attn(1, cfg.n_patches + 17, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.resolved_head_dim, attn_err),
+              time_attn(LM_MICRO_BATCH, LM_SEQ, H_l, KV_l, hd_l, attn_err)]
+    served += [time_attn(B, LM_PROMPT, h, kv, d, attn_err)
+               for h, kv, d in ((H_l, KV_l, hd_l), (H_z, KV_z, hd_z))
+               for B in LM_BATCHES]
+    rec = {"flash_attention": dict(served[0])}
+    rec["flash_attention"]["served"] = [
+        {k: r[k] for k in SERVED_KEYS if k in r} for r in served]
+    dec_err = max(c["max_err"] for c in dec_cases
+                  if c.get("dtype") == "bfloat16")
+    served = [time_decode(B, h, kv, T_l, d, T_l, dec_err)
+              for h, kv, d in ((H_l, KV_l, hd_l), (H_z, KV_z, hd_z))
+              for B in LM_BATCHES]
+    served.append(time_decode(1, H_l, KV_l, 8192, hd_l, 8192, dec_err))
+    rec["decode_attention"] = dict(served[0])
+    rec["decode_attention"]["served"] = [
+        {k: r[k] for k in SERVED_KEYS if k in r} for r in served]
+    return rec
 
 
 def _ssd_inputs(B, T, H, P, N, dtype, seed, a_init=False):
@@ -633,10 +815,7 @@ def phase_kernels(cfg, lcfg, mcfg, zcfg) -> dict:
     the main path's shapes.  Returns the per-kernel records for the summary
     line."""
     S_main = cfg.n_patches + 17
-    d, H, KV, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                    cfg.resolved_head_dim)
-    d_l, H_l, KV_l, hd_l = (lcfg.d_model, lcfg.n_heads, lcfg.n_kv_heads,
-                            lcfg.resolved_head_dim)
+    d, d_l = cfg.d_model, lcfg.d_model
     bf, f32 = torch.bfloat16, torch.float32
 
     codec_cases = [
@@ -661,44 +840,8 @@ def phase_kernels(cfg, lcfg, mcfg, zcfg) -> dict:
         check_codec4((1, S_main, d), bf, 47, "ties"),
         check_codec4((4, 512), f32, 48, "ties"),
     ]
-    attn_cases = [
-        check_attn(1, S_main, S_main, H, KV, hd, bf, True, 10),   # main path
-        check_attn(1, S_main, S_main, H, KV, hd, f32, True, 11),
-        check_attn(1, S_main, S_main, H, KV, hd, bf, True, 12, strided=True),
-        check_attn(2, 200, 200, 8, 2, 64, bf, True, 13),          # GQA 4x
-        check_attn(2, 200, 200, 8, 2, 64, f32, True, 14),
-        check_attn(1, 100, 333, 4, 4, 32, f32, False, 15),        # S != T
-        check_attn(1, 100, 333, 4, 2, 32, bf, False, 16),
-        check_attn(1, 384, 384, 8, 2, 32, f32, True, 17),
-        check_attn(1, 130, 130, 2, 1, 64, f32, True, 18),
-        check_attn(1, 130, 130, 2, 2, 128, bf, False, 19),
-    ]
-    for i, B in enumerate(LM_BATCHES):            # generate's prefill, GQA 3x
-        attn_cases.append(check_attn(B, LM_PROMPT, LM_PROMPT, H_l, KV_l, hd_l,
-                                     bf, True, 50 + i))
-    attn_cases += [
-        check_attn(1, LM_PROMPT, LM_PROMPT, H_l, KV_l, hd_l, f32, True, 52),
-        check_attn(LM_MICRO_BATCH, LM_SEQ, LM_SEQ, H_l, KV_l, hd_l, bf, True,
-                   53),                                   # serve_lm blocks
-        check_attn(LM_MICRO_BATCH, LM_SEQ, LM_SEQ, H_l, KV_l, hd_l, f32, True,
-                   54),
-    ]
-    for i, S in enumerate((1, 2, 17, 63, 64, 65)):                # ragged
-        attn_cases.append(check_attn(2, S, S, 2, 2, 16, f32, True, 20 + i))
-        attn_cases.append(check_attn(2, S, S, 2, 1, 64, bf, False, 30 + i))
-    dec_cases = decode_cases(lcfg)
-    for i, B in enumerate(LM_BATCHES):    # Zamba2's 7 sites, MHA 32 x 64
-        for kv_len in (LM_PROMPT + 1, LM_PROMPT + LM_STEPS):
-            dec_cases.append(check_decode(
-                B, zcfg.n_heads, zcfg.n_kv_heads, LM_PROMPT + LM_STEPS,
-                zcfg.resolved_head_dim, kv_len, bf, 320 + 2 * i + kv_len,
-                flat=True))
+    attn_cases, dec_cases = attention_cases(cfg, lcfg, zcfg)
     ssd = ssd_cases(mcfg, zcfg)
-    # Zamba2's shared block: MHA 32 x 64, causal over the prompt
-    for i, B in enumerate(LM_BATCHES):
-        attn_cases.append(check_attn(B, LM_PROMPT, LM_PROMPT, zcfg.n_heads,
-                                     zcfg.n_kv_heads, zcfg.resolved_head_dim,
-                                     bf, True, 55 + i))
 
     # ---- times at the main path's shapes
     x = _codec_input((1, S_main, d), bf, 1)
@@ -753,38 +896,7 @@ def phase_kernels(cfg, lcfg, mcfg, zcfg) -> dict:
             lambda: codec_ops.dequantize_int4_plain(p4, s4, bf)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
-    q, k, v = _attn_inputs(1, S_main, S_main, H, KV, hd, bf, 10)
-    # causal: S(S+1)/2 (query, key) pairs, 2 products of D multiply-adds each
-    flops = 4.0 * H * hd * S_main * (S_main + 1) / 2
-    nbytes = 2 * (2 * H + 2 * KV) * S_main * hd
-    b_ms, b_by = bound(nbytes, flops, bf)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # (B,H,S,D) views
-    rec["flash_attention"] = {
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
-        "shape": [1, S_main, H, hd], "dtype": "bfloat16", "causal": True,
-        "max_abs_err": attn_cases[0]["max_err"],
-        "ms": time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True)),
-        "host_ms": host_ms(
-            lambda: fa_ops.flash_attention(q, k, v, causal=True)),
-        "plain_ms": time_ms(
-            lambda: fa_ops.flash_attention_plain(q, k, v, causal=True)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        # yardstick only: the port calls this nowhere
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))}
-    # the served shape (Llama-3.2-3B, generate's buffer, live length at its
-    # end) and an 8192-position cache
-    dec_err = max(c["max_err"] for c in dec_cases if c["dtype"] == "bfloat16")
-    T_l = LM_PROMPT + LM_STEPS
-    rec["decode_attention"] = time_decode(1, H_l, KV_l, T_l, hd_l, T_l,
-                                          dec_err)
-    rec["decode_attention"]["at_8192"] = {
-        k: v for k, v in time_decode(1, H_l, KV_l, 8192, hd_l, 8192,
-                                     dec_err).items()
-        if k in ("shape", "kv_len", "ms", "host_ms", "plain_ms", "bound_ms",
-                 "bound_by", "library_ms")}
+    rec.update(attention_times(cfg, lcfg, zcfg, attn_cases, dec_cases))
     # Mamba2-1.3B's scan at batch 1 heads the summary; the other served
     # shapes (batch 4, Zamba2's N = 64) beside it
     ssd_err = max(c.get("max_err", 0.0) for c in ssd)
@@ -802,9 +914,11 @@ def phase_kernels(cfg, lcfg, mcfg, zcfg) -> dict:
                          "quantize_int4": "bit-equal",
                          "dequantize_int4": "bit-equal",
                          "flash_attention": {"float32": 2e-5,
-                                             "bfloat16": 2e-2},
+                                             "bfloat16": 2e-2,
+                                             "twice": "bit-equal"},
                          "decode_attention": {"float32": 1e-5,
-                                              "bfloat16": 2e-2},
+                                              "bfloat16": 2e-2,
+                                              "twice": "bit-equal"},
                          "ssd_scan": {
                              "float32": f"{SSD_F32_TOL} x max(1, max|ref|)",
                              "recurrence": 1e-4,
@@ -1025,8 +1139,9 @@ def profile_request(fn) -> dict:
     groups = {}
     for key, us, count in rows:
         low = key.lower()
-        ours = re.search(r"(flash_attention_\w+?|decode_(?:split|combine)"
-                         r"|\w*quantize_int[48]|ssd_scan)_kernel", key)
+        ours = re.search(r"(flash_attention_\w+?|decode_attention_\w+?"
+                         r"|decode_(?:split|combine)|\w*quantize_int[48]"
+                         r"|ssd_scan)_kernel", key)
         if ours:
             name = "hand-written: " + ours.group(1)
         elif any(w in low for w in ("nvjet", "gemm", "gemv", "cutlass",
@@ -1566,6 +1681,54 @@ def setup_lm(name: str, seed: int) -> dict:
             "gen": gen(seed + 1)}
 
 
+def _decode_kernel_launches(prof: dict) -> int:
+    """CUDA kernels of the flash-decode source in a profiled window."""
+    return sum(g["launches"] for name, g in prof.get("by_group", {}).items()
+               if name.startswith("hand-written: decode"))
+
+
+def profile_decode_step(name: str, seed: int) -> dict:
+    """Kernel launches of one decode step of an LM at full width and depth,
+    batch 1, after a ``LM_PROMPT``-token prefill, from ``torch.profiler``:
+    in all and by kernel group, and those of the flash-decode source."""
+    st = setup_lm(name, seed)
+    model, params, cfg = st["model"], st["params"], st["cfg"]
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_PROMPT),
+                           generator=st["gen"], device=DEV)
+    logits, cache = prefill_and_pad(model, params, {"tokens": tokens},
+                                    LM_PROMPT + LM_STEPS)
+    cur = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+    step = make_serve_step(model)
+    logits, cache = step(params, cache, cur, LM_PROMPT)          # warm-up
+    prof = profile_request(lambda: step(params, cache, cur, LM_PROMPT + 1))
+    out = {"model": name, "batch": 1,
+           "n_kernel_launches": prof.get("n_kernel_launches"),
+           "device_busy_ms": prof.get("device_busy_ms"),
+           "decode_kernel_launches": _decode_kernel_launches(prof),
+           "decode_attention_calls": st["per_step"]["decode_attention"],
+           "launches_by_group": {k: g["launches"] for k, g in
+                                 prof.get("by_group", {}).items()}}
+    del st, cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_attention(cfg, lcfg, zcfg) -> dict:
+    """``--attention-only``: B5 and B6 alone — every case against the plain
+    versions, the times at every served shape, and the kernel launches of
+    one Llama-3.2-3B and one Zamba2-1.2B decode step."""
+    attn_cases, dec_cases = attention_cases(cfg, lcfg, zcfg)
+    info = {"phase": "attention", "src": _src_dir(),
+            "attention_cases": attn_cases, "decode_cases": dec_cases,
+            "times": attention_times(cfg, lcfg, zcfg, attn_cases, dec_cases),
+            "decode_step_launches": [
+                profile_decode_step("llama3.2-3b", SEED + 30),
+                profile_decode_step("zamba2-1.2b", SEED + 80)]}
+    emit(info)
+    return info
+
+
 def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
     cfg, model, params = st["cfg"], st["model"], st["params"]
     per_prefill, per_step = st["per_prefill"], st["per_step"]
@@ -1629,6 +1792,11 @@ def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
     err = (dec - full).abs()
     agree = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
     busy = prof.get("device_busy_ms")
+    n_dec = _decode_kernel_launches(prof)
+    if isinstance(busy, float) and n_dec != per_step["decode_attention"]:
+        raise AssertionError(f"one decode step ran {n_dec} flash-decode "
+                             f"kernels for {per_step['decode_attention']} "
+                             "calls; a call is one kernel launch")
     med = statistics.median(step_ms)
     return {"batch": batch, "prompt": prompt, "steps": steps,
             "max_len": max_len,
@@ -1640,6 +1808,7 @@ def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
             "decode_step_wall_ms_min_max": [min(step_ms), max(step_ms)],
             "decode_tokens_per_s": batch * steps / sum(step_ms) * 1e3,
             "profile_one_step": prof,
+            "decode_kernel_launches_one_step": n_dec,
             "device_idle_share_one_step": (1 - busy / med)
             if isinstance(busy, float) else "not measured",
             "launches": launches,
@@ -1927,10 +2096,26 @@ def main() -> None:
     ap.add_argument("--llm-layers", type=int, default=None,
                     help="cut the LLM depth (default: the model's own)")
     ap.add_argument("--vit-layers", type=int, default=None)
+    ap.add_argument("--attention-only", action="store_true",
+                    help="run only the flash attention (B5) and flash-decode "
+                         "(B6) cases and times, and count one decode step's "
+                         "kernels")
+    ap.add_argument("--src", default=None,
+                    help="drive the repro_torch under this directory instead "
+                         "of this checkout's src/")
     args = ap.parse_args()
 
     env = phase_env()
     torch.cuda.set_device(0)
+    if args.attention_only:
+        phase_build()
+        phase_attention(get_config("openvla-7b"), get_config("llama3.2-3b"),
+                        get_config("zamba2-1.2b"))
+        print(env["nvidia_smi"], flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     cfg, cogact = get_config("openvla-7b"), get_config("cogact-7b")
     if args.llm_layers is not None:
         cfg = cfg.replace(n_layers=args.llm_layers)
@@ -1980,7 +2165,7 @@ def main() -> None:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        **{k: r[k] for k in ("at_8192", "served") if k in r}})
+                        **({"served": r["served"]} if "served" in r else {})})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -47,7 +47,7 @@ SIGNATURES: Dict[str, list] = {
     "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                            _F, _I, _I, _P],
-    # q, k, v, o, partial (m, l), partial acc, B, H, KV, T, D, kv_len,
+    # q, k, v, o, split scratch (float32), tickets, B, H, KV, T, D, kv_len,
     # device kv_len or NULL, keys per split, n_split, q (batch, head),
     # k and v (batch, head, seq), o (batch, head) strides, scale, dtype code,
     # stream

@@ -11,9 +11,10 @@
 // index.
 //
 // Bound at the served shapes (273 tokens, 32 heads of 128): the bytes of
-// q, k, v and out, a few microseconds; the arithmetic is small beside the
-// card's peak.  What costs time is therefore latency and occupancy, not
-// traffic, and the design aims at many independent blocks:
+// q, k, v and out, 2.7 us; the two products are 0.31 GFLOP, 0.31 us at the
+// bf16 tensor rate.  What costs time is therefore load latency and
+// occupancy, not traffic or tensor throughput, and the design aims at many
+// independent blocks whose loads overlap their products:
 //  * one block per (batch * head, 64-row query tile).  The TPU kernel's
 //    sequential innermost grid axis over K blocks is a loop inside the block
 //    over 64-row K/V tiles staged in shared memory; the loop stops at the
@@ -25,30 +26,40 @@
 //    columns past T score -1e30), so any sequence length is taken.
 //
 // Two kernels, by input type:
-//  * bfloat16 (the served type): both products run on the tensor cores through
-//    mma.sync.m16n8k16 with float32 accumulators.  Four warps, 16 query rows
-//    each; Q fragments stay in registers for the whole block, K and V
-//    fragments come from shared memory through ldmatrix (transposed for V),
-//    the softmax runs on the accumulator registers (a row lives in the four
-//    lanes of a quad), and the rounded probabilities are repacked in
-//    registers as the A operand of the second product, so neither scores nor
-//    probabilities ever touch memory.
+//  * bfloat16 (the served type): Q and the first K and V tiles are issued
+//    together as 16-byte cp.async copies, then K and V stream through a ring
+//    of two stages each: while tile j is in the products, tile j+1 is on its
+//    way.  K and V are separate commit groups, so the scores wait for K only
+//    and the p v product for V.  Each thread copies one column piece of
+//    rows r, r + 8, ... of every tile, so its addresses step by constants:
+//    issuing the copies costs a few instructions each.  87 KB of shared
+//    memory at D = 128 and 128 threads, so two blocks share an SM (160
+//    blocks at the served shape, all resident on 132 SMs).  Both products
+//    run on the tensor cores through mma.sync.m16n8k16 with float32
+//    accumulators, fed by ldmatrix: Q fragments stay in registers for the
+//    whole block, the softmax runs on the accumulator registers in exp2
+//    (one ex2.approx each) with scale * log2(e) folded into one multiply,
+//    masking only the tiles that cross the diagonal or the end of T, and the
+//    rounded probabilities are repacked in registers as the A operand of the
+//    second product, so neither scores nor probabilities ever touch memory.
+//    mma.sync and not wgmma: clock stamps inside the loop on the H100 found
+//    each tile already landed when its step began, and the two products
+//    under half of a step's cycles; issuing the copies and the softmax took
+//    the rest, so those were made cheaper instead.
 //  * float32: scalar FMAs (TF32 would not hold the 2e-5 the callers are given).
 //    256 threads as a 16 x 16 grid: thread (ty, tx) owns query rows
 //    4*ty..4*ty+3, score columns tx + 16*j and output columns tx + 16*c, so a
 //    row's statistics live in one half-warp; probabilities pass through shared
-//    memory between the two products.
+//    memory between the two products.  Not on a served path; it keeps the
+//    first design's synchronous tile loop.
 // Rows in shared memory are padded so that strided row reads and ldmatrix are
 // free of bank conflicts.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int BQ = 64;           // query rows per block
 constexpr int BK = 64;           // key/value rows per tile
-constexpr float NEG_INF = -1e30f;
 
 struct Strides {                 // elements, per (batch, seq, head)
     long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
@@ -77,63 +88,60 @@ __device__ __forceinline__ void load_tile(T* __restrict__ dst,
 // ============================================================ bfloat16, mma
 namespace tc {
 
+typedef __nv_bfloat16 bf16;
 constexpr int kThreads = 128;    // 4 warps x 16 query rows
+constexpr int STAGES = 2;        // ring depth of K and of V
 constexpr int PAD = 8;           // 16 bytes: keeps rows 16-byte aligned
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-    const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+template <int D>
+constexpr size_t smem_bytes() {  // Q, then the K stages and the V stages
+    return (size_t)(BQ + 2 * STAGES * BK) * (D + PAD) * sizeof(bf16);
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-    const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c (16x8, f32) += a (16x16, bf16, row) * b (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&t);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    return x + __shfl_xor_sync(0xffffffffu, x, 2);
+// Issue rows [row0, row0 + 64) x D of a strided global array into a padded
+// shared tile as 16-byte cp.async copies; rows at or past n_rows are never
+// read and become zeros.  Every thread copies the same column piece of
+// rows r, r + RSTEP, ..., so its addresses step by constants.
+template <int D, int LD>
+__device__ __forceinline__ void issue_tile(bf16* __restrict__ dst,
+                                           const bf16* __restrict__ src,
+                                           long long row_stride, int row0,
+                                           int n_rows) {
+    constexpr int PIECES = D / 8;                 // 16-byte pieces per row
+    constexpr int RSTEP = kThreads / PIECES;      // rows per pass
+    static_assert(kThreads % PIECES == 0 && 64 % RSTEP == 0, "tile shape");
+    const int r = threadIdx.x / PIECES;
+    const int c = (threadIdx.x % PIECES) * 8;
+    const bf16* sp = src + (long long)(row0 + r) * row_stride + c;
+    const uint32_t dp =
+        (uint32_t)__cvta_generic_to_shared(dst + r * LD + c);
+#pragma unroll
+    for (int i = 0; i < 64 / RSTEP; ++i) {
+        if (row0 + r + i * RSTEP < n_rows)
+            cp_async16(dp + i * RSTEP * LD * (int)sizeof(bf16),
+                       sp + (long long)i * RSTEP * row_stride);
+        else
+            *reinterpret_cast<uint4*>(dst + (r + i * RSTEP) * LD + c) =
+                make_uint4(0u, 0u, 0u, 0u);
+    }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ o,
+__global__ void __launch_bounds__(kThreads, 2)
+flash_attention_bf16_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            bf16* __restrict__ o,
                             int S, int T_len, int H, int KV, Strides st,
-                            float scale, int causal) {
-    typedef __nv_bfloat16 bf16;
+                            float scale_log2, int causal) {
     constexpr int LD = D + PAD;
     constexpr int KS = D / 16;       // k-steps of q k^T = column pairs of p v
     constexpr int NT = BK / 8;       // 8-column score tiles per K tile
     constexpr int OT = D / 8;        // 8-column output tiles
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-    bf16* k_s = q_s + BQ * LD;
-    bf16* v_s = k_s + BK * LD;
+    bf16* k_ring = q_s + BQ * LD;    // STAGES K tiles
+    bf16* v_ring = k_ring + STAGES * BK * LD;   // STAGES V tiles
 
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
@@ -152,32 +160,59 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const bf16* v_base = v + b * st.v_b + kvh * st.v_h;
     bf16* o_base = o + b * st.o_b + h * st.o_h;
 
-    load_tile<bf16, D, LD, kThreads>(q_s, q_base, st.q_s, q0, S);
-    __syncthreads();
-    // A fragments of this warp's 16 query rows, kept for the whole block:
-    // matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), ...
-    uint32_t qf[KS][4];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-        ldmatrix_x4(qf[ks], q_s + (warp * 16 + (mi & 1) * 8 + mr) * LD
-                                + ks * 16 + (mi >> 1) * 8);
+    int k_end = T_len;
+    if (causal) k_end = min(T_len, q0 + BQ);
+    const int n_k = (k_end + BK - 1) / BK;
 
+    // Q with K tile 0 (one group), V tile 0 (the next), then the K and V
+    // groups of the tiles up to STAGES - 1: all in flight together
+    issue_tile<D, LD>(q_s, q_base, st.q_s, q0, S);
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+        if (i < n_k)
+            issue_tile<D, LD>(k_ring + i * BK * LD, k_base, st.k_s, i * BK,
+                              T_len);
+        cp_async_commit();
+        if (i < n_k)
+            issue_tile<D, LD>(v_ring + i * BK * LD, v_base, st.v_s, i * BK,
+                              T_len);
+        cp_async_commit();
+    }
+
+    uint32_t qf[KS][4];
     float o_acc[OT][4];
 #pragma unroll
     for (int t = 0; t < OT; ++t)
 #pragma unroll
         for (int e = 0; e < 4; ++e) o_acc[t][e] = 0.f;
-    float m_i[2] = {NEG_INF, NEG_INF};   // rows g and g + 8
+    float m_i[2] = {NEG_INF, NEG_INF};   // rows g and g + 8, log2 units
     float l_i[2] = {0.f, 0.f};           // this lane's share of the row sum
 
-    int k_end = T_len;
-    if (causal) k_end = min(T_len, q0 + BQ);
-
-    for (int k0 = 0; k0 < k_end; k0 += BK) {
-        __syncthreads();                          // previous tile fully consumed
-        load_tile<bf16, D, LD, kThreads>(k_s, k_base, st.k_s, k0, T_len);
-        load_tile<bf16, D, LD, kThreads>(v_s, v_base, st.v_s, k0, T_len);
-        __syncthreads();
+    for (int j = 0; j < n_k; ++j) {
+        const int k0 = j * BK;
+        const bf16* k_s = k_ring + (j % STAGES) * BK * LD;
+        const bf16* v_s = v_ring + (j % STAGES) * BK * LD;
+        cp_async_wait<2 * STAGES - 3>();   // K tile j (and Q) landed
+        __syncthreads();             // ... for every thread; tile j-1 consumed
+        if (j == 0) {
+            // A fragments of this warp's 16 query rows, kept for the block:
+            // (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), ...
+#pragma unroll
+            for (int ks = 0; ks < KS; ++ks)
+                ldmatrix_x4(qf[ks], q_s + (warp * 16 + (mi & 1) * 8 + mr) * LD
+                                        + ks * 16 + (mi >> 1) * 8);
+        }
+        // tile j + STAGES - 1 into the stages tile j-1 left; empty groups
+        // past the end keep the count
+        const int nj = j + STAGES - 1;
+        if (nj < n_k)
+            issue_tile<D, LD>(k_ring + (nj % STAGES) * BK * LD, k_base,
+                              st.k_s, nj * BK, T_len);
+        cp_async_commit();
+        if (nj < n_k)
+            issue_tile<D, LD>(v_ring + (nj % STAGES) * BK * LD, v_base,
+                              st.v_s, nj * BK, T_len);
+        cp_async_commit();
 
         // ---- scores s (16 x 64 per warp) = q k^T
         float s[NT][4];
@@ -199,9 +234,11 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
             }
         }
 
-        // ---- mask and online softmax on the accumulator registers:
-        // s[t][0..1] belong to row g, s[t][2..3] to row g + 8, columns
-        // 8*t + 2*tg + {0, 1}
+        // ---- mask (only a tile that crosses the diagonal or the end of T
+        // has anything to mask) and online softmax on the accumulator
+        // registers, in log2 units: s[t][0..1] belong to row g, s[t][2..3]
+        // to row g + 8, columns 8*t + 2*tg + {0, 1}
+        const bool masked = k0 + BK > T_len || (causal && k0 + BK - 1 > q0);
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
             const int qi = q0 + warp * 16 + g + half * 8;
@@ -210,9 +247,11 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
             for (int t = 0; t < NT; ++t)
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
-                    const int ki = k0 + t * 8 + 2 * tg + e;
-                    float x = s[t][half * 2 + e] * scale;
-                    if (ki >= T_len || (causal && ki > qi)) x = NEG_INF;
+                    float x = s[t][half * 2 + e] * scale_log2;
+                    if (masked) {
+                        const int ki = k0 + t * 8 + 2 * tg + e;
+                        if (ki >= T_len || (causal && ki > qi)) x = NEG_INF;
+                    }
                     s[t][half * 2 + e] = x;
                     m_cur = fmaxf(m_cur, x);
                 }
@@ -224,11 +263,12 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
             for (int t = 0; t < NT; ++t)
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
-                    const float p = dead ? 0.f : expf(s[t][half * 2 + e] - m_new);
+                    const float p =
+                        dead ? 0.f : fast_exp2(s[t][half * 2 + e] - m_new);
                     row_sum += p;
                     s[t][half * 2 + e] = p;
                 }
-            const float alpha = expf(m_i[half] - m_new);
+            const float alpha = fast_exp2(m_i[half] - m_new);
             l_i[half] = alpha * l_i[half] + row_sum;
             m_i[half] = m_new;
 #pragma unroll
@@ -237,6 +277,9 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                 o_acc[t][half * 2 + 1] *= alpha;
             }
         }
+
+        cp_async_wait<2 * STAGES - 2>();   // V tile j landed
+        __syncthreads();
 
         // ---- o (16 x D per warp) += p v: two neighbouring score tiles,
         // rounded to bf16, are exactly the A fragment of a 16-key step
@@ -259,6 +302,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
             }
         }
     }
+    cp_async_wait<0>();              // nothing left in flight at exit
 
     // ---- finish: out = acc / l, rows past S are not written
 #pragma unroll
@@ -280,18 +324,14 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int T_len, int H, int KV, const Strides& st, float scale,
            int causal, cudaStream_t stream) {
-    const size_t smem = (size_t)(BQ + 2 * BK) * (D + PAD) * sizeof(__nv_bfloat16);
     auto kern = flash_attention_bf16_kernel<D>;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
+    static int set[32] = {};
+    const int e = allow_smem(kern, smem_bytes<D>(), set);
+    if (e != 0) return e;
     dim3 grid((unsigned)(B * H), (unsigned)((S + BQ - 1) / BQ));
-    kern<<<grid, kThreads, smem, stream>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, S, T_len, H, KV, st,
-        scale, causal);
+    kern<<<grid, kThreads, smem_bytes<D>(), stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, S, T_len, H,
+        KV, st, scale * LOG2E, causal);
     return (int)cudaGetLastError();
 }
 
@@ -453,11 +493,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
     const size_t smem = ((size_t)(BQ + 2 * BK) * (D + PAD) + (size_t)BQ * SS)
                         * sizeof(float);
     auto kern = flash_attention_f32_kernel<D>;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
+    static int set[32] = {};
+    const int e = allow_smem(kern, smem, set);
+    if (e != 0) return e;
     dim3 grid((unsigned)(B * H), (unsigned)((S + BQ - 1) / BQ));
     kern<<<grid, kThreads, smem, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)o, S, T_len,

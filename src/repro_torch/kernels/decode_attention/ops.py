@@ -10,30 +10,36 @@ once and does little arithmetic on it, so the kernel is bound by bytes: it
 reads the model's flat cache in place through strides, serves a whole GQA
 group from one read of each K/V row, splits the KV axis across blocks
 (``split_plan``: from the buffer length, never from ``kv_len``) and
-combines the partial softmax states in a second small pass.  Blocks past
-``kv_len`` read nothing.  ``kv_len`` is a Python int or a 0-dim integer
-tensor; a CUDA tensor is read by the kernel itself, so nothing waits for
-the card.  Head dims 16, 32, 64 and 128 are built; another one raises.
+streams each split's 64-key tiles through a ring of asynchronous copies.
+The splits merge inside the same launch: the last live split of each
+(batch, kv head) combines the others' partial softmax states, kept in a
+scratch that is allocated once per card (``_scratch``) and left clean by
+the kernel.  Blocks past ``kv_len`` read nothing.  ``kv_len`` is a Python
+int or a 0-dim integer tensor; a CUDA tensor is read by the kernel itself,
+so nothing waits for the card.  Head dims 16, 32, 64 and 128 are built, and
+bfloat16 takes GQA groups of up to 16 query heads; another one raises.
 
 Dispatch is by where the tensors lie: CPU tensors take the plain version
 (``decode_attention_plain``), CUDA tensors launch the kernel or the call
-raises.  One call launches two CUDA kernels (the split pass and the
-combine) and counts as one launch of the wrapper.
+raises.  One call is one CUDA kernel launch.
 """
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from .. import _build
-from ..flash_attention.ops import _strided
+from ..flash_attention.ops import DTYPE_CODE, _on_device, _strided
+from ..flash_attention.ops import _device_kind as _fa_device_kind
 from . import ref
 
 decode_attention_plain = ref.decode_attention
 HEAD_DIMS = (16, 32, 64, 128)      # the instantiations in the CUDA source
-TILE = 32                          # keys per tile of the kernel
+TILE = 64                          # keys per stage of the kernel's ring
+BLOCKS_PER_SM = 2                  # what the bf16 kernel's shared memory allows
+MAX_GROUP = 16                     # bf16: a GQA group is one 16-row mma tile
 
 
 @lru_cache(maxsize=None)
@@ -45,21 +51,38 @@ def sm_count(device: torch.device) -> int:
 
 def split_plan(T: int, n_bkv: int, n_sm: int) -> Tuple[int, int]:
     """(keys per split, number of splits) for a cache of ``T`` positions
-    and ``n_bkv`` (batch, kv head) pairs on a card of ``n_sm`` SMs: enough
-    splits for about two blocks per SM, each a whole number of tiles."""
+    and ``n_bkv`` (batch, kv head) pairs on a card of ``n_sm`` SMs: as many
+    splits as one wave holds (``BLOCKS_PER_SM`` blocks on every SM, never
+    more, since a second wave would pay the whole latency again), each a
+    whole number of 64-key tiles; where the buffer has fewer tiles than
+    that, one tile per split."""
     n_tiles = -(-T // TILE)
-    want = max(1, -(-2 * n_sm // n_bkv))
+    want = max(1, BLOCKS_PER_SM * n_sm // n_bkv)
     chunk = -(-n_tiles // want) * TILE
     return chunk, -(-T // chunk)
 
 
+_SCRATCH: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(device: torch.device, n_part: int,
+             n_ticket: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The splits' partial (acc, m, l) rows (float32) and one ticket per
+    (batch, kv head) (int32, zero), allocated once per card and grown when a
+    call needs more, so that the pointers stay put from call to call.  The
+    kernel leaves every ticket at 0.  Calls that share it run in stream
+    order (one stream per card)."""
+    part, ticket = _SCRATCH.get(device, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if ticket is None or ticket.numel() < n_ticket:
+        ticket = torch.zeros(n_ticket, dtype=torch.int32, device=device)
+    _SCRATCH[device] = (part, ticket)
+    return part, ticket
+
+
 def _device_kind(tensors) -> str:
-    kinds = {t.device.type for t in tensors}
-    if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
-        raise ValueError(f"decode_attention: no implementation for tensors on "
-                         f"{[str(t.device) for t in tensors]}; have cpu "
-                         "(plain) and cuda (kernel)")
-    return kinds.pop()
+    return _fa_device_kind(tensors, "decode_attention")
 
 
 def _check_len(kv_len) -> None:
@@ -93,6 +116,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "belong together")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D}: the kernel is built for {HEAD_DIMS}")
+    if q.dtype == torch.bfloat16 and H // KV > MAX_GROUP:
+        raise ValueError(f"a group of {H // KV} query heads: the bfloat16 "
+                         f"kernel takes up to {MAX_GROUP}")
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"decode_attention kernel takes float32 or bfloat16 "
@@ -110,21 +136,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if T == 0 or B == 0:
         return out.zero_()
     chunk, n_split = split_plan(T, B * KV, sm_count(q.device))
-    part_ml = torch.empty((B * H, n_split, 2), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((B * H, n_split, D), dtype=torch.float32,
-                           device=q.device)
+    part, ticket = _scratch(q.device, B * H * n_split * (D + 2), B * KV)
     q, k, v = _strided(q), _strided(k), _strided(v)
     o = out[:, 0]
-    with torch.cuda.device(q.device):
+    with _on_device(q.device):
         rc = _build.lib().rt_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            part_ml.data_ptr(), part_acc.data_ptr(),
+            part.data_ptr(), ticket.data_ptr(),
             B, H, KV, T, D, min(len_int, T),
             None if len_dev is None else len_dev.data_ptr(), chunk, n_split,
             *q.stride()[:2], *k.stride()[:3], *v.stride()[:3],
-            *o.stride()[:2],
-            D ** -0.5, _build.DTYPE_CODES[str(q.dtype).split(".")[-1]],
+            *o.stride()[:2], D ** -0.5, DTYPE_CODE[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch("decode_attention", rc)
     decode_attention.launches += 1

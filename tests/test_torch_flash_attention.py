@@ -65,3 +65,68 @@ def test_plain_matches_jnp_reference_at_ragged_lengths(S, T, causal, name,
     out = t_ops.flash_attention(qt, kt, vt, causal=causal)
     np.testing.assert_allclose(t2np(out), to_np(ref), atol=tol)
     assert t_ops.flash_attention.launches == 0     # CPU: no kernel launched
+
+
+# ------------------------------------- the kernel's arithmetic, written out
+LOG2E = 1.4426950408889634
+BQ = BK = 64                 # query rows per block, keys per K/V tile
+
+
+def _kernel_arithmetic(q, k, v, causal):
+    """What csrc/flash_attention.cu computes, in PyTorch: 64-row query
+    tiles, heaviest first as the grid runs them, each walking 64-key K/V
+    tiles in order up to its diagonal when causal; an online softmax in
+    exp2 units with ``D^-0.5 * log2 e`` folded into one multiply, float32
+    (m, l, acc), p = 0 while m <= -0.5e30, p rounded to v's type before
+    p . v while l sums the unrounded p, l == 0 -> 1.  GQA by index: query
+    head h reads KV head h // group.  (The float32 kernel walks the same
+    tiles with exp in natural units.)"""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    kv_of = torch.arange(H) // (H // KV)
+    kk, vv = k[:, :, kv_of].float(), v[:, :, kv_of]
+    scale_log2 = float(torch.tensor(D ** -0.5) * LOG2E)
+    out = torch.empty_like(q)
+    for q0 in reversed(range(0, S, BQ)):
+        rows = torch.arange(q0, min(q0 + BQ, S))
+        qf = q[:, q0:q0 + BQ].float()
+        m = torch.full((B, len(rows), H), -1e30)
+        l = torch.zeros((B, len(rows), H))
+        acc = torch.zeros((B, len(rows), H, D))
+        k_end = min(T, q0 + BQ) if causal else T
+        for k0 in range(0, k_end, BK):
+            cols = torch.arange(k0, min(k0 + BK, T))
+            s = torch.einsum("brhd,bthd->brht", qf,
+                             kk[:, k0:k0 + BK]) * scale_log2
+            if causal:
+                s = s.masked_fill((cols[None, :] > rows[:, None])[None, :,
+                                                                   None],
+                                  -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.where((m_new <= -0.5e30)[..., None], 0.0,
+                            torch.exp2(s - m_new[..., None]))
+            alpha = torch.exp2(m - m_new)
+            l = alpha * l + p.sum(-1)
+            acc = alpha[..., None] * acc + torch.einsum(
+                "brht,bthd->brhd", p.to(v.dtype).float(),
+                vv[:, k0:k0 + BK].float())
+            m = m_new
+        l = torch.where(l == 0, 1.0, l)
+        out[:, q0:q0 + BQ] = (acc / l[..., None]).to(q.dtype)
+    return out
+
+
+@pytest.mark.parametrize("S", [17, 273])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tdt,tol", [(torch.float32, 1e-5),
+                                     (torch.bfloat16, 2e-2)])
+def test_kernel_arithmetic_matches_the_plain_version(S, causal, tdt, tol):
+    """17 tokens (serve_lm's requests) is less than one query tile; 273
+    (the VLA sequence) ends in a ragged tile of 17 rows."""
+    g = torch.Generator().manual_seed(S + causal)
+    q = torch.randn((2, S, 6, 32), generator=g).to(tdt)
+    k = torch.randn((2, S, 2, 32), generator=g).to(tdt)
+    v = torch.randn((2, S, 2, 32), generator=g).to(tdt)
+    got = _kernel_arithmetic(q, k, v, causal)
+    want = t_ops.flash_attention_plain(q, k, v, causal=causal)
+    np.testing.assert_allclose(t2np(got), t2np(want), atol=tol)

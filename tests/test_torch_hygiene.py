@@ -104,6 +104,7 @@ def test_the_package_lists_every_module_of_the_slice():
                                                   "flash_attention.cu",
                                                   "decode_attention.cu",
                                                   "ssd_scan.cu"}
+    assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"common.cuh"}
     assert {"rt_quantize_int8", "rt_dequantize_int8", "rt_quantize_int4",
             "rt_dequantize_int4", "rt_flash_attention",
             "rt_decode_attention", "rt_ssd_scan"} == set(_build.SIGNATURES)
@@ -261,10 +262,12 @@ def test_int4_launches_its_kernel_on_a_cuda_tensor(monkeypatch):
 
 
 def test_decode_attention_launches_its_kernel_on_a_cuda_tensor(monkeypatch):
-    """On a CUDA tensor the flash-decode wrapper launches its kernel once,
+    """On a CUDA tensor the flash-decode wrapper makes one C call per call,
     reading the model's flat cache in place through its strides, with the
-    split plan of the buffer length and ``kv_len`` as an int, and counts
-    the launch; what the kernel does not take raises before any launch."""
+    split plan of the buffer length, ``kv_len`` as an int and the splits'
+    scratch allocated once per card (the same pointers call after call, the
+    tickets zero), and counts the launch; what the kernel does not take
+    raises before any launch."""
     import contextlib
     import types
     from repro_torch.kernels import _build
@@ -274,9 +277,11 @@ def test_decode_attention_launches_its_kernel_on_a_cuda_tensor(monkeypatch):
     monkeypatch.setattr(da, "_device_kind", lambda ts: "cuda")
     monkeypatch.setattr(da.torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(da.torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(da.torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(da.decode_attention, "launches", 0)
+    monkeypatch.setattr(da, "_SCRATCH", {})
     asked = []
     monkeypatch.setattr(da, "sm_count",
                         lambda d: asked.append(d) or 132)   # an H100 SXM
@@ -290,14 +295,22 @@ def test_decode_attention_launches_its_kernel_on_a_cuda_tensor(monkeypatch):
     ((name, a),) = fake.calls
     assert name == "rt_decode_attention"
     assert a[1] == a[2] == kc.data_ptr()           # no copy of the cache
+    part, ticket = da._SCRATCH[q.device]
+    assert a[4:6] == (part.data_ptr(), ticket.data_ptr())
+    assert part.dtype == torch.float32 and part.numel() == B * H * 9 * (hd + 2)
+    assert ticket.dtype == torch.int32 and ticket.numel() == B * KV
+    assert not ticket.any()
     assert a[6:12] == (B, H, KV, S_max, hd, 513)
-    assert a[12] is None and a[13:15] == (32, 18)
+    assert a[12] is None and a[13:15] == (64, 9)
     assert asked == [q.device]                     # the SMs of q's card
     assert a[15:17] == (H * hd, hd)                            # q
     assert a[17:20] == a[20:23] == (S_max * KV * hd, hd, KV * hd)  # k, v
     assert a[23:25] == (H * hd, hd)                            # out
     assert a[25] == hd ** -0.5 and a[26] == 1
     assert da.decode_attention.launches == 1
+    da.decode_attention(q, k4, k4, 100)            # the same scratch again
+    assert fake.calls[1][1][4:6] == a[4:6]
+    assert da.decode_attention.launches == 2
     with pytest.raises(ValueError, match="head dim"):
         da.decode_attention(q[..., :48], k4[..., :48], k4[..., :48], 5)
     with pytest.raises(TypeError):
@@ -306,4 +319,39 @@ def test_decode_attention_launches_its_kernel_on_a_cuda_tensor(monkeypatch):
         da.decode_attention(q[:, :, :7], k4, k4, 5)
     with pytest.raises(ValueError, match="empty cache"):
         da.decode_attention(q, k4, k4, 0)
-    assert len(fake.calls) == 1 and da.decode_attention.launches == 1
+    with pytest.raises(ValueError, match="up to 16"):   # a 24x group in bf16
+        da.decode_attention(q, k4[:, :1], k4[:, :1], 5)
+    assert len(fake.calls) == 2 and da.decode_attention.launches == 2
+
+
+def test_flash_attention_launches_its_kernel_on_a_cuda_tensor(monkeypatch):
+    """On a CUDA tensor the flash-attention wrapper makes one C call with
+    the model's (B, S, H, D) / (B, T, KV, D) strides, the scale, the causal
+    flag and the type code, enters no device context when q is on the
+    current card, and counts the launch."""
+    import types
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as fa
+    fake = _FakeLib()
+    entered = []
+    monkeypatch.setattr(_build, "lib", lambda: fake)
+    monkeypatch.setattr(fa.torch.cuda, "device",
+                        lambda d: entered.append(d))
+    monkeypatch.setattr(fa.torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(fa.torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(fa.flash_attention, "launches", 0)
+    monkeypatch.setattr(fa, "_device_kind", lambda ts, name: "cuda")
+    B, S, H, KV, hd = 4, 17, 24, 8, 128           # serve_lm's blocks
+    q = torch.ones((B, S, H, hd), dtype=torch.bfloat16)
+    k = torch.ones((B, S, KV, hd), dtype=torch.bfloat16)
+    out = fa.flash_attention(q, k, k, causal=True)   # q.device.index: None
+    assert out.shape == (B, S, H, hd) and out.dtype == torch.bfloat16
+    ((name, a),) = fake.calls
+    assert name == "rt_flash_attention"
+    assert a[4:10] == (B, S, S, H, KV, hd)
+    assert a[10:13] == (S * H * hd, H * hd, hd)                 # q
+    assert a[13:16] == a[16:19] == (S * KV * hd, KV * hd, hd)   # k, v
+    assert a[19:22] == (S * H * hd, H * hd, hd)                 # out
+    assert a[22] == hd ** -0.5 and a[23:] == (1, 1, 7)
+    assert entered == [] and fa.flash_attention.launches == 1
