@@ -9,8 +9,10 @@ co-inference (``repro_torch.runtime.partition.VLASplitExecutor``), the
 paper's closed loop (``repro_torch.core.RoboECC``) choosing the cut and the
 codec of every CogACT request, Llama-3.2-3B prefill and greedy decode
 (``repro_torch.runtime.serving.greedy_generate``), Llama-3.2-3B requests
-served by split co-inference (``LMSplitExecutor``), and prefill and greedy
-decode of Mamba2-1.3B (SSM) and Zamba2-1.2B (hybrid) — and holds every
+served by split co-inference (``LMSplitExecutor``), prefill and greedy
+decode of Mamba2-1.3B (SSM), Zamba2-1.2B (hybrid) and phi3-mini-3.8b (head
+dim 96), and the port's serving entry point with the int8 codec at the
+reduced width of 64 columns — and holds every
 hand-written kernel on those paths against its plain PyTorch version on the
 card.  Needs one card,
 ``nvcc`` and no network; the kernels are built from
@@ -46,11 +48,21 @@ Phases, one JSON line each:
   generate_hybrid  Zamba2-1.2B the same way (the shared attention block at
                 7 sites: flash attention in the prefill, flash-decode in
                 every step)
+  generate_phi3 phi3-mini-3.8b (32 heads of 96): a 512-token prompt and 16
+                greedy steps at batch 1, as ``generate``, and the model in
+                float32 against its full forward
+  serve_cli     ``python -m repro_torch.launch.serve --codec --requests 4``
+                on the card: its reduced data plane (d_model 64) ships the
+                cut through the int8 codec at one 64-column block a row
 
-then the card's name and power limit as ``nvidia-smi`` prints them, a
-``{"kernels": [...]}`` summary of every kernel (launch count on the main
-paths, error, time, plain version's time, the card's bound, the library
-call's time; flash attention, flash-decode and the SSD scan with a
+Every ``generate*`` phase also profiles one prefill by kernel family,
+holds the synchronised step loop's tokens equal to ``greedy_generate``'s,
+and checks that each SSD scan call ran one chunk-state and one output
+kernel.  Then come the card's name and power limit as ``nvidia-smi``
+prints them, a ``{"kernels": [...]}`` summary of every kernel (launch
+count on the main paths and the CUDA kernels a launch queues, error,
+time, plain version's time, the card's bound, the library call's time;
+flash attention, flash-decode and the SSD scan with a
 ``served`` list of every shape their main paths give them) and, last,
 ``{"ok": true, "device": {...}}``.
 
@@ -59,14 +71,17 @@ for finding faults (the controller still plans the published CogACT-7B;
 Llama-3.2-3B always runs in full); with no arguments everything runs in
 full.  ``--attention-only`` runs the flash attention and flash-decode
 cases and times alone, and counts the kernels of one Llama-3.2-3B and one
-Zamba2-1.2B decode step (about a minute); with ``--src DIR`` it does so
-for the ``repro_torch`` under ``DIR``, e.g. a parent commit unpacked
-beside this one, so that two versions are compared in one call.
+Zamba2-1.2B decode step (about a minute); ``--ssd-only`` runs the SSD
+scan's cases and its times at the four served shapes.  With
+``--src DIR`` either does so for the ``repro_torch`` under ``DIR``, e.g. a
+parent commit unpacked beside this one, so that two versions are compared
+in one call.
 """
 from __future__ import annotations
 
 import argparse
 import gc
+import io
 import json
 import os
 import re
@@ -74,8 +89,7 @@ import statistics
 import subprocess
 import sys
 import time
-
-
+from contextlib import redirect_stdout
 
 def _src_dir() -> str:
     """The ``src`` whose ``repro_torch`` this script drives: this
@@ -125,9 +139,10 @@ SEED = 0
 DEV = "cuda"
 
 # the LM paths: generate's prompt and greedy steps, its batches, and
-# serve_lm's requests (tokens each) and micro-batch
+# serve_lm's requests (tokens each) and micro-batch; generate_phi3's steps
 LM_PROMPT, LM_STEPS, LM_BATCHES = 512, 64, (1, 4)
 LM_SEQ, LM_MICRO_BATCH = 17, 4
+PHI3_STEPS = 16
 
 
 def emit(obj) -> None:
@@ -241,13 +256,13 @@ def _codec_input(shape, dtype, seed):
     return x.to(dtype)
 
 
-def check_codec(shape, dtype, seed) -> dict:
+def check_codec(shape, dtype, seed, block=128) -> dict:
     x = _codec_input(shape, dtype, seed)
-    q_k, s_k = codec_ops.quantize(x)
-    q_p, s_p = codec_ops.quantize_plain(x)
+    q_k, s_k = codec_ops.quantize(x, block)
+    q_p, s_p = codec_ops.quantize_plain(x, block)
     torch.cuda.synchronize()
     if q_k.dtype != torch.int8 or q_k.shape != x.shape \
-            or s_k.shape != (*x.shape[:-1], x.shape[-1] // 128):
+            or s_k.shape != (*x.shape[:-1], x.shape[-1] // block):
         raise AssertionError(f"quantize {shape}: wrong output {q_k.shape} "
                              f"{q_k.dtype} {s_k.shape}")
     q_err = (q_k.int() - q_p.int()).abs().max().item()
@@ -256,8 +271,8 @@ def check_codec(shape, dtype, seed) -> dict:
         raise AssertionError(f"quantize_int8 {shape} {dtype}: kernel and "
                              f"plain version differ (payload by {q_err}, "
                              f"scales by {s_err}); they are held bit-equal")
-    d_k = codec_ops.dequantize(q_k, s_k, dtype)
-    d_p = codec_ops.dequantize_plain(q_k, s_k, dtype)
+    d_k = codec_ops.dequantize(q_k, s_k, dtype, block)
+    d_p = codec_ops.dequantize_plain(q_k, s_k, dtype, block)
     torch.cuda.synchronize()
     d_err = (d_k.float() - d_p.float()).abs().max().item()
     if not torch.equal(d_k, d_p):
@@ -265,7 +280,8 @@ def check_codec(shape, dtype, seed) -> dict:
                              f"plain version differ by {d_err}; they are "
                              "held bit-equal")
     return {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-            "quantize_max_err": max(q_err, s_err), "dequantize_max_err": d_err}
+            "block": block, "quantize_max_err": max(q_err, s_err),
+            "dequantize_max_err": d_err}
 
 
 def _codec4_input(shape, dtype, seed, case):
@@ -472,11 +488,12 @@ def check_repeat(name, fn) -> dict:
     return {"case": name, "bit_equal": True}
 
 
-def attention_cases(cfg, lcfg, zcfg) -> tuple:
+def attention_cases(cfg, lcfg, zcfg, pcfg) -> tuple:
     """B5 and B6 against their plain versions at the shapes the main paths
     give them (``cfg`` the served VLA, ``lcfg`` Llama-3.2-3B, ``zcfg``
-    Zamba2-1.2B) and at awkward ones, and repeated calls held bit-equal.
-    Returns (B5 cases, B6 cases)."""
+    Zamba2-1.2B, ``pcfg`` phi3-mini-3.8b's head dim 96) and at awkward
+    ones, and repeated calls held bit-equal.  Returns (B5 cases, B6
+    cases)."""
     S_main = cfg.n_patches + 17
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     H_l, KV_l, hd_l = lcfg.n_heads, lcfg.n_kv_heads, lcfg.resolved_head_dim
@@ -515,19 +532,47 @@ def attention_cases(cfg, lcfg, zcfg) -> tuple:
     for i, B in enumerate(LM_BATCHES):    # Zamba2's shared block, MHA 32 x 64
         attn_cases.append(check_attn(B, LM_PROMPT, LM_PROMPT, H_z, KV_z, hd_z,
                                      bf, True, 55 + i))
+    H_p, KV_p, hd_p = pcfg.n_heads, pcfg.n_kv_heads, pcfg.resolved_head_dim
+    attn_cases += [                       # head dim 96: phi3's prefill
+        check_attn(1, LM_PROMPT, LM_PROMPT, H_p, KV_p, hd_p, bf, True, 60),
+        check_attn(1, LM_PROMPT, LM_PROMPT, H_p, KV_p, hd_p, f32, True, 61),
+        check_attn(2, 130, 130, 4, 2, 96, bf, False, 62),
+        check_attn(1, 100, 333, 4, 4, 96, f32, False, 63),
+        check_attn(2, 17, 17, 8, 8, 96, bf, True, 64),
+        check_attn(1, 65, 65, 2, 1, 96, f32, True, 65),
+        check_attn(1, S_main, S_main, 4, 4, 96, bf, True, 66, strided=True),
+    ]
     q, k, v = _attn_inputs(1, S_main, S_main, H, KV, hd, bf, 10)
     attn_cases.append(check_repeat(
         "flash_attention (1, 273, 32 x 128) causal, twice",
         lambda: fa_ops.flash_attention(q, k, v, causal=True)))
+    qp, kp, vp = _attn_inputs(1, LM_PROMPT, LM_PROMPT, H_p, KV_p, hd_p, bf,
+                              67)
+    attn_cases.append(check_repeat(
+        f"flash_attention (1, {LM_PROMPT}, {H_p} x {hd_p}) causal, twice",
+        lambda: fa_ops.flash_attention(qp, kp, vp, causal=True)))
 
     dec_cases = decode_cases(lcfg)
     for i, B in enumerate(LM_BATCHES):    # Zamba2's 7 sites, MHA 32 x 64
         for kv_len in (LM_PROMPT + 1, T_l):
             dec_cases.append(check_decode(B, H_z, KV_z, T_l, hd_z, kv_len, bf,
                                           320 + 2 * i + kv_len, flat=True))
+    T_p = LM_PROMPT + PHI3_STEPS          # head dim 96: phi3's decode
+    for kv_len in (1, 300, LM_PROMPT + 1, T_p):
+        dec_cases.append(check_decode(1, H_p, KV_p, T_p, hd_p, kv_len, bf,
+                                      340 + kv_len, flat=True))
+    dec_cases += [
+        check_decode(1, H_p, KV_p, T_p, hd_p, T_p - 5, f32, 341, flat=True),
+        check_decode(1, H_p, KV_p, T_p, hd_p, LM_PROMPT + 3, bf, 342,
+                     flat=True, device_len=True),
+        check_decode(2, 8, 2, 200, 96, 150, f32, 343),
+        check_decode(2, 8, 2, 200, 96, 150, bf, 344),
+        check_decode(1, 16, 1, 4096, 96, 4000, bf, 345),      # GQA 16x
+        check_decode(1, 4, 4, 32, 96, 32, f32, 346),         # one split
+    ]
     for B, h, kv, t, d in ((1, H_l, KV_l, T_l, hd_l), (4, H_l, KV_l, T_l, hd_l),
                            (1, H_l, KV_l, 8192, hd_l), (4, H_z, KV_z, T_l, hd_z),
-                           (1, 32, 2, 8192, 128)):
+                           (1, 32, 2, 8192, 128), (1, H_p, KV_p, T_p, hd_p)):
         q, k, v = _decode_inputs(B, h, kv, t, d, bf, 330 + B + t, flat=True)
         n = torch.tensor(t - 3, dtype=torch.int32, device=DEV)
         dec_cases.append(check_repeat(
@@ -602,13 +647,14 @@ SERVED_KEYS = ("shape", "kv_len", "split_plan", "ms", "host_ms", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
 
 
-def attention_times(cfg, lcfg, zcfg, attn_cases, dec_cases) -> dict:
+def attention_times(cfg, lcfg, zcfg, pcfg, attn_cases, dec_cases) -> dict:
     """B5 and B6 timed at every shape the main paths give them, each with
     its bound and its library time: B5 at the VLA's 273 tokens (``serve``,
     ``serve_cogact``, ``control``), ``serve_lm``'s 4 x 17, and the
-    512-token prefills of Llama-3.2-3B and Zamba2-1.2B at batch 1 and 4; B6
-    at ``generate``'s and ``generate_hybrid``'s 576-position buffers at
-    batch 1 and 4, and Llama-3.2-3B's heads at 8192 positions.  The first
+    512-token prefills of Llama-3.2-3B and Zamba2-1.2B at batch 1 and 4 and
+    of phi3-mini-3.8b at batch 1; B6 at ``generate``'s and
+    ``generate_hybrid``'s 576-position buffers at batch 1 and 4, Llama-3.2-
+    3B's heads at 8192 positions, and phi3's 528-position buffer.  The first
     shape of each heads its record; all of them are in its ``served``
     list."""
     H_l, KV_l, hd_l = lcfg.n_heads, lcfg.n_kv_heads, lcfg.resolved_head_dim
@@ -622,6 +668,8 @@ def attention_times(cfg, lcfg, zcfg, attn_cases, dec_cases) -> dict:
     served += [time_attn(B, LM_PROMPT, h, kv, d, attn_err)
                for h, kv, d in ((H_l, KV_l, hd_l), (H_z, KV_z, hd_z))
                for B in LM_BATCHES]
+    H_p, KV_p, hd_p = pcfg.n_heads, pcfg.n_kv_heads, pcfg.resolved_head_dim
+    served.append(time_attn(1, LM_PROMPT, H_p, KV_p, hd_p, attn_err))
     rec = {"flash_attention": dict(served[0])}
     rec["flash_attention"]["served"] = [
         {k: r[k] for k in SERVED_KEYS if k in r} for r in served]
@@ -631,6 +679,8 @@ def attention_times(cfg, lcfg, zcfg, attn_cases, dec_cases) -> dict:
               for h, kv, d in ((H_l, KV_l, hd_l), (H_z, KV_z, hd_z))
               for B in LM_BATCHES]
     served.append(time_decode(1, H_l, KV_l, 8192, hd_l, 8192, dec_err))
+    T_p = LM_PROMPT + PHI3_STEPS
+    served.append(time_decode(1, H_p, KV_p, T_p, hd_p, T_p, dec_err))
     rec["decode_attention"] = dict(served[0])
     rec["decode_attention"]["served"] = [
         {k: r[k] for k in SERVED_KEYS if k in r} for r in served]
@@ -672,6 +722,15 @@ def _err_and_max(got, want) -> tuple:
     return err, want.float().abs().max().item()
 
 
+def _ssd_plan(B, T, H, P, N, chunk) -> dict:
+    """How the scan being driven cuts this call: its ``launch_plan``, or,
+    for an earlier design (``--src``), its column tile."""
+    if hasattr(ssd_ops, "launch_plan"):
+        return ssd_ops.launch_plan(B, T, H, P, N, chunk)._asdict()
+    return {"p_tile": ssd_ops.p_tile(P, B * H, ssd_ops.sm_count(
+        torch.device(DEV, torch.cuda.current_device())))}
+
+
 def check_ssd(B, T, H, P, N, chunk, dtype, seed, a_init=False) -> dict:
     x, dt, A, Bm, Cm = _ssd_inputs(B, T, H, P, N, dtype, seed, a_init)
     y, s = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
@@ -688,7 +747,7 @@ def check_ssd(B, T, H, P, N, chunk, dtype, seed, a_init=False) -> dict:
     s_err, s_max = _err_and_max(s, s32)
     case = {"B": B, "T": T, "H": H, "P": P, "N": N, "chunk": chunk,
             "dtype": str(dtype).split(".")[-1], "A_minus_one": a_init,
-            "p_tile": ssd_ops.p_tile(P, B * H, ssd_ops.sm_count(x.device)),
+            "plan": _ssd_plan(B, T, H, P, N, chunk),
             "y_max_err_vs_f32": y_err, "y_max_abs": y_max,
             "state_max_err_vs_f32": s_err, "state_max_abs": s_max,
             "state_tol": SSD_F32_TOL * max(1.0, s_max),
@@ -796,7 +855,7 @@ def time_ssd(B, T, H, P, N, chunk, max_err) -> dict:
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:74",
             "shape": [B, T, H, P, N], "chunk": chunk, "dtype": "bfloat16",
-            "p_tile": ssd_ops.p_tile(P, B * H, ssd_ops.sm_count(x.device)),
+            "plan": _ssd_plan(B, T, H, P, N, chunk),
             "max_abs_err": max_err,
             "ms": time_ms(lambda: ssd_ops.ssd_scan(x, dt, A, Bm, Cm,
                                                    chunk=chunk)),
@@ -808,12 +867,26 @@ def time_ssd(B, T, H, P, N, chunk, max_err) -> dict:
             "flops": flops, "library_ms": None}
 
 
-def phase_kernels(cfg, lcfg, mcfg, zcfg) -> dict:
+def phase_ssd(mcfg, zcfg) -> dict:
+    """``--ssd-only``: B7 alone — every case against the plain versions,
+    the times at the four served shapes (Mamba2-1.3B and Zamba2-1.2B at
+    batch 1 and 4)."""
+    cases = ssd_cases(mcfg, zcfg)
+    err = max(c.get("max_err", 0.0) for c in cases)
+    info = {"phase": "ssd", "src": _src_dir(), "ssd_cases": cases,
+            "times": [time_ssd(B, LM_PROMPT, c.ssm_nheads, c.ssm_headdim,
+                               c.ssm_state, c.ssm_chunk, err)
+                      for c in (mcfg, zcfg) for B in LM_BATCHES]}
+    emit(info)
+    return info
+
+
+def phase_kernels(cfg, lcfg, mcfg, zcfg, pcfg) -> dict:
     """Every kernel against its plain version, at the shapes the main paths
     give it (``cfg`` the served VLA, ``lcfg`` Llama-3.2-3B, ``mcfg``
-    Mamba2-1.3B, ``zcfg`` Zamba2-1.2B) and at awkward ones, then times at
-    the main path's shapes.  Returns the per-kernel records for the summary
-    line."""
+    Mamba2-1.3B, ``zcfg`` Zamba2-1.2B, ``pcfg`` phi3-mini-3.8b) and at
+    awkward ones, then times at the main path's shapes.  Returns the
+    per-kernel records for the summary line."""
     S_main = cfg.n_patches + 17
     d, d_l = cfg.d_model, lcfg.d_model
     bf, f32 = torch.bfloat16, torch.float32
@@ -828,6 +901,14 @@ def phase_kernels(cfg, lcfg, mcfg, zcfg) -> dict:
         check_codec((2, 17, 256), bf, 7),
         check_codec((LM_MICRO_BATCH, LM_SEQ, d_l), bf, 8),   # serve_lm cut
         check_codec((LM_MICRO_BATCH, LM_SEQ, d_l), f32, 9),
+        # one block a row at the reduced d_model = 64 (serve_cli), and a
+        # width no multiple of 4 (scalar loads and stores)
+        check_codec((LM_MICRO_BATCH, LM_SEQ, 64), bf, 10, 64),
+        check_codec((17, 64), bf, 11, 64),
+        check_codec((S_main, 64), bf, 12, 64),
+        check_codec((S_main, 64), f32, 13, 64),
+        check_codec((5, 100), f32, 14, 100),
+        check_codec((3, 7, 100), bf, 15, 100),
     ]
     codec4_cases = [
         check_codec4((1, S_main, d), bf, 40),         # uplink, main path
@@ -840,7 +921,7 @@ def phase_kernels(cfg, lcfg, mcfg, zcfg) -> dict:
         check_codec4((1, S_main, d), bf, 47, "ties"),
         check_codec4((4, 512), f32, 48, "ties"),
     ]
-    attn_cases, dec_cases = attention_cases(cfg, lcfg, zcfg)
+    attn_cases, dec_cases = attention_cases(cfg, lcfg, zcfg, pcfg)
     ssd = ssd_cases(mcfg, zcfg)
 
     # ---- times at the main path's shapes
@@ -896,7 +977,8 @@ def phase_kernels(cfg, lcfg, mcfg, zcfg) -> dict:
             lambda: codec_ops.dequantize_int4_plain(p4, s4, bf)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
-    rec.update(attention_times(cfg, lcfg, zcfg, attn_cases, dec_cases))
+    rec.update(attention_times(cfg, lcfg, zcfg, pcfg, attn_cases,
+                               dec_cases))
     # Mamba2-1.3B's scan at batch 1 heads the summary; the other served
     # shapes (batch 4, Zamba2's N = 64) beside it
     ssd_err = max(c.get("max_err", 0.0) for c in ssd)
@@ -906,7 +988,7 @@ def phase_kernels(cfg, lcfg, mcfg, zcfg) -> dict:
     rec["ssd_scan"] = dict(served[0])
     rec["ssd_scan"]["served"] = [
         {k: v for k, v in r.items() if k in (
-            "shape", "p_tile", "ms", "host_ms", "plain_ms", "bound_ms",
+            "shape", "plan", "ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "bytes", "flops", "library_ms")} for r in served]
     emit({"phase": "kernels",
           "tolerances": {"quantize_int8": "bit-equal",
@@ -944,6 +1026,12 @@ WRAPPERS = {"quantize_int8": codec_ops.quantize,
             "flash_attention": fa_ops.flash_attention,
             "decode_attention": da_ops.decode_attention,
             "ssd_scan": ssd_ops.ssd_scan}
+
+
+# CUDA kernels one counted launch queues: the SSD scan's C entry queues
+# the chunk-state and the output kernel (checked on a profiled prefill in
+# ``_generate_at``); every other wrapper launches one kernel
+KERNELS_PER_LAUNCH = {"ssd_scan": 2}
 
 
 def _counts() -> dict:
@@ -1140,8 +1228,8 @@ def profile_request(fn) -> dict:
     for key, us, count in rows:
         low = key.lower()
         ours = re.search(r"(flash_attention_\w+?|decode_attention_\w+?"
-                         r"|decode_(?:split|combine)|\w*quantize_int[48]"
-                         r"|ssd_scan)_kernel", key)
+                         r"|decode_(?:split|combine)|\w*quantize_int[48]\w*?"
+                         r"|ssd_\w+?)_kernel", key)
         if ours:
             name = "hand-written: " + ours.group(1)
         elif any(w in low for w in ("nvjet", "gemm", "gemv", "cutlass",
@@ -1271,18 +1359,21 @@ def phase_serve(cfg, n_requests: int = 8) -> dict:
         raise AssertionError("downlink payload bytes")
 
     # ---- what the card has no kernel for raises, and launches nothing:
-    # int4 at a width that is no multiple of 256, an int8 block other than
-    # 128 columns (what a width such as 64 asks for), an unbuilt head dim
+    # int4 at a width that is no multiple of 256 or at a block other than
+    # 128 columns, an int8 block that does not divide the row, an unbuilt
+    # head dim
     before = _counts()
     _must_raise(ValueError,
                 lambda: encode_activation(x_cut[..., :384], "int4"))
     _must_raise(ValueError,
                 lambda: codec_ops.quantize_int4(x_cut[..., :384]))
     _must_raise(NotImplementedError,
-                lambda: encode_activation(x_cut[..., :64], "int8"))
-    _must_raise(NotImplementedError,
+                lambda: codec_ops.quantize_int4(x_cut[..., :256], block=64))
+    _must_raise(ValueError,
+                lambda: codec_ops.quantize(x_cut[..., :100], block=64))
+    _must_raise(ValueError,
                 lambda: codec_ops.dequantize(pay["q"][..., :64],
-                                             pay["s"][..., :1], block=64))
+                                             pay["s"][..., :1], block=48))
     q48 = torch.zeros((1, 8, 2, 48), device=DEV, dtype=torch.bfloat16)
     _must_raise(ValueError,
                 lambda: fa_ops.flash_attention(q48, q48, q48, causal=True))
@@ -1681,10 +1772,16 @@ def setup_lm(name: str, seed: int) -> dict:
             "gen": gen(seed + 1)}
 
 
+def _family_launches(prof: dict, prefix: str) -> int:
+    """CUDA kernels in a profiled window whose hand-written family starts
+    with ``prefix``."""
+    return sum(g["launches"] for name, g in prof.get("by_group", {}).items()
+               if name.startswith("hand-written: " + prefix))
+
+
 def _decode_kernel_launches(prof: dict) -> int:
     """CUDA kernels of the flash-decode source in a profiled window."""
-    return sum(g["launches"] for name, g in prof.get("by_group", {}).items()
-               if name.startswith("hand-written: decode"))
+    return _family_launches(prof, "decode")
 
 
 def profile_decode_step(name: str, seed: int) -> dict:
@@ -1714,14 +1811,15 @@ def profile_decode_step(name: str, seed: int) -> dict:
     return out
 
 
-def phase_attention(cfg, lcfg, zcfg) -> dict:
+def phase_attention(cfg, lcfg, zcfg, pcfg) -> dict:
     """``--attention-only``: B5 and B6 alone — every case against the plain
     versions, the times at every served shape, and the kernel launches of
     one Llama-3.2-3B and one Zamba2-1.2B decode step."""
-    attn_cases, dec_cases = attention_cases(cfg, lcfg, zcfg)
+    attn_cases, dec_cases = attention_cases(cfg, lcfg, zcfg, pcfg)
     info = {"phase": "attention", "src": _src_dir(),
             "attention_cases": attn_cases, "decode_cases": dec_cases,
-            "times": attention_times(cfg, lcfg, zcfg, attn_cases, dec_cases),
+            "times": attention_times(cfg, lcfg, zcfg, pcfg, attn_cases,
+                                     dec_cases),
             "decode_step_launches": [
                 profile_decode_step("llama3.2-3b", SEED + 30),
                 profile_decode_step("zamba2-1.2b", SEED + 80)]}
@@ -1775,6 +1873,9 @@ def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
         step_logits.append(logits[:, 0])
         cur = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
     toks = torch.cat(toks, 1)
+    if not torch.equal(toks, out):
+        raise AssertionError(f"batch {batch}: the synchronised step loop "
+                             "chose other tokens than greedy_generate")
     n_cache = cache_bytes(cache)
     prof = profile_request(lambda: step(params, cache, cur, max_len - 1))
 
@@ -1784,6 +1885,17 @@ def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
                          )[:, prompt:]
     if _moved(before) != per_prefill:
         raise AssertionError(f"full forward launched {_moved(before)}")
+    # ---- one prefill by kernel family, from torch.profiler
+    prof_pre = profile_request(lambda: prefill_and_pad(
+        model, params, {"tokens": tokens}, max_len))
+    busy_pre = prof_pre.get("device_busy_ms")
+    if isinstance(busy_pre, float):
+        n_ssd = {k: _family_launches(prof_pre, "ssd_" + k)
+                 for k in ("state", "out")}
+        if any(n != per_prefill["ssd_scan"] for n in n_ssd.values()):
+            raise AssertionError(f"one prefill ran SSD kernels {n_ssd} for "
+                                 f"{per_prefill['ssd_scan']} calls; a call "
+                                 "is one chunk-state and one output kernel")
     V = cfg.vocab_size                 # the pad slots past it hold -1e30
     dec = torch.stack(step_logits, 1)[..., :V].float()
     full = full[..., :V].float()
@@ -1803,6 +1915,9 @@ def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
             "generate_wall_ms": wall,
             "generate_tokens_per_s": batch * steps / wall * 1e3,
             "prefill_wall_ms": ms_prefill,
+            "profile_prefill": prof_pre,
+            "prefill_device_idle_share": (1 - busy_pre / ms_prefill)
+            if isinstance(busy_pre, float) else "not measured",
             "decode_step_wall_ms": step_ms,
             "decode_step_wall_ms_median": med,
             "decode_step_wall_ms_min_max": [min(step_ms), max(step_ms)],
@@ -1814,7 +1929,6 @@ def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
             "launches": launches,
             "launches_per_prefill": per_prefill,
             "launches_per_step": per_step,
-            "tokens_equal_greedy_generate": bool(torch.equal(toks, out)),
             "cache_bytes": n_cache,
             "held_before_bytes": base,
             "peak_during_generate_bytes": peak,
@@ -1828,11 +1942,14 @@ def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
 
 
 def phase_generate(st: dict, name: str = "generate", prompt: int = LM_PROMPT,
-                   steps: int = LM_STEPS, small: dict = None) -> dict:
+                   steps: int = LM_STEPS, small: dict = None,
+                   batches=LM_BATCHES, f32_check: bool = False) -> dict:
     """``runtime/serving.py::greedy_generate`` on an LM at full width and
     depth: a 512-token prompt (two SSD chunks) and 64 greedy steps, at
-    batch 1 and 4."""
-    runs = [_generate_at(st, b, prompt, steps) for b in LM_BATCHES]
+    batch 1 and 4 (or ``steps`` at ``batches``); with ``f32_check``, the
+    same model in float32 against its full forward
+    (``full_width_f32_check``, over ``steps``)."""
+    runs = [_generate_at(st, b, prompt, steps) for b in batches]
     launches = {k: sum(r["launches"][k] for r in runs) for k in WRAPPERS}
     cfg = st["cfg"]
     info = {"phase": name, "model": cfg.name, "family": cfg.family,
@@ -1850,8 +1967,8 @@ def phase_generate(st: dict, name: str = "generate", prompt: int = LM_PROMPT,
                        "chunk": cfg.ssm_chunk}
     if cfg.family == "hybrid":
         info["shared_block_sites"] = n_sites(cfg)
-    if cfg.family in ("ssm", "hybrid"):
-        info["full_width_float32"] = full_width_f32_check(st)
+    if f32_check:
+        info["full_width_float32"] = full_width_f32_check(st, steps)
     if small is not None:
         info["small_reference"] = small
     emit(info)
@@ -1860,23 +1977,43 @@ def phase_generate(st: dict, name: str = "generate", prompt: int = LM_PROMPT,
 
 # limit of the float32 check below, stated before its first run: relative
 # to the largest logit (a 24-layer, d_model 512 Mamba2 on the CPU gives
-# 7.5e-6 of it)
+# 7.5e-6 of it), over the prefill and the first F32_GATE_STEPS steps; the
+# same limit holds phi3-mini-3.8b (the float32 flash attention and
+# flash-decode at head dim 96), stated before its first run there
 FULL_F32_REL = 5e-5
+F32_GATE_STEPS = 8
 
 
-def full_width_f32_check(st: dict, steps: int = 8) -> dict:
+def full_width_f32_check(st: dict, steps: int = LM_STEPS) -> dict:
     """The served model at full width and depth with float32 activations
     (the parameters stay bf16, as the specs store them): prefill of the
-    512-token prompt plus ``steps`` decode steps at batch 1 against one
-    full forward, within ``FULL_F32_REL`` of the largest logit.  In bf16
-    the decode recurrence and the chunked scan round at other places and
-    drift apart with depth and steps; in float32 they must agree."""
+    512-token prompt plus ``steps`` decode steps at batch 1.  The gate, as
+    it always ran: the prefill and the first ``F32_GATE_STEPS`` steps
+    against one full forward over prompt + ``F32_GATE_STEPS`` tokens,
+    within ``FULL_F32_REL`` of its largest logit.  Recorded, not gated:
+    every step against a second full forward over prompt + ``steps``
+    tokens, to see whether the error grows with the step (a forward over
+    another length takes other library kernels, whose float32 sums move
+    the logits by a few 1e-6 of their largest value).  In bf16 a decode
+    step and the full forward round at other places (the SSD recurrence
+    against the chunked scan, one query's attention against a causal
+    block) and drift apart with depth and steps; in float32 they must
+    agree."""
     cfg = st["cfg"].replace(dtype="float32")
     model = build(cfg)
     params, V = st["params"], cfg.vocab_size
-    tokens = torch.randint(0, V, (1, LM_PROMPT + steps), generator=st["gen"],
-                           device=DEV)
+    # the gate's tokens are drawn first, as they always were; the later
+    # steps' after them
+    tokens = torch.randint(0, V, (1, LM_PROMPT + F32_GATE_STEPS),
+                           generator=st["gen"], device=DEV)
+    if steps > F32_GATE_STEPS:
+        tokens = torch.cat([tokens, torch.randint(
+            0, V, (1, steps - F32_GATE_STEPS), generator=st["gen"],
+            device=DEV)], 1)
     before = _counts()
+    gate_full = model.forward(
+        params, {"tokens": tokens[:, :LM_PROMPT + F32_GATE_STEPS]})[
+        :, LM_PROMPT - 1:, :V].float()
     full = model.forward(params, {"tokens": tokens})[
         :, LM_PROMPT - 1:, :V].float()
     logits, cache = prefill_and_pad(model, params,
@@ -1887,21 +2024,30 @@ def full_width_f32_check(st: dict, steps: int = 8) -> dict:
         logits, cache = model.decode(params, cache, tokens[:, i:i + 1], i)
         outs.append(logits[:, 0])
     moved = _moved(before)
-    want = {k: 2 * v + steps * st["per_step"][k]
+    want = {k: 3 * v + steps * st["per_step"][k]
             for k, v in st["per_prefill"].items()}
     if moved != want:
         raise AssertionError(f"float32 check launched {moved}, expected "
                              f"{want}")
     dec = torch.stack(outs, 1)[..., :V].float()
-    top = full.abs().max().item()
-    err = (dec - full[:, :steps + 1]).abs().max().item()
+    top = gate_full.abs().max().item()
+    err = (dec[:, :F32_GATE_STEPS + 1] - gate_full).abs().max().item()
     if not err <= FULL_F32_REL * top:
         raise AssertionError(f"{cfg.name} float32 at full width: prefill + "
-                             f"decode is {err} from the full forward (limit "
-                             f"{FULL_F32_REL * top})")
+                             f"{F32_GATE_STEPS} steps are {err} from the "
+                             f"full forward (limit {FULL_F32_REL * top})")
+    per_step = (dec - full).abs().amax(dim=(0, 2)).tolist()
+    top_step = full.abs().amax(dim=(0, 2)).tolist()
+    rel = [e / t for e, t in zip(per_step, top_step)]
     return {"dtype": "float32", "batch": 1, "prompt": LM_PROMPT,
-            "steps": steps, "max_err": err, "limit": FULL_F32_REL * top,
-            "logits_max_abs": top}
+            "steps": steps, "gate_steps": F32_GATE_STEPS, "max_err": err,
+            "limit": FULL_F32_REL * top, "logits_max_abs": top,
+            "max_err_per_step": per_step,
+            "logits_max_abs_per_step": top_step,
+            "max_err_prefill_first_last_step": [per_step[0], per_step[1],
+                                                per_step[-1]],
+            "rel_err_prefill_first_last_step": [rel[0], rel[1], rel[-1]],
+            "rel_err_max_all_steps": max(rel)}
 
 
 def _plain_ssd_scan(x, dt, A, Bm, Cm, *, chunk):
@@ -2090,6 +2236,38 @@ def phase_serve_lm(st: dict, n_batches: int = 8, seq: int = LM_SEQ) -> dict:
     return info
 
 
+# =============================================================== serve_cli
+def phase_serve_cli(n_requests: int = 4) -> dict:
+    """``python -m repro_torch.launch.serve --codec --requests 4`` on the
+    card, through its ``main``: the controller plans the full Llama-3.2-3B
+    and the LSTM trains on the card, then the reduced data plane (8 layers,
+    d_model 64) serves the requests with the int8 codec on the cut, one
+    64-column block a row.  Fails unless the int8 kernels launched."""
+    from repro_torch.launch import serve as serve_cli
+    argv = ["--codec", "--requests", str(n_requests)]
+    buf = io.StringIO()
+    _reset_counts()
+    with redirect_stdout(buf):
+        wall, _ = _wall_ms(lambda: serve_cli.main(argv))
+    launches = _counts()
+    lines = buf.getvalue().splitlines()
+    served = re.fullmatch(rf"served {n_requests} requests in (\d+) batches",
+                          lines[1])
+    if served is None or not re.fullmatch(
+            r"cut payload: [0-9.]+ KB/request \(codec=on\)", lines[3]):
+        raise AssertionError(f"launch.serve --codec printed {lines}")
+    n_batches = int(served.group(1))
+    if not launches["quantize_int8"] == launches["dequantize_int8"] \
+            == n_batches >= 1:
+        raise AssertionError(f"launch.serve --codec launched {launches} for "
+                             f"{n_batches} batches; the int8 kernels run "
+                             "once a batch")
+    info = {"phase": "serve_cli", "argv": argv, "printed": lines,
+            "wall_ms": wall, "launches": launches}
+    emit(info)
+    return info
+
+
 # ==================================================================== main
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2100,6 +2278,8 @@ def main() -> None:
                     help="run only the flash attention (B5) and flash-decode "
                          "(B6) cases and times, and count one decode step's "
                          "kernels")
+    ap.add_argument("--ssd-only", action="store_true",
+                    help="run only the SSD scan (B7) cases and times")
     ap.add_argument("--src", default=None,
                     help="drive the repro_torch under this directory instead "
                          "of this checkout's src/")
@@ -2107,10 +2287,15 @@ def main() -> None:
 
     env = phase_env()
     torch.cuda.set_device(0)
-    if args.attention_only:
+    if args.attention_only or args.ssd_only:
         phase_build()
-        phase_attention(get_config("openvla-7b"), get_config("llama3.2-3b"),
-                        get_config("zamba2-1.2b"))
+        if args.attention_only:
+            phase_attention(get_config("openvla-7b"),
+                            get_config("llama3.2-3b"),
+                            get_config("zamba2-1.2b"),
+                            get_config("phi3-mini-3.8b"))
+        if args.ssd_only:
+            phase_ssd(get_config("mamba2-1.3b"), get_config("zamba2-1.2b"))
         print(env["nvidia_smi"], flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -2127,7 +2312,8 @@ def main() -> None:
     phase_build()
     kernels = phase_kernels(cfg, get_config("llama3.2-3b"),
                             get_config("mamba2-1.3b"),
-                            get_config("zamba2-1.2b"))
+                            get_config("zamba2-1.2b"),
+                            get_config("phi3-mini-3.8b"))
     runs = {"serve": phase_serve(cfg)["launches"]}
     gc.collect()                    # the OpenVLA parameters go before CogACT
     torch.cuda.empty_cache()
@@ -2141,14 +2327,23 @@ def main() -> None:
     runs["generate"] = phase_generate(lst)["launches"]
     runs["serve_lm"] = phase_serve_lm(lst)["launches"]
     del lst                         # the Llama parameters go before Mamba2
+    runs["serve_cli"] = phase_serve_cli()["launches"]
     for phase, name, seed in (("generate_ssm", "mamba2-1.3b", SEED + 70),
                               ("generate_hybrid", "zamba2-1.2b", SEED + 80)):
         gc.collect()
         torch.cuda.empty_cache()
         small = small_ssm_check(name)
         st = setup_lm(name, seed)
-        runs[phase] = phase_generate(st, phase, small=small)["launches"]
+        runs[phase] = phase_generate(st, phase, small=small,
+                                     f32_check=True)["launches"]
         del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = setup_lm("phi3-mini-3.8b", SEED + 90)
+    runs["generate_phi3"] = phase_generate(
+        st, "generate_phi3", steps=PHI3_STEPS, batches=(1,),
+        f32_check=True)["launches"]
+    del st
 
     print(env["nvidia_smi"], flush=True)
     summary = []
@@ -2160,6 +2355,7 @@ def main() -> None:
         summary.append({"name": name, "route": r["route"],
                         "source": r["source"], "replaces": r["replaces"],
                         "launches": n, "launches_by_path": by_path,
+                        "kernels_per_launch": KERNELS_PER_LAUNCH.get(name, 1),
                         "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "host_ms": r["host_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

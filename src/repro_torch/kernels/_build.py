@@ -34,10 +34,10 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # name -> argtypes; every entry returns the launch's cudaError_t as an int
 # (negative: the arguments name a case the kernel does not take)
 SIGNATURES: Dict[str, list] = {
-    # x, q, scales, n_blocks, dtype code, stream
-    "rt_quantize_int8": [_P, _P, _P, _L, _I, _P],
-    # q, scales, out, n_blocks, dtype code, stream
-    "rt_dequantize_int8": [_P, _P, _P, _L, _I, _P],
+    # x, q, scales, n_blocks, block (columns), dtype code, stream
+    "rt_quantize_int8": [_P, _P, _P, _L, _I, _I, _P],
+    # q, scales, out, n_blocks, block (columns), dtype code, stream
+    "rt_dequantize_int8": [_P, _P, _P, _L, _I, _I, _P],
     # x, packed, scales, n_tiles (256 columns each), dtype code, stream
     "rt_quantize_int4": [_P, _P, _P, _L, _I, _P],
     # packed, scales, out, n_tiles, dtype code, stream
@@ -54,11 +54,11 @@ SIGNATURES: Dict[str, list] = {
     "rt_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _P, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                             _L, _F, _I, _P],
-    # x, dt, A, Bm, Cm, y, state, B, T, H, P, N, chunk, p_tile,
-    # x (batch, seq, head), dt (batch, seq), Bm and Cm (batch, seq) strides,
-    # dtype code, stream
-    "rt_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _P],
+    # x, dt, A, Bm, Cm, y, state, the chunk-state, cumsum and C B^T
+    # workspaces, B, T, H, P, N, chunk, n_chunks, x (batch, seq, head),
+    # dt (batch, seq), Bm and Cm (batch, seq) strides, dtype code, stream
+    "rt_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                    _I, _I, _I, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _P],
 }
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 

@@ -18,10 +18,12 @@ traffic is a few megabytes, so the launch itself is most of the time.
 Dispatch is by where the tensor lies, nothing else: a CPU tensor takes the
 plain version (``quantize_plain`` / ``dequantize_plain`` /
 ``quantize_int4_plain`` / ``dequantize_int4_plain``), a CUDA tensor
-launches the kernel or the call raises.  The kernels are written for
-128-column blocks; another block width (the JAX package's rule for widths
-such as the reduced ``d_model = 64``, where one block spans the row) runs
-the plain version on a CPU tensor and raises on a CUDA tensor.
+launches the kernel or the call raises.  int8 takes any block width that
+divides the row: 128 columns by its own kernel, another width (the JAX
+package's rule for widths such as the reduced ``d_model = 64``, where one
+block spans the row) by a general one.  int4 is written for 128-column
+blocks, two to a 256-column tile; another block width raises on a CUDA
+tensor.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from typing import Tuple
 import torch
 
 from .. import _build
+from ..flash_attention.ops import _on_device
 from . import ref
 
 quantize_plain = ref.quantize_int8
@@ -48,7 +51,7 @@ def _device_kind(t: torch.Tensor) -> str:
 
 def _other_block_on_card(block: int) -> NotImplementedError:
     return NotImplementedError(
-        f"the codecs' CUDA kernels take blocks of {ref.BLOCK} columns, "
+        f"the int4 codec's CUDA kernels take blocks of {ref.BLOCK} columns, "
         f"not {block}; other block widths run on CPU tensors only")
 
 
@@ -57,14 +60,15 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(wrapper, entry: str, tensors, n_units: int, dtype) -> None:
+def _launch(wrapper, entry: str, tensors, units, dtype) -> None:
     """Launch the C entry ``entry`` on the current stream of the card the
     tensors lie on, raise if the launch was refused, and count it on
-    ``wrapper``.  Every codec entry takes three pointers, the number of
-    blocks or tiles, the floating type's code and the stream."""
-    with torch.cuda.device(tensors[0].device):
+    ``wrapper``.  Every codec entry takes three pointers, ``units`` (the
+    number of blocks or tiles, and for int8 the block's width), the
+    floating type's code and the stream."""
+    with _on_device(tensors[0].device):
         rc = getattr(_build.lib(), entry)(
-            *(t.data_ptr() for t in tensors), n_units,
+            *(t.data_ptr() for t in tensors), *units,
             _build.DTYPE_CODES[str(dtype).split(".")[-1]],
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(entry[len("rt_"):], rc)
@@ -76,13 +80,11 @@ def quantize(x: torch.Tensor, block: int = ref.BLOCK
     """(..., D) -> (int8 (..., D), f32 scales (..., D/block))."""
     if _device_kind(x) == "cpu":
         return quantize_plain(x, block)
-    if block != ref.BLOCK:
-        raise _other_block_on_card(block)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"quantize kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
     D = x.shape[-1]
-    if D % block != 0:
+    if block < 1 or D % block != 0:
         raise ValueError(f"last dim {D} is not a multiple of {block}")
     q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     s = torch.empty((*x.shape[:-1], D // block), dtype=torch.float32,
@@ -90,8 +92,8 @@ def quantize(x: torch.Tensor, block: int = ref.BLOCK
     if x.numel() == 0:
         return q, s
     x = _aligned(x)
-    _launch(quantize, "rt_quantize_int8", (x, q, s), x.numel() // block,
-            x.dtype)
+    _launch(quantize, "rt_quantize_int8", (x, q, s),
+            (x.numel() // block, block), x.dtype)
     return q, s
 
 
@@ -102,8 +104,6 @@ def dequantize(q: torch.Tensor, s: torch.Tensor, dtype=torch.bfloat16,
                block: int = ref.BLOCK) -> torch.Tensor:
     if _device_kind(q) == "cpu":
         return dequantize_plain(q, s, dtype, block)
-    if block != ref.BLOCK:
-        raise _other_block_on_card(block)
     if q.dtype != torch.int8 or s.dtype != torch.float32:
         raise TypeError(f"dequantize kernel takes int8 values and float32 "
                         f"scales, got {q.dtype}, {s.dtype}")
@@ -111,7 +111,8 @@ def dequantize(q: torch.Tensor, s: torch.Tensor, dtype=torch.bfloat16,
         raise TypeError(f"dequantize kernel writes float32 or bfloat16, "
                         f"got {dtype}")
     D = q.shape[-1]
-    if D % block != 0 or tuple(s.shape) != (*q.shape[:-1], D // block) \
+    if block < 1 or D % block != 0 \
+            or tuple(s.shape) != (*q.shape[:-1], D // block) \
             or s.device != q.device:
         raise ValueError(f"payload {tuple(q.shape)} on {q.device} and scales "
                          f"{tuple(s.shape)} on {s.device} do not belong "
@@ -120,8 +121,8 @@ def dequantize(q: torch.Tensor, s: torch.Tensor, dtype=torch.bfloat16,
     if q.numel() == 0:
         return out
     q, s = _aligned(q), _aligned(s)
-    _launch(dequantize, "rt_dequantize_int8", (q, s, out), q.numel() // block,
-            dtype)
+    _launch(dequantize, "rt_dequantize_int8", (q, s, out),
+            (q.numel() // block, block), dtype)
     return out
 
 
@@ -150,7 +151,7 @@ def quantize_int4(x: torch.Tensor, block: int = ref.BLOCK
         return p, s
     x = _aligned(x)
     _launch(quantize_int4, "rt_quantize_int4", (x, p, s),
-            x.numel() // (2 * block), x.dtype)
+            (x.numel() // (2 * block),), x.dtype)
     return p, s
 
 
@@ -182,7 +183,7 @@ def dequantize_int4(p: torch.Tensor, s: torch.Tensor, dtype=torch.bfloat16,
         return out
     p, s = _aligned(p), _aligned(s)
     _launch(dequantize_int4, "rt_dequantize_int4", (p, s, out),
-            p.numel() // block, dtype)
+            (p.numel() // block,), dtype)
     return out
 
 

@@ -7,8 +7,9 @@
 //   quantize_int4_pallas (_quant4_kernel)      -> quantize_int4_kernel
 //   dequantize_int4_pallas (_dequant4_kernel)  -> dequantize_int4_kernel
 //
-// int8, per (row, 128-column block) of a contiguous (R, D) array with
-// D % 128 == 0:
+// int8, per (row, block) of a contiguous (R, D) array with D % block == 0
+// (block 128 wherever D allows it; the JAX package's rule makes the block
+// the whole row otherwise, e.g. at the reduced d_model = 64):
 //   amax  = max |x|
 //   scale = amax > 0 ? amax * (1/127) : 1           (float32)
 //   q     = clamp(rint(x / scale), -127, 127)       (IEEE division, half-even)
@@ -29,7 +30,10 @@
 // intermediate in device memory.  int8: one warp owns one 128-column block,
 // each lane holds 4 consecutive elements (one 8- or 16-byte load), the
 // abs-max goes through 5 warp shuffles, and each lane writes its 4 int8
-// values with one 32-bit store.  int4: one warp owns one 256-column tile,
+// values with one 32-bit store.  A block of another width takes a second
+// kernel: one warp per block still, walking it in 128-column strides with
+// the tail guarded, for the abs-max and then (from L1) for the rounding;
+// vector loads and stores where the width is a multiple of 4.  int4: one warp owns one 256-column tile,
 // each lane holds 4 elements of the low block and the 4 elements 128 columns
 // on that pair with them, two abs-max reductions run side by side, and each
 // lane writes its 4 packed bytes with one 32-bit store; lane 0 writes the
@@ -55,6 +59,16 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
     const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
     const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
     v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
 }
 
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
@@ -114,6 +128,90 @@ dequantize_int8_kernel(const int8_t* __restrict__ q,
     v[2] = (float)in.z * scale;
     v[3] = (float)in.w * scale;
     store4(out + off, v);
+}
+
+// Elements c0 .. c0 + 3 of a block of `width`, zeros past its end; one
+// vector load where the block's width is a multiple of 4.
+template <typename T>
+__device__ __forceinline__ void load4_any(const T* p, int c0, int width,
+                                          float (&v)[4]) {
+    if (width % 4 == 0) {
+        load4(p + c0, v);
+        return;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+        v[k] = c0 + k < width ? to_f(p[c0 + k]) : 0.0f;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+quantize_int8_any_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                         float* __restrict__ scales, long long n_blocks,
+                         int width) {
+    const long long w = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+    if (w >= n_blocks) return;
+    const int lane = threadIdx.x & 31;
+    const T* xb = x + w * width;
+    int8_t* qb = q + w * width;
+    float amax = 0.0f;
+    for (int c0 = lane * 4; c0 < width; c0 += 128) {
+        float v[4];
+        load4_any(xb, c0, width, v);
+        amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])),
+                                 fmaxf(fabsf(v[2]), fabsf(v[3]))));
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1)
+        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, m));
+    const float scale = amax > 0.0f ? amax * (1.0f / 127.0f) : 1.0f;
+    for (int c0 = lane * 4; c0 < width; c0 += 128) {
+        float v[4];
+        load4_any(xb, c0, width, v);
+        signed char o[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+            o[k] = (signed char)fminf(fmaxf(rintf(v[k] / scale), -127.0f),
+                                      127.0f);
+        if (width % 4 == 0) {
+            *reinterpret_cast<char4*>(qb + c0) = make_char4(o[0], o[1], o[2],
+                                                            o[3]);
+        } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+                if (c0 + k < width) qb[c0 + k] = o[k];
+        }
+    }
+    if (lane == 0) scales[w] = scale;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dequantize_int8_any_kernel(const int8_t* __restrict__ q,
+                           const float* __restrict__ scales,
+                           T* __restrict__ out, long long n_blocks,
+                           int width) {
+    const long long w = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+    if (w >= n_blocks) return;
+    const int lane = threadIdx.x & 31;
+    const int8_t* qb = q + w * width;
+    T* ob = out + w * width;
+    const float scale = scales[w];
+    for (int c0 = lane * 4; c0 < width; c0 += 128) {
+        float v[4];
+        if (width % 4 == 0) {
+            const char4 in = *reinterpret_cast<const char4*>(qb + c0);
+            v[0] = (float)in.x * scale;
+            v[1] = (float)in.y * scale;
+            v[2] = (float)in.z * scale;
+            v[3] = (float)in.w * scale;
+            store4(ob + c0, v);
+        } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+                if (c0 + k < width) store1(ob + c0 + k, (float)qb[c0 + k] * scale);
+        }
+    }
 }
 
 template <typename T>
@@ -183,18 +281,30 @@ inline unsigned grid_for(long long n_blocks) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t
+// n_blocks blocks of `block` columns each (n_blocks * block = R * D); a
+// block of 128 takes the kernel built for it, any other width the general
+// one.  dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t
 // (0 = launched), or -1 for arguments the kernel does not take.
 extern "C" int rt_quantize_int8(const void* x, void* q, void* scales,
-                                long long n_blocks, int dtype, void* stream) {
+                                long long n_blocks, int block, int dtype,
+                                void* stream) {
     if (n_blocks <= 0 || n_blocks > 0x7fffffffLL * kWarpsPerBlock) return -1;
+    if (block <= 0) return -1;
     cudaStream_t st = (cudaStream_t)stream;
-    if (dtype == 0) {
-        quantize_int8_kernel<float><<<grid_for(n_blocks), kThreads, 0, st>>>(
+    const unsigned grid = grid_for(n_blocks);
+    if (dtype == 0 && block == 128) {
+        quantize_int8_kernel<float><<<grid, kThreads, 0, st>>>(
             (const float*)x, (int8_t*)q, (float*)scales, n_blocks);
-    } else if (dtype == 1) {
-        quantize_int8_kernel<__nv_bfloat16><<<grid_for(n_blocks), kThreads, 0, st>>>(
+    } else if (dtype == 1 && block == 128) {
+        quantize_int8_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
             (const __nv_bfloat16*)x, (int8_t*)q, (float*)scales, n_blocks);
+    } else if (dtype == 0) {
+        quantize_int8_any_kernel<float><<<grid, kThreads, 0, st>>>(
+            (const float*)x, (int8_t*)q, (float*)scales, n_blocks, block);
+    } else if (dtype == 1) {
+        quantize_int8_any_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+            (const __nv_bfloat16*)x, (int8_t*)q, (float*)scales, n_blocks,
+            block);
     } else {
         return -1;
     }
@@ -202,15 +312,26 @@ extern "C" int rt_quantize_int8(const void* x, void* q, void* scales,
 }
 
 extern "C" int rt_dequantize_int8(const void* q, const void* scales, void* out,
-                                  long long n_blocks, int dtype, void* stream) {
+                                  long long n_blocks, int block, int dtype,
+                                  void* stream) {
     if (n_blocks <= 0 || n_blocks > 0x7fffffffLL * kWarpsPerBlock) return -1;
+    if (block <= 0) return -1;
     cudaStream_t st = (cudaStream_t)stream;
-    if (dtype == 0) {
-        dequantize_int8_kernel<float><<<grid_for(n_blocks), kThreads, 0, st>>>(
+    const unsigned grid = grid_for(n_blocks);
+    if (dtype == 0 && block == 128) {
+        dequantize_int8_kernel<float><<<grid, kThreads, 0, st>>>(
             (const int8_t*)q, (const float*)scales, (float*)out, n_blocks);
-    } else if (dtype == 1) {
-        dequantize_int8_kernel<__nv_bfloat16><<<grid_for(n_blocks), kThreads, 0, st>>>(
+    } else if (dtype == 1 && block == 128) {
+        dequantize_int8_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
             (const int8_t*)q, (const float*)scales, (__nv_bfloat16*)out, n_blocks);
+    } else if (dtype == 0) {
+        dequantize_int8_any_kernel<float><<<grid, kThreads, 0, st>>>(
+            (const int8_t*)q, (const float*)scales, (float*)out, n_blocks,
+            block);
+    } else if (dtype == 1) {
+        dequantize_int8_any_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+            (const int8_t*)q, (const float*)scales, (__nv_bfloat16*)out,
+            n_blocks, block);
     } else {
         return -1;
     }

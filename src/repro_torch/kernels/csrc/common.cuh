@@ -1,4 +1,5 @@
-// Device helpers shared by the attention kernels of this directory (sm_90a):
+// Device helpers shared by the attention and SSD kernels of this directory
+// (sm_90a):
 // 16-byte cp.async with commit groups, ldmatrix and mma.sync for bf16, a
 // one-instruction exp2, quad reductions over the four lanes that hold one
 // row of an mma accumulator, and the once-per-card shared-memory setup of a

@@ -45,7 +45,8 @@
 //  * bfloat16 (the served type): K/V stream through a ring of STAGES = 3
 //    stages of 64 keys in shared memory, filled by 16-byte cp.async with one
 //    commit group per stage: while tile i is scored, tiles i+1 and i+2 are
-//    in flight (64 KB per block at D = 128, two blocks per SM).  The only
+//    in flight (106 KB of shared memory per block at D = 128, 81 KB at 96:
+//    two blocks per SM at every head dim).  The only
 //    block-wide barrier in the loop is the stage hand-off.  Warps own keys,
 //    not phases: warp w takes keys 16w..16w+15 of every tile, scores them
 //    for all G query rows of the group (padded to one m16 tile, so any G up
@@ -276,14 +277,20 @@ decode_attention_bf16_kernel(const bf16* __restrict__ q,
     // tile i of this split into its stage; keys at or past hi are never
     // read: their rows become zeros.  Every thread copies the same column
     // piece of rows pr, pr + RSTEP, ... of every tile, so its addresses step
-    // by constants.
+    // by constants.  Where the pieces of a row do not divide the threads
+    // (D = 96: 12 pieces, so 10 rows of 120 threads a pass), the last
+    // threads idle and the last pass stops at row TK.
     constexpr int RSTEP = kThreads / PIECES;
-    static_assert(kThreads % PIECES == 0 && TK % RSTEP == 0, "tile shape");
+    constexpr int PASSES = (TK + RSTEP - 1) / RSTEP;
+    constexpr bool RAGGED = RSTEP * PIECES != kThreads || TK % RSTEP != 0;
+    static_assert(D % 8 == 0 && PIECES <= kThreads, "tile shape");
+    const bool copier = !RAGGED || tid < RSTEP * PIECES;
     const int pr = tid / PIECES;
     const int pc = (tid % PIECES) * 8;
     const bf16* k_src = k_base + (long long)pr * st.k_s + pc;
     const bf16* v_src = v_base + (long long)pr * st.v_s + pc;
     auto issue = [&](int i) {
+        if (!copier) return;
         bf16* k_s = ring + (i % STAGES) * STAGE;
         bf16* v_s = k_s + TK * LD;
         const int t0 = lo + i * TK;
@@ -294,7 +301,8 @@ decode_attention_bf16_kernel(const bf16* __restrict__ q,
         const uint32_t vd =
             (uint32_t)__cvta_generic_to_shared(v_s + pr * LD + pc);
 #pragma unroll
-        for (int p = 0; p < TK / RSTEP; ++p) {
+        for (int p = 0; p < PASSES; ++p) {
+            if (RAGGED && pr + p * RSTEP >= TK) break;
             if (t0 + pr + p * RSTEP < hi) {
                 cp_async16(kd + p * RSTEP * LD * (int)sizeof(bf16),
                            ks + (long long)p * RSTEP * st.k_s);
@@ -517,9 +525,12 @@ decode_attention_f32_kernel(const float* __restrict__ q,
                             int n_split, Strides st, float scale) {
     typedef float T;
     constexpr int E = 16 / sizeof(T);        // elements per 16-byte piece
-    constexpr int LPR = D / E;               // lanes (pieces) per row
-    constexpr int RPW = 32 / LPR;            // rows a warp scores at once
-    static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "head dim");
+    constexpr int LPR = D / E;               // 16-byte pieces per row
+    // lanes per row: the pieces rounded up to a power of two (D = 96: 24
+    // pieces on 32 lanes, the last 8 adding zeros to the row's sum)
+    constexpr int LANES = LPR <= 4 ? 4 : LPR <= 8 ? 8 : LPR <= 16 ? 16 : 32;
+    constexpr int RPW = 32 / LANES;          // rows a warp scores at once
+    static_assert(D % E == 0 && LPR <= 32, "head dim");
 
     const int G = H / KV;
     const int bkv = blockIdx.x;
@@ -561,8 +572,9 @@ decode_attention_f32_kernel(const float* __restrict__ q,
     }
     const T* k_base = k + b * st.k_b + kvh * st.k_h;
     const T* v_base = v + b * st.v_b + kvh * st.v_h;
-    const int sub = lane / LPR;              // which row of the warp's RPW
-    const int part = lane - sub * LPR;       // which 16-byte piece of it
+    const int sub = lane / LANES;            // which row of the warp's RPW
+    const int part = lane - sub * LANES;     // which 16-byte piece of it
+    const bool live = part < LPR;            // lanes past the row's pieces
 
     for (int t0 = lo; t0 < hi; t0 += TK) {
         const int n = min(TK, hi - t0);      // live keys in this tile
@@ -587,14 +599,16 @@ decode_attention_f32_kernel(const float* __restrict__ q,
             const int r = r0 + sub;
             float kf[E];
 #pragma unroll
-            for (int e = 0; e < E; ++e) kf[e] = k_s[r * D + part * E + e];
+            for (int e = 0; e < E; ++e)
+                kf[e] = live ? k_s[r * D + part * E + e] : 0.f;
             for (int g = 0; g < G; ++g) {
-                const float* qg = q_s + g * D + part * E;
+                const float* qg = q_s + g * D + (live ? part * E : 0);
                 float s = 0.f;
 #pragma unroll
                 for (int e = 0; e < E; ++e) s = fmaf(qg[e], kf[e], s);
+                if (!live) s = 0.f;
 #pragma unroll
-                for (int w = LPR / 2; w > 0; w >>= 1)
+                for (int w = LANES / 2; w > 0; w >>= 1)
                     s += __shfl_xor_sync(0xffffffffu, s, w);
                 if (part == 0) p_s[g * TK + r] = r < n ? s * scale : NEG_INF;
             }
@@ -695,7 +709,7 @@ extern "C" int rt_decode_attention(
                                   kl, chunk, n_split, st, scale, cs)          \
                 : tc::launch<n>(q, k, v, o, sc, B, H, KV, T_len, kv_len, kl,  \
                                 chunk, n_split, st, scale, cs);
-        RT_CASE(16) RT_CASE(32) RT_CASE(64) RT_CASE(128)
+        RT_CASE(16) RT_CASE(32) RT_CASE(64) RT_CASE(96) RT_CASE(128)
 #undef RT_CASE
         default: return -1;
     }

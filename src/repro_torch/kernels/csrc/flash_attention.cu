@@ -32,8 +32,9 @@
 //    way.  K and V are separate commit groups, so the scores wait for K only
 //    and the p v product for V.  Each thread copies one column piece of
 //    rows r, r + 8, ... of every tile, so its addresses step by constants:
-//    issuing the copies costs a few instructions each.  87 KB of shared
-//    memory at D = 128 and 128 threads, so two blocks share an SM (160
+//    issuing the copies costs a few instructions each (at D = 96 the last 8
+//    threads idle while the others copy).  87 KB of shared memory at
+//    D = 128 (65 KB at 96) and 128 threads, so two blocks share an SM (160
 //    blocks at the served shape, all resident on 132 SMs).  Both products
 //    run on the tensor cores through mma.sync.m16n8k16 with float32
 //    accumulators, fed by ldmatrix: Q fragments stay in registers for the
@@ -101,7 +102,10 @@ constexpr size_t smem_bytes() {  // Q, then the K stages and the V stages
 // Issue rows [row0, row0 + 64) x D of a strided global array into a padded
 // shared tile as 16-byte cp.async copies; rows at or past n_rows are never
 // read and become zeros.  Every thread copies the same column piece of
-// rows r, r + RSTEP, ..., so its addresses step by constants.
+// rows r, r + RSTEP, ..., so its addresses step by constants.  Where the
+// pieces of a row do not divide the threads (D = 96: 12 pieces, so 10 rows
+// of 120 threads a pass), the last threads idle and the last pass stops at
+// row 64.
 template <int D, int LD>
 __device__ __forceinline__ void issue_tile(bf16* __restrict__ dst,
                                            const bf16* __restrict__ src,
@@ -109,14 +113,18 @@ __device__ __forceinline__ void issue_tile(bf16* __restrict__ dst,
                                            int n_rows) {
     constexpr int PIECES = D / 8;                 // 16-byte pieces per row
     constexpr int RSTEP = kThreads / PIECES;      // rows per pass
-    static_assert(kThreads % PIECES == 0 && 64 % RSTEP == 0, "tile shape");
+    constexpr int PASSES = (64 + RSTEP - 1) / RSTEP;
+    constexpr bool RAGGED = RSTEP * PIECES != kThreads || 64 % RSTEP != 0;
+    static_assert(D % 8 == 0 && PIECES <= kThreads, "tile shape");
+    if (RAGGED && threadIdx.x >= RSTEP * PIECES) return;
     const int r = threadIdx.x / PIECES;
     const int c = (threadIdx.x % PIECES) * 8;
     const bf16* sp = src + (long long)(row0 + r) * row_stride + c;
     const uint32_t dp =
         (uint32_t)__cvta_generic_to_shared(dst + r * LD + c);
 #pragma unroll
-    for (int i = 0; i < 64 / RSTEP; ++i) {
+    for (int i = 0; i < PASSES; ++i) {
+        if (RAGGED && r + i * RSTEP >= 64) break;
         if (row0 + r + i * RSTEP < n_rows)
             cp_async16(dp + i * RSTEP * LD * (int)sizeof(bf16),
                        sp + (long long)i * RSTEP * row_stride);
@@ -535,7 +543,7 @@ extern "C" int rt_flash_attention(
                                   causal, cs)                                 \
                 : tc::launch<n>(q, k, v, o, B, S, T_len, H, KV, st, scale,    \
                                 causal, cs);
-        RT_CASE(16) RT_CASE(32) RT_CASE(64) RT_CASE(128)
+        RT_CASE(16) RT_CASE(32) RT_CASE(64) RT_CASE(96) RT_CASE(128)
 #undef RT_CASE
         default: return -1;
     }

@@ -16,8 +16,9 @@ The splits merge inside the same launch: the last live split of each
 scratch that is allocated once per card (``_scratch``) and left clean by
 the kernel.  Blocks past ``kv_len`` read nothing.  ``kv_len`` is a Python
 int or a 0-dim integer tensor; a CUDA tensor is read by the kernel itself,
-so nothing waits for the card.  Head dims 16, 32, 64 and 128 are built, and
-bfloat16 takes GQA groups of up to 16 query heads; another one raises.
+so nothing waits for the card.  Head dims 16, 32, 64, 96 and 128 are
+built, and bfloat16 takes GQA groups of up to 16 query heads; another one
+raises.
 
 Dispatch is by where the tensors lie: CPU tensors take the plain version
 (``decode_attention_plain``), CUDA tensors launch the kernel or the call
@@ -36,9 +37,11 @@ from ..flash_attention.ops import _device_kind as _fa_device_kind
 from . import ref
 
 decode_attention_plain = ref.decode_attention
-HEAD_DIMS = (16, 32, 64, 128)      # the instantiations in the CUDA source
+HEAD_DIMS = (16, 32, 64, 96, 128)  # the instantiations in the CUDA source
 TILE = 64                          # keys per stage of the kernel's ring
-BLOCKS_PER_SM = 2                  # what the bf16 kernel's shared memory allows
+# what the bf16 kernel's shared memory allows at every head dim (106 KB a
+# block at 128, 81 KB at 96)
+BLOCKS_PER_SM = 2
 MAX_GROUP = 16                     # bf16: a GQA group is one 16-row mma tile
 
 

@@ -12,8 +12,8 @@ warps per (batch * head, 64-row query tile), two blocks to an SM, walks
 64-row K/V tiles up to the diagonal while the next tile is already on
 its way (a two-stage ring of asynchronous copies), reads the model's
 layout in place through strides (no transposes, no K/V repeat for grouped
-heads) and masks ragged tails in S and T itself.  Head dims 16, 32, 64 and
-128 are built; another one raises.  bfloat16 inputs run both products on
+heads) and masks ragged tails in S and T itself.  Head dims 16, 32, 64, 96
+and 128 are built; another one raises.  bfloat16 inputs run both products on
 the tensor cores (``mma.sync``) with scores and probabilities kept in
 registers and the softmax in exp2; float32 inputs run scalar FMAs, which
 hold the 2e-5 their callers are given.
@@ -32,7 +32,7 @@ from .. import _build
 from . import ref
 
 flash_attention_plain = ref.attention
-HEAD_DIMS = (16, 32, 64, 128)      # the instantiations in the CUDA source
+HEAD_DIMS = (16, 32, 64, 96, 128)  # the instantiations in the CUDA source
 DTYPE_CODE = {torch.float32: _build.DTYPE_CODES["float32"],
               torch.bfloat16: _build.DTYPE_CODES["bfloat16"]}
 
@@ -61,8 +61,9 @@ def _device_kind(tensors, name: str) -> str:
 
 def _on_device(device: torch.device):
     """Make ``device`` the current card for a launch, unless it already is
-    (entering ``torch.cuda.device`` costs host time on every call)."""
-    if device.index == torch.cuda.current_device():
+    (entering ``torch.cuda.device`` costs host time on every call); a device
+    with no index names the current card."""
+    if device.index is None or device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
 

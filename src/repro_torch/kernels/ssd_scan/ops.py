@@ -1,51 +1,75 @@
 """Wrapper: the Mamba2 SSD chunked scan in the model layout (B, T, H, P)
--> the SSD scan kernel.
+-> the SSD scan kernels.
 
 Counterpart of ``src/repro/kernels/ssd_scan/ops.py``.
 
 ``ssd_scan`` replaces the TPU kernel ``ssd_scan_pallas`` of
-``src/repro/kernels/ssd_scan/kernel.py`` with the CUDA kernel of
-``csrc/ssd_scan.cu``: one block per (batch, head) and tile of the head
-dim's columns, the chunks in order inside the block with the float32
-state in shared memory, the intra-chunk product cut into 64-position row
-blocks.  The kernel reads x, dt, B and C where the model keeps them
-(through strides: no transpose to ``(B*H, T, P)``, no padded copy) and
-treats positions past ``T`` as zero padding, so a ragged last chunk and a
-prompt shorter than one chunk need nothing from the wrapper.  Its
-arithmetic is float32 throughout, as the TPU kernel's; ``y`` is rounded
-to x's type once.
+``src/repro/kernels/ssd_scan/kernel.py`` with the CUDA kernels of
+``csrc/ssd_scan.cu``, which split the scan as the SSD paper does: every
+chunk's own state in parallel with C B^T once per (batch, chunk) for all
+heads, then every (chunk, 64-row block) of y in parallel, each block
+passing the state over the chunks before its own as it stages it, all
+products on the tensor cores (``launch_plan`` gives the grids and the
+workspace).  One call of the C entry queues the two kernels
+on the current stream.  The kernels read x, dt, B and C where the model keeps
+them (through strides: no transpose to ``(B*H, T, P)``, no padded copy)
+and treat positions past ``T`` as zero padding, so a ragged last chunk and
+a prompt shorter than one chunk need nothing from the wrapper.  Their
+arithmetic holds float32's where it has to: a float32 operand of a
+tensor-core product is split into bf16 pieces, three for the chunk states
+and two for y's products of bfloat16 inputs (three of every operand for
+float32 inputs); ``y`` is rounded to x's type once.
 
 Dispatch is by where the tensors lie: CPU tensors take the plain version
 (``ssd_scan_plain``, the model's ``ssd_chunked``), CUDA tensors launch the
-kernel or the call raises.  State dims ``STATE_DIMS`` and head dims
+kernels or the call raises.  State dims ``STATE_DIMS`` and head dims
 ``HEAD_DIMS`` are built, chunks of 1 to ``MAX_CHUNK`` positions; anything
 else raises.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from .. import _build
-from ..decode_attention.ops import sm_count
+from ..flash_attention.ops import _on_device
 from . import ref
 
 ssd_scan_plain = ref.ssd
 STATE_DIMS = (8, 16, 32, 64, 128)   # N, the instantiations in the CUDA source
 HEAD_DIMS = (8, 16, 32, 64)         # P
-MAX_CHUNK = 256                     # one position per thread in the cumsum
+MAX_CHUNK = 256                     # two positions per thread in the cumsum
 ROWS = 64                           # positions per row block of a chunk
+STATE_ROWS = 64                     # rows of the padded N per state block
 
 
-def p_tile(P: int, n_bh: int, n_sm: int) -> int:
-    """Columns of P per block: 32 for a head dim up to 32; for P = 64 a
-    whole head (64) when the ``n_bh`` (batch, head) pairs fill the card's
-    ``n_sm`` SMs, else two tiles of 32, which doubles the blocks at the
-    cost of computing C B^T twice."""
-    if P <= 32:
-        return 32
-    return 64 if n_bh >= n_sm else 32
+class Plan(NamedTuple):
+    """How one call is cut: ``n_chunks`` chunks; the chunk-state kernel's
+    grid (batch * head, then one block per C B^T tile; chunk; slice of the
+    padded N) and the output kernel's (batch * head, chunk, 64-row block);
+    the float32 values of the three workspaces (every chunk's state, every
+    position's cumsum, every chunk's C B^T in 64 x 64 tiles)."""
+    n_chunks: int
+    state_grid: Tuple[int, int, int]
+    out_grid: Tuple[int, int, int]
+    ws_state: int
+    ws_cs: int
+    ws_cb: int
+
+
+def launch_plan(B: int, T: int, H: int, P: int, N: int, chunk: int) -> Plan:
+    """The launch plan of ``csrc/ssd_scan.cu`` for x (B, T, H, P), a state
+    dim ``N`` and ``chunk``: what the C entry launches for these shapes."""
+    nc = -(-T // chunk)
+    n_pad = max(N, 32)                   # N of 8 and 16 run padded to 32
+    rb = -(-min(chunk, T) // ROWS)       # row blocks of a chunk
+    tiles = B * rb * (rb + 1) // 2       # C B^T tiles at or below the diagonal
+    return Plan(n_chunks=nc,
+                state_grid=(B * H + tiles, nc, -(-n_pad // STATE_ROWS)),
+                out_grid=(B * H, nc, rb),
+                ws_state=B * H * nc * N * P, ws_cs=B * H * nc * chunk,
+                ws_cb=B * nc * (rb * ROWS) ** 2)
 
 
 def _device_kind(tensors) -> str:
@@ -67,7 +91,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x: (B,T,H,P); dt: (B,T,H); A: (H,); Bm/Cm: (B,T,N).
 
     Returns (y (B,T,H,P) in x's type, final state (B,H,N,P) float32) —
-    the contract of ``models.ssm.ssd_chunked``."""
+    the contract of ``models.ssm.ssd_chunked``.  On the card one call of
+    the C entry queues two kernels (the chunk states, then the outputs);
+    ``ssd_scan.launches`` counts calls."""
     kind = _device_kind((x, dt, A, Bm, Cm))
     if kind == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
@@ -109,12 +135,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     x, Bm, Cm = (_inner_contiguous(t) for t in (x, Bm, Cm))
     dt = _inner_contiguous(dt.float())
     A = A.float().contiguous()
-    pt = p_tile(P, B * H, sm_count(dev))
-    with torch.cuda.device(dev):
+    plan = launch_plan(B, T, H, P, N, chunk)
+    cs_len = -(-plan.ws_cs // 4) * 4      # C B^T on a 16-byte boundary
+    ws = torch.empty(plan.ws_state + cs_len + plan.ws_cb,
+                     dtype=torch.float32, device=dev)   # one allocation
+    ws_cs = ws.data_ptr() + 4 * plan.ws_state
+    with _on_device(dev):
         rc = _build.lib().rt_ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
-            B, T, H, P, N, int(chunk), pt,
+            ws.data_ptr(), ws_cs, ws_cs + 4 * cs_len,
+            B, T, H, P, N, int(chunk), plan.n_chunks,
             *x.stride()[:3], *dt.stride()[:2], *Bm.stride()[:2],
             *Cm.stride()[:2],
             _build.DTYPE_CODES[str(x.dtype).split(".")[-1]],

@@ -157,19 +157,37 @@ def test_wrappers_raise_on_a_device_they_have_no_version_for():
 
 
 def test_a_block_the_kernels_do_not_take_raises_on_the_card(monkeypatch):
-    """Blocks other than 128 columns run the plain version on a CPU tensor
-    only: on a CUDA tensor the wrappers raise, and launch nothing."""
+    """int8 takes any block width that divides the row: block 64 (the
+    reduced ``d_model = 64``, one block a row) runs the plain version on a
+    CPU tensor and reaches the C entries with its width on a card, while a
+    block that does not divide the row raises there before any launch."""
+    import types
+    from repro_torch.kernels import _build
     from repro_torch.kernels.activation_codec import ops as codec
     x = torch.ones((2, 64))
     q, s = codec.quantize(x, block=64)                 # CPU: plain version
     assert q.shape == (2, 64) and s.shape == (2, 1)
+    fake = _FakeLib()
+    monkeypatch.setattr(_build, "lib", lambda: fake)
     monkeypatch.setattr(codec, "_device_kind", lambda t: "cuda")
-    n = (codec.quantize.launches, codec.dequantize.launches)
-    with pytest.raises(NotImplementedError, match="64"):
-        codec.quantize(x, block=64)
-    with pytest.raises(NotImplementedError, match="64"):
-        codec.dequantize(q, s, torch.float32, block=64)
-    assert (codec.quantize.launches, codec.dequantize.launches) == n
+    monkeypatch.setattr(codec.torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(codec.quantize, "launches", 0)
+    monkeypatch.setattr(codec.dequantize, "launches", 0)
+    q2, s2 = codec.quantize(x, block=64)
+    assert q2.shape == (2, 64) and s2.shape == (2, 1)
+    codec.dequantize(q, s, torch.float32, block=64)
+    (n1, a1), (n2, a2) = fake.calls
+    assert n1 == "rt_quantize_int8" and a1[3:6] == (2, 64, 0)
+    assert n2 == "rt_dequantize_int8" and a2[3:6] == (2, 64, 0)
+    codec.quantize(torch.ones((3, 256), dtype=torch.bfloat16))
+    assert fake.calls[-1][1][3:6] == (6, 128, 1)       # the 128-column path
+    with pytest.raises(ValueError, match="multiple of 48"):
+        codec.quantize(x, block=48)
+    with pytest.raises(ValueError, match="belong together"):
+        codec.dequantize(q, s, torch.float32, block=48)
+    assert len(fake.calls) == 3
+    assert (codec.quantize.launches, codec.dequantize.launches) == (2, 1)
 
 
 def test_no_try_except_around_kernels_or_entry_points():

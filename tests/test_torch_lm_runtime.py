@@ -156,6 +156,55 @@ def test_cut_zero_ships_the_embedding_rows_byte_equal():
     assert np.array_equal(t2np(pt["s"]), to_np(pj["s"]))
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_the_reduced_serve_codec_ships_the_reference_payload(dtype):
+    """The data plane of ``launch.serve --codec``: the reduced Llama-3.2-3B
+    at 8 layers (d_model 64, so the int8 codec takes one 64-column block a
+    row), the pool ``[3, 6)``, a batch of 4 requests of 17 tokens, in the
+    config's own bfloat16 and in float32.  At every cut the port's payload
+    has the reference's bytes and blocks, and is what the reference's codec
+    makes of the port's cut activation, byte for byte.  With the pool at
+    ``[0, 3)``, cut 0 ships the embedding rows, which both executors hold
+    bit for bit: the payloads are byte-equal.  In float32 the two
+    executors' payloads also agree with each other, the int8 values within
+    one step (a value on a rounding boundary may flip: the cut activations
+    agree to matmul order) and the scales within 1e-5; in bfloat16 the cut
+    activations themselves round apart, so that comparison is the one on
+    the shared activation above."""
+    cj = j_get_config("llama3.2-3b").reduced().replace(n_layers=8,
+                                                       dtype=dtype)
+    ct = get_config("llama3.2-3b").reduced().replace(n_layers=8, dtype=dtype)
+    assert ct.d_model == 64
+    pj, pt = both_params(j_build(cj), build(ct), seed=3)
+    tokens = np.random.default_rng(4).integers(0, cj.vocab_size, (4, 17))
+    tj, tt = jnp.asarray(tokens, jnp.int32), torch.from_numpy(tokens).int()
+    ej = j_part.LMSplitExecutor(cj, j_part.SplitPlan(3, 6, codec="int8"))
+    et = LMSplitExecutor(ct, SplitPlan(3, 6, codec="int8"), device="cpu")
+    for cut in (0, 3, 4, 5, 6):
+        _, pay_j = ej.run(pj, tj, cut)
+        _, pay_t = et.run(pt, tt, cut)
+        assert payload_bytes(pay_t) == j_part.payload_bytes(pay_j) \
+            == 4 * 17 * 64 + 4 * 17 * 4
+        assert tuple(pay_t["s"].shape) == tuple(pay_j["s"].shape) \
+            == (4, 17, 1)
+        h = et._edge_hidden(pt, tt, cut)
+        ref = j_part.encode_activation(
+            jnp.asarray(t2np(h.float())).astype(cj.dtype), "int8")
+        assert np.array_equal(t2np(pay_t["q"]), to_np(ref["q"]))
+        assert np.array_equal(t2np(pay_t["s"]), to_np(ref["s"]))
+        if dtype == "float32":
+            dq = t2np(pay_t["q"]).astype(np.int32) - to_np(pay_j["q"])
+            assert np.abs(dq).max() <= 1
+            np.testing.assert_allclose(t2np(pay_t["s"]), to_np(pay_j["s"]),
+                                       atol=0, rtol=1e-5)
+    _, pay_j = j_part.LMSplitExecutor(
+        cj, j_part.SplitPlan(0, 3, codec="int8")).run(pj, tj, 0)
+    _, pay_t = LMSplitExecutor(ct, SplitPlan(0, 3, codec="int8"),
+                               device="cpu").run(pt, tt, 0)
+    assert np.array_equal(t2np(pay_t["q"]), to_np(pay_j["q"]))
+    assert np.array_equal(t2np(pay_t["s"]), to_np(pay_j["s"]))
+
+
 # ----------------------------------------------------------- what raises
 def test_the_executor_refuses_what_it_does_not_serve():
     with pytest.raises(NotImplementedError, match="MoE"):

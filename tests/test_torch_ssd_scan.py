@@ -1,9 +1,13 @@
 """Port parity: the plain version of ``repro_torch``'s SSD scan against the
 Pallas kernel of the JAX package (interpret mode), its jnp reference and
-the per-token recurrence; the kernel's arithmetic (row blocks, decays from
-differences, the carried state, column tiles, zero padding past T),
-written out in PyTorch, against the plain version; the wrapper's checks."""
+the per-token recurrence; the kernels' arithmetic (chunk states in
+parallel, the state passed between chunks, row-block outputs, decays from
+differences, bf16 pieces of the float32 operands, zero padding past T),
+written out in PyTorch, against the plain version; the launch plan; the
+wrapper's checks."""
 import contextlib
+import pathlib
+import re
 import types
 
 import jax.numpy as jnp
@@ -20,8 +24,6 @@ from repro_torch.models.ssm import ssd_chunked, ssd_step
 
 from _torch_port_util import t2np, to_np
 
-H100_SMS = 132       # the column tiling of an H100 SXM
-
 # (B, T, H, P, N, chunk): tests/test_kernels.py's sweep, the reduced
 # configs' widths, a ragged T and a T shorter than one chunk
 SWEEP = [(2, 128, 3, 16, 32, 32), (1, 256, 2, 32, 16, 64),
@@ -30,6 +32,12 @@ SHAPES = SWEEP + [(2, 70, 8, 16, 16, 32),      # reduced mamba2 / zamba2
                   (1, 100, 2, 16, 32, 32),     # ragged: 3 chunks + 4
                   (2, 17, 3, 8, 16, 64)]       # T < chunk
 IDS = [f"B{b}T{t}H{h}P{p}N{n}c{c}" for b, t, h, p, n, c in SHAPES]
+# bf16 pieces of y's float32 operands for bf16 inputs, as the CUDA source
+# fixes them (OutPieces<bf16>)
+Y_PIECES = int(re.search(
+    r"struct OutPieces<bf16> \{ static constexpr int value = (\d); \}",
+    (pathlib.Path(t_ops.__file__).parents[1] / "csrc" / "ssd_scan.cu"
+     ).read_text()).group(1))
 
 
 def _inputs(B, T, H, P, N, seed, jdt=jnp.float32):
@@ -135,79 +143,119 @@ def test_initial_state_matches_the_reference():
 
 
 # ------------------------------------- the kernel's arithmetic, written out
-def _kernel_arithmetic(x, dt, A, Bm, Cm, chunk, n_sm=H100_SMS):
-    """What csrc/ssd_scan.cu computes, in float32 PyTorch: one program per
-    (batch, head, column tile of ``p_tile``), the chunks in order with the
-    state carried, the cumsum of dt * A per chunk, each chunk cut into row
-    blocks of ``ROWS`` positions, the cumsum of dt * A accumulated in
-    float64 and rounded once, scores only for key blocks at or below
-    the diagonal with the decay exp(cs_i - cs_j) taken for i >= j alone,
-    positions past T read as zeros, y rounded to x's type once."""
+def _pieces(v, n):
+    """v (float32) as n bf16 pieces, each held in float32: v - sum of the
+    pieces is below 2^-8n of |v|; a bf16 v is its own single piece."""
+    out, r = [], v.float()
+    for _ in range(n):
+        h = r.to(torch.bfloat16).float()
+        out.append(h)
+        r = r - h
+    return out
+
+
+def _mm(a, b, pa, pb):
+    """a @ b as the kernel's tensor cores take it: a in ``pa`` bf16 pieces,
+    b in ``pb``, the cross products of order below max(pa, pb) summed in
+    float32 (the bf16 products are exact)."""
+    A, Bp, m = _pieces(a, pa), _pieces(b, pb), max(pa, pb)
+    return sum(A[i] @ Bp[j] for i in range(pa) for j in range(pb)
+               if i + j < m)
+
+
+def _kernel_arithmetic(x, dt, A, Bm, Cm, chunk):
+    """What csrc/ssd_scan.cu computes, in PyTorch.  (1) Per (batch, head,
+    chunk), with no dependency between chunks: the cumsum of dt * A
+    accumulated in float64 and rounded once, and the chunk's own state
+    B^T @ (x dt exp(cs_last - cs)) over 64-position key blocks.  (2) The
+    state passed from chunk to chunk, S * exp(cs_last) + S_c, the state
+    entering each chunk kept (the kernel folds this into the staging of
+    (3)).  (3) Per (batch, head, chunk, 64-row block): exp(cs) (C @ S_in),
+    then for each key block at or below the diagonal the scores C B_j^T
+    (one 64 x 64 tile, which the kernel computes once per (batch, chunk)
+    for all heads), the decay exp(cs_i - cs_j) taken for i >= j alone,
+    times x dt; y rounded to x's type once.  For bf16 inputs every product
+    takes its operands as bf16 pieces on the tensor cores: B and C one
+    piece (they are exact), the chunk states' float32 operand three, y's
+    float32 operands ``Y_PIECES``.  For float32 inputs the kernels run scalar
+    float32 FMAs on operands rebuilt exactly from three pieces, which three
+    pieces of every operand here reproduce.  Positions past T are zeros."""
     B, T, H, P = x.shape
+    N = Bm.shape[-1]
     R = t_ops.ROWS
-    pt = t_ops.p_tile(P, B * H, n_sm)
-    y = torch.zeros((B, T, H, P), dtype=x.dtype)
-    state = torch.zeros((B, H, Bm.shape[-1], P))
+    bf = x.dtype == torch.bfloat16
+    pc, pv = (1, Y_PIECES) if bf else (3, 3)
+    plan = t_ops.launch_plan(B, T, H, P, N, chunk)
+    nc = plan.n_chunks
     xf, Bf, Cf, dtf = x.float(), Bm.float(), Cm.float(), dt.float()
-    for b in range(B):
+    ws_state = torch.zeros((B, H, nc, N, P))
+    ws_cs = torch.zeros((B, H, nc, chunk))
+    y = torch.zeros((B, T, H, P), dtype=x.dtype)
+    state = torch.zeros((B, H, N, P))
+
+    def span(c):
+        return c * chunk, min(chunk, T - c * chunk)
+
+    for b in range(B):                            # (1) chunk states
         for h in range(H):
-            for p0 in range(0, P, pt):
-                p1 = min(p0 + pt, P)
-                S = torch.zeros((Bm.shape[-1], p1 - p0))
-                for c0 in range(0, T, chunk):
-                    qe = min(chunk, T - c0)
-                    d = torch.zeros(t_ops.MAX_CHUNK)     # one per thread
-                    d[:qe] = dtf[b, c0:c0 + qe, h]
-                    cs = torch.cumsum((d * A[h].float()).double(),
-                                      0).float()
-                    cs_last = cs[qe - 1]
-                    nb = -(-qe // R)
-
-                    def rows(t, j0):           # positions j0.. of the chunk
-                        out = torch.zeros((R,) + t.shape[1:])
-                        n = min(R, qe - j0)
-                        out[:n] = t[c0 + j0:c0 + j0 + n]
-                        return out
-
-                    for ib in range(nb):
-                        i0 = ib * R
-                        Ci = rows(Cf[b], i0)
-                        ii = i0 + torch.arange(R)
-                        acc = (Ci @ S) * torch.exp(cs[ii])[:, None]
-                        for jb in range(ib + 1):
-                            j0 = jb * R
-                            jj = j0 + torch.arange(R)
-                            xdt = rows(xf[b, :, h, p0:p1], j0) * d[jj, None]
-                            sc = Ci @ rows(Bf[b], j0).T
-                            keep = ii[:, None] >= jj[None, :]
-                            diff = torch.where(keep, cs[ii][:, None]
-                                               - cs[jj][None, :],
-                                               torch.zeros(()))
-                            sc = torch.where(keep, sc * torch.exp(diff),
-                                             torch.zeros(()))
-                            assert diff.max() <= 0    # no exp of a positive
-                            acc = acc + sc @ xdt
-                        n = min(R, qe - i0)
-                        y[b, c0 + i0:c0 + i0 + n, h, p0:p1] = \
-                            acc[:n].to(x.dtype)
-                    w = torch.exp(cs_last - cs)
-                    upd = torch.zeros_like(S)
-                    for jb in range(nb):
-                        j0 = jb * R
-                        jj = j0 + torch.arange(R)
-                        wx = rows(xf[b, :, h, p0:p1], j0) * (d[jj] * w[jj]
-                                                             )[:, None]
-                        upd = upd + rows(Bf[b], j0).T @ wx
-                    S = torch.exp(cs_last) * S + upd
-                state[b, h, :, p0:p1] = S
+            for c in range(nc):
+                c0, qe = span(c)
+                d = dtf[b, c0:c0 + qe, h]
+                cs = torch.cumsum((d * A[h].float()).double(), 0).float()
+                ws_cs[b, h, c, :qe] = cs
+                w = torch.exp(cs[qe - 1] - cs)
+                for j0 in range(0, qe, R):
+                    j1 = min(j0 + R, qe)
+                    v = xf[b, c0 + j0:c0 + j1, h] * d[j0:j1, None] \
+                        * w[j0:j1, None]
+                    ws_state[b, h, c] += _mm(Bf[b, c0 + j0:c0 + j1].T, v,
+                                             pc, 3)
+    for b in range(B):                            # (2) state passing
+        for h in range(H):
+            S = torch.zeros((N, P))
+            for c in range(nc):
+                _, qe = span(c)
+                v = ws_state[b, h, c].clone()
+                ws_state[b, h, c] = S
+                S = S * torch.exp(ws_cs[b, h, c, qe - 1]) + v
+            state[b, h] = S
+    for b in range(B):                            # (3) outputs
+        for h in range(H):
+            for c in range(nc):
+                c0, qe = span(c)
+                cs = ws_cs[b, h, c]
+                d = dtf[b, c0:c0 + qe, h]
+                for i0 in range(0, qe, R):
+                    i1 = min(i0 + R, qe)
+                    ii = torch.arange(i0, i1)
+                    Ci = Cf[b, c0 + i0:c0 + i1]
+                    acc = torch.zeros((i1 - i0, P))
+                    if c > 0:
+                        acc = _mm(Ci, ws_state[b, h, c], pc, pv) \
+                            * torch.exp(cs[ii])[:, None]
+                    for j0 in range(0, i1, R):
+                        j1 = min(j0 + R, qe)
+                        jj = torch.arange(j0, j1)
+                        sc = _mm(Ci, Bf[b, c0 + j0:c0 + j1].T, pc, pc)
+                        keep = ii[:, None] >= jj[None, :]
+                        diff = torch.where(keep, cs[ii][:, None]
+                                           - cs[jj][None, :],
+                                           torch.zeros(()))
+                        assert diff.max() <= 0    # no exp of a positive
+                        sc = torch.where(keep, sc * torch.exp(diff),
+                                         torch.zeros(()))
+                        xdt = xf[b, c0 + j0:c0 + j1, h] * d[j0:j1, None]
+                        acc = acc + _mm(sc, xdt, pv, pv)
+                    y[b, c0 + i0:c0 + i1, h] = acc.to(x.dtype)
     return y, state
 
 
 @pytest.mark.parametrize("B,T,H,P,N,chunk", [
-    (1, 300, 2, 64, 16, 256),     # served chunk and head dim, 2 column tiles
-    (1, 130, 2, 16, 8, 128),      # row blocks 64 + 64 + 2, one column tile
+    (1, 300, 2, 64, 16, 256),     # served chunk and head dim, a ragged chunk
+    (1, 130, 2, 16, 8, 128),      # row blocks 64 + 64 + 2
     (2, 17, 3, 8, 16, 32),        # T < chunk, one ragged row block
     (1, 100, 2, 32, 32, 40),      # chunk no multiple of the row block
+    (1, 160, 2, 64, 128, 128),    # Mamba2's N and P, two chunks
 ])
 def test_kernel_arithmetic_matches_the_plain_version(B, T, H, P, N, chunk):
     (_, _, A, _, _), (x, dt, _, Bm, Cm) = _inputs(B, T, H, P, N, T)
@@ -237,12 +285,46 @@ def test_kernel_arithmetic_survives_a_long_decayed_chunk():
     np.testing.assert_allclose(t2np(got_s), t2np(want_s), atol=2e-5)
 
 
-@pytest.mark.parametrize("P,n_bh,want", [(8, 1, 32), (16, 500, 32),
-                                         (32, 4, 32), (64, 64, 32),
-                                         (64, 131, 32), (64, 132, 64),
-                                         (64, 256, 64)])
-def test_p_tile_splits_a_head_only_when_the_card_is_not_full(P, n_bh, want):
-    assert t_ops.p_tile(P, n_bh, H100_SMS) == want
+def test_bf16_kernel_arithmetic_holds_the_card_limits():
+    """bf16 inputs at the kernel's pieces, Mamba2's N and P, two chunks of
+    the served 256: against the plain version fed the same inputs upcast,
+    the limits chip_smoke.py holds the kernel to on the card — the state
+    within 2e-5 of max(1, its largest value), y within two bf16 units of
+    its largest value."""
+    B, T, H, P, N, chunk = 1, 300, 2, 64, 128, 256
+    (_, _, A, _, _), (x, dt, _, Bm, Cm) = _inputs(B, T, H, P, N, 21,
+                                                  jnp.bfloat16)
+    A = torch.from_numpy(np.array(to_np(A)))
+    got_y, got_s = _kernel_arithmetic(x, dt, A, Bm, Cm, chunk)
+    want_y, want_s = t_ops.ssd_scan_plain(x.float(), dt, A, Bm.float(),
+                                          Cm.float(), chunk)
+    assert got_y.dtype == torch.bfloat16
+    s_max = want_s.abs().max().item()
+    y_max = want_y.abs().max().item()
+    assert (got_s - want_s).abs().max().item() <= 2e-5 * max(1.0, s_max)
+    assert (got_y.float() - want_y).abs().max().item() <= 2 * 2.0 ** -8 \
+        * y_max
+
+
+@pytest.mark.parametrize("shape,want", [
+    # Mamba2-1.3B and Zamba2-1.2B at their served widths, batch 1 and 4:
+    # 10 C B^T tiles a (batch, chunk) of 256, 512 output blocks at batch 1
+    ((1, 512, 64, 64, 128, 256), ((74, 2, 2), (64, 2, 4), 2)),
+    ((4, 512, 64, 64, 128, 256), ((296, 2, 2), (256, 2, 4), 2)),
+    ((1, 512, 64, 64, 64, 256), ((74, 2, 1), (64, 2, 4), 2)),
+    ((4, 512, 64, 64, 64, 256), ((296, 2, 1), (256, 2, 4), 2)),
+    ((1, 300, 2, 16, 32, 256), ((12, 2, 1), (2, 2, 4), 2)),    # ragged
+    ((2, 17, 3, 8, 16, 64), ((8, 1, 1), (6, 1, 1), 1)),        # T < chunk
+    ((1, 5, 1, 8, 8, 1), ((2, 5, 1), (1, 5, 1), 5)),           # chunk 1
+    ((1, 100, 2, 32, 32, 40), ((3, 3, 1), (2, 3, 1), 3)),
+])
+def test_launch_plan_cuts_the_scan_for_the_card(shape, want):
+    B, T, H, P, N, chunk = shape
+    plan = t_ops.launch_plan(B, T, H, P, N, chunk)
+    assert (plan.state_grid, plan.out_grid, plan.n_chunks) == want
+    assert plan.ws_state == B * H * plan.n_chunks * N * P
+    assert plan.ws_cs == B * H * plan.n_chunks * chunk
+    assert plan.ws_cb == B * plan.n_chunks * (plan.out_grid[2] * 64) ** 2
 
 
 # ------------------------------------------------------------ the wrapper
@@ -271,7 +353,6 @@ def fake_card(monkeypatch):
     fake = _FakeLib()
     monkeypatch.setattr(_build, "lib", lambda: fake)
     monkeypatch.setattr(t_ops, "_device_kind", lambda ts: "cuda")
-    monkeypatch.setattr(t_ops, "sm_count", lambda d: H100_SMS)
     monkeypatch.setattr(t_ops.torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(t_ops.torch.cuda, "current_stream",
@@ -282,8 +363,9 @@ def fake_card(monkeypatch):
 
 def test_a_cuda_tensor_launches_the_kernel_in_the_model_layout(fake_card):
     """Mamba2-1.3B's served widths at batch 1: x read where the model keeps
-    it (a view of the conv output, no copy), 64 (batch, head) pairs, so the
-    head dim runs as two 32-column tiles; the launch is counted."""
+    it (a view of the conv output, no copy), the launch plan's chunk count
+    and one fresh float32 workspace of its three sizes (C B^T on a 16-byte
+    boundary); the launch is counted."""
     B, T, H, P, N = 1, 512, 64, 64, 128
     xi = torch.zeros((B, T, H * P), dtype=torch.bfloat16)
     x = xi.reshape(B, T, H, P)
@@ -295,15 +377,22 @@ def test_a_cuda_tensor_launches_the_kernel_in_the_model_layout(fake_card):
     assert tuple(s.shape) == (B, H, N, P) and s.dtype == torch.float32
     ((name, a),) = fake_card.calls
     assert name == "rt_ssd_scan" and a[0] == xi.data_ptr()
-    assert a[7:14] == (B, T, H, P, N, 256, 32)
-    assert a[14:17] == (T * H * P, H * P, P)               # x
-    assert a[17:19] == (T * H, H)                          # dt
-    assert a[19:23] == (T * N, N, T * N, N)                # B, C
-    assert a[23] == 1                                      # bfloat16
+    assert a[5:7] == (y.data_ptr(), s.data_ptr())
+    plan = t_ops.launch_plan(B, T, H, P, N, 256)
+    assert a[8] - a[7] == 4 * plan.ws_state        # one float32 workspace
+    assert a[9] - a[8] == 4 * plan.ws_cs and a[9] % 16 == 0
+    assert a[10:17] == (B, T, H, P, N, 256, 2)
+    assert a[17:20] == (T * H * P, H * P, P)               # x
+    assert a[20:22] == (T * H, H)                          # dt
+    assert a[22:26] == (T * N, N, T * N, N)                # B, C
+    assert a[26] == 1                                      # bfloat16
+    assert len(a) == len(_build.SIGNATURES["rt_ssd_scan"])
     assert t_ops.ssd_scan.launches == 1
     t_ops.ssd_scan(x.expand(4, T, H, P).contiguous(), dt.expand(4, T, H),
-                   A, Bm.expand(4, T, N), Bm.expand(4, T, N), chunk=256)
-    assert fake_card.calls[-1][1][13] == 64     # 256 pairs fill the card
+                   A, Bm.expand(4, T, N), Bm.expand(4, T, N), chunk=200)
+    b = fake_card.calls[-1][1]
+    assert b[10:17] == (4, T, H, P, N, 200, 3)
+    assert b[9] - b[8] == 4 * 4 * 64 * 3 * 200      # 16-byte aligned already
 
 
 @pytest.mark.parametrize("N,P", [(48, 64), (256, 64), (128, 128), (64, 24)])
