@@ -72,8 +72,11 @@ Llama-3.2-3B always runs in full); with no arguments everything runs in
 full.  ``--attention-only`` runs the flash attention and flash-decode
 cases and times alone, and counts the kernels of one Llama-3.2-3B and one
 Zamba2-1.2B decode step (about a minute); ``--ssd-only`` runs the SSD
-scan's cases and its times at the four served shapes.  With
-``--src DIR`` either does so for the ``repro_torch`` under ``DIR``, e.g. a
+scan's cases and its times at the four served shapes; ``--codec-only``
+runs the int8 and int4 codecs' cases, their times at the served shapes
+beside the launch floor (an empty kernel queued the same way), and where
+the host time of an int4 call goes.  With
+``--src DIR`` each does so for the ``repro_torch`` under ``DIR``, e.g. a
 parent commit unpacked beside this one, so that two versions are compared
 in one call.
 """
@@ -189,15 +192,26 @@ def time_ms(fn, warmup: int = 5, reps: int = 20, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def host_ms(fn, calls: int = 200) -> float:
-    """Host time to issue one call (nothing waits for the card)."""
+def host_times(fn, calls: int = 200, reps: int = 5) -> dict:
+    """Host time to issue one call (nothing waits for the card), over
+    ``reps`` runs of ``calls`` calls each: ``host_ms`` the median run,
+    ``host_ms_least`` the least.  The host's cores are shared, and single
+    runs of the same call moved up to twofold: the median is what a path
+    pays, the least what the call itself costs."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e3)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt / calls * 1e3
+    return {"host_ms": statistics.median(times), "host_ms_least": min(times)}
+
+
+def host_ms(fn) -> float:
+    """The median of ``host_times``."""
+    return host_times(fn)["host_ms"]
 
 
 def bound(bytes_moved: float, flops: float, dtype) -> tuple:
@@ -284,12 +298,53 @@ def check_codec(shape, dtype, seed, block=128) -> dict:
             "dequantize_max_err": d_err}
 
 
+def _near_tie_blocks(rows, dtype, seed):
+    """Fill every 128-block of ``rows`` (float32, (R, D)) with inputs whose
+    quotient x / s lies at or next to a half-integer.  Even blocks: the
+    abs-max is 7 m 2^e for an odd m, so s = RN(7 m 2^e RN(1/7)) is m 2^e or
+    an ulp off it, and the other elements are (2k + 1) m 2^(e-1) (k = 0 ..
+    6, random signs), exact in ``dtype``; m = 1 gives exact ties (s = 2^e).
+    Odd blocks: the abs-max is a 2^e with a = 1 + j/128, and the other
+    elements a (2k + 1) 2^e / 14 rounded to ``dtype``, so that k = 3 gives
+    a 2^(e-1) exactly and x / s lies an ulp or so off 3.5.  Then a third of
+    all elements move one ulp of ``dtype`` up or down.  Some of these
+    elements a product with RN(1/s) rounds the other way than the IEEE
+    quotient."""
+    g = gen(seed)
+    blocks = rows.view(-1, 128)
+    nb = blocks.shape[0]
+    ms = torch.tensor([1, 3, 5, 9, 11, 13, 15, 17, 19], device=DEV)
+    m = ms[torch.randint(0, len(ms), (nb, 1), generator=g, device=DEV)]
+    e = torch.exp2(torch.randint(-3, 4, (nb, 1), generator=g,
+                                 device=DEV).float())
+    a = 1.0 + torch.randint(0, 128, (nb, 1), generator=g,
+                            device=DEV).float() / 128
+    k = torch.randint(0, 7, (nb, 128), generator=g, device=DEV)
+    sign = torch.randint(0, 2, (nb, 128), generator=g, device=DEV) * 2 - 1
+    odd = (torch.arange(nb, device=DEV) % 2 == 1)[:, None]
+    amax = torch.where(odd, a * e, (7 * m).float() * e)
+    x = torch.where(odd, a * e * (2 * k + 1).float() / 14,
+                    ((2 * k + 1) * m).float() * e / 2)
+    x[:, 0] = amax[:, 0]
+    x = (sign * x).to(dtype)
+    bits = x.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+    step = torch.randint(-1, 2, (nb, 128), generator=g, device=DEV)
+    step[:, 0] = 0
+    bits += step.to(bits.dtype)              # one ulp up / down, same sign
+    blocks.copy_(x.float())
+
+
 def _codec4_input(shape, dtype, seed, case):
     """Inputs for the packed-int4 codec.  ``zero_lo`` / ``zero_hi``: one
     all-zero 128-block beside a non-zero one in the same 256-column tile.
     ``ties``: every block holds 7.0 once, so its scale is 7 * (1/7) = 1.0
     exactly, and the rest of it lies on the half-integers -6.5 ... 6.5, so
-    that every x / s is an exact .5 tie for the half-to-even rounding."""
+    that every x / s is an exact .5 tie for the half-to-even rounding.
+    ``near_ties``: see ``_near_tie_blocks``.  ``sub_flt_min``: every other
+    128-block scaled so that its scale lies below FLT_MIN (scales about
+    1e-39, where RN(1/s) overflows, and about 5e-39, where it does not;
+    many elements subnormal), every fourth one to a tiny normal scale,
+    beside blocks of the usual size."""
     x = torch.randn(shape, generator=gen(seed), device=DEV,
                     dtype=torch.float32) * 3.0
     rows = x.reshape(-1, shape[-1])
@@ -302,7 +357,24 @@ def _codec4_input(shape, dtype, seed, case):
                           device=DEV).float() + 0.5
         k[:, ::128] = 7.0
         rows.copy_(k)
+    elif case == "near_ties":
+        _near_tie_blocks(rows, dtype, seed + 1)
+    elif case == "sub_flt_min":
+        blocks = rows.view(-1, 128)
+        blocks[0::4] *= 1e-39                # RN(1/s) overflows
+        blocks[2::4] *= 4e-39                # RN(1/s) finite
+        blocks[1::4] *= 1e-30
     return x.to(dtype)
+
+
+def _reciprocal_flips(x) -> int:
+    """Elements of ``x`` whose rint(x * RN(1/s)) differs from
+    rint(x / s) (IEEE division), s the plain version's block scales: how
+    many elements a rounding by the reciprocal alone would get wrong."""
+    s = codec_ops.quantize_int4_plain(x)[1]
+    xb = x.float().reshape(*x.shape[:-1], -1, 128)
+    sb = s[..., None]
+    return int((torch.round(xb * (1.0 / sb)) != torch.round(xb / sb)).sum())
 
 
 def check_codec4(shape, dtype, seed, case="zero_lo") -> dict:
@@ -311,6 +383,15 @@ def check_codec4(shape, dtype, seed, case="zero_lo") -> dict:
         s_ones = codec_ops.quantize_int4_plain(x)[1]
         if not torch.equal(s_ones, torch.ones_like(s_ones)):
             raise AssertionError("int4 ties input: scales are not all 1.0")
+    flips = _reciprocal_flips(x) if case == "near_ties" else None
+    if flips == 0:
+        raise AssertionError("int4 near-ties input: no element that the "
+                             "reciprocal alone would round the wrong way")
+    if case == "sub_flt_min":
+        s_min = codec_ops.quantize_int4_plain(x)[1].min().item()
+        if not 0.0 < s_min < torch.finfo(torch.float32).tiny:
+            raise AssertionError(f"int4 sub_flt_min input: smallest scale "
+                                 f"{s_min} is not below FLT_MIN")
     p_k, s_k = codec_ops.quantize_int4(x)
     p_p, s_p = codec_ops.quantize_int4_plain(x)
     torch.cuda.synchronize()
@@ -337,7 +418,8 @@ def check_codec4(shape, dtype, seed, case="zero_lo") -> dict:
                              "held bit-equal")
     return {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
             "case": case, "quantize_max_err": max(p_err, s_err),
-            "dequantize_max_err": d_err}
+            "dequantize_max_err": d_err,
+            **({"reciprocal_flips": flips} if flips is not None else {})}
 
 
 def _attn_inputs(B, S, T, H, KV, D, dtype, seed, strided=False):
@@ -881,17 +963,19 @@ def phase_ssd(mcfg, zcfg) -> dict:
     return info
 
 
-def phase_kernels(cfg, lcfg, mcfg, zcfg, pcfg) -> dict:
-    """Every kernel against its plain version, at the shapes the main paths
-    give it (``cfg`` the served VLA, ``lcfg`` Llama-3.2-3B, ``mcfg``
-    Mamba2-1.3B, ``zcfg`` Zamba2-1.2B, ``pcfg`` phi3-mini-3.8b) and at
-    awkward ones, then times at the main path's shapes.  Returns the
-    per-kernel records for the summary line."""
+CODEC_SOURCE = "src/repro_torch/kernels/csrc/activation_codec.cu"
+CODEC_REPLACES = {"quantize_int8": 48, "dequantize_int8": 71,
+                  "quantize_int4": 113, "dequantize_int4": 137}
+
+
+def codec_cases(cfg, lcfg) -> tuple:
+    """Every int8 (B1/B2) and int4 (B3/B4) case, each held bit-equal to the
+    plain version: the main paths' shapes (``cfg`` the served VLA, ``lcfg``
+    Llama-3.2-3B) and awkward ones."""
     S_main = cfg.n_patches + 17
     d, d_l = cfg.d_model, lcfg.d_model
     bf, f32 = torch.bfloat16, torch.float32
-
-    codec_cases = [
+    codec8 = [
         check_codec((1, S_main, d), bf, 1),           # uplink, main path
         check_codec((1, cfg.action_dim, d), bf, 2),   # two-pool downlink
         check_codec((1, S_main, d), f32, 3),
@@ -910,7 +994,7 @@ def phase_kernels(cfg, lcfg, mcfg, zcfg, pcfg) -> dict:
         check_codec((5, 100), f32, 14, 100),
         check_codec((3, 7, 100), bf, 15, 100),
     ]
-    codec4_cases = [
+    codec4 = [
         check_codec4((1, S_main, d), bf, 40),         # uplink, main path
         check_codec4((1, S_main, d), f32, 41),
         check_codec4((1, 1, d), bf, 42),              # two-pool downlink
@@ -920,63 +1004,162 @@ def phase_kernels(cfg, lcfg, mcfg, zcfg, pcfg) -> dict:
         check_codec4((3, 512), bf, 46, "zero_hi"),
         check_codec4((1, S_main, d), bf, 47, "ties"),
         check_codec4((4, 512), f32, 48, "ties"),
+        # quotients at and next to half-integers (the rounding's slow path)
+        check_codec4((1, S_main, d), bf, 49, "near_ties"),
+        check_codec4((1, S_main, d), f32, 50, "near_ties"),
+        # scales below FLT_MIN (the whole block divides), subnormal inputs
+        check_codec4((1, S_main, d), bf, 51, "sub_flt_min"),
+        check_codec4((1, S_main, d), f32, 52, "sub_flt_min"),
+        # many rows: 8 736 blocks, more than the card holds at once
+        check_codec4((16, S_main, d), bf, 53),
+        check_codec4((16, S_main, d), f32, 54),
+        # a tile count that fills no whole thread block (37 x 3 tiles)
+        check_codec4((37, 768), bf, 55),
+        check_codec4((37, 768), f32, 56),
     ]
+    return codec8, codec4
+
+
+def _codec_bytes(name, n) -> tuple:
+    """(bytes, operations) of one call on ``n`` bfloat16 elements: each
+    input read once and each output written once."""
+    return {"quantize_int8": (n * 2 + n + n // 128 * 4, 6 * n),
+            "dequantize_int8": (n + n // 128 * 4 + n * 2, 2 * n),
+            "quantize_int4": (n * 2 + n // 2 + n // 128 * 4, 6 * n),
+            "dequantize_int4": (n // 2 + n // 128 * 4 + n * 2, 4 * n)}[name]
+
+
+def _time_codec(name, shape, floor_ms, behind=False) -> dict:
+    """Device, host and plain times of one codec kernel on bfloat16 at
+    ``shape``, with its bound and the launch floor measured beside it.
+    ``behind``: also the device time the call adds behind a PyTorch
+    elementwise kernel that rewrites its input in place (as the served path
+    runs it, after the layer that wrote the activation):
+    time(elementwise, then the call) - time(elementwise)."""
+    bf = torch.bfloat16
+    x = _codec_input(shape, bf, 1)
+    q8, s8 = codec_ops.quantize(x)
+    q4, s4 = codec_ops.quantize_int4(x)
+    fn, plain, inp = {             # the call, its plain version, its input
+        "quantize_int8": (lambda: codec_ops.quantize(x),
+                          lambda: codec_ops.quantize_plain(x), x),
+        "dequantize_int8": (lambda: codec_ops.dequantize(q8, s8, bf),
+                            lambda: codec_ops.dequantize_plain(q8, s8, bf),
+                            q8),
+        "quantize_int4": (lambda: codec_ops.quantize_int4(x),
+                          lambda: codec_ops.quantize_int4_plain(x), x),
+        "dequantize_int4": (lambda: codec_ops.dequantize_int4(q4, s4, bf),
+                            lambda: codec_ops.dequantize_int4_plain(q4, s4,
+                                                                    bf), q4),
+    }[name]
+    nbytes, ops = _codec_bytes(name, x.numel())
+    b_ms, b_by = bound(nbytes, ops, torch.float32)
+    rec = {"shape": list(shape), "dtype": "bfloat16", "ms": time_ms(fn),
+           **host_times(fn), "plain_ms": time_ms(plain),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "launch_floor_ms": floor_ms, "library_ms": None}
+    if behind:
+        pre = lambda: inp.add_(0)                          # noqa: E731
+        pre_ms = time_ms(pre)
+        rec["elementwise_ms"] = pre_ms
+        rec["ms_behind_elementwise"] = time_ms(lambda: (pre(), fn())) - pre_ms
+    return rec
+
+
+def codec_host_breakdown(shape) -> dict:
+    """Host time (µs) to issue each piece of one int4 call at ``shape``,
+    bfloat16, each piece alone in a loop: the wrappers whole, the output
+    allocations, the stream and device queries, the input's contiguity and
+    alignment check, the dtype's code, the pointers, the C entry refused at
+    once (the ``ctypes`` call alone) and taken (a launch), the launch check,
+    and PyTorch's own launch of an empty kernel beside them."""
+    bf = torch.bfloat16
+    x = _codec_input(shape, bf, 1)
+    p, s = codec_ops.quantize_int4(x)
+    lib = _build.lib()
+    n_tiles, stream = x.numel() // 256, torch.cuda.current_stream().cuda_stream
+    ptrs = (x.data_ptr(), p.data_ptr(), s.data_ptr())
+    pieces = {
+        "quantize_int4": lambda: codec_ops.quantize_int4(x),
+        "dequantize_int4": lambda: codec_ops.dequantize_int4(p, s, bf),
+        "torch_empty_payload": lambda: torch.empty(p.shape, dtype=torch.int8,
+                                                   device=x.device),
+        "torch_empty_scales": lambda: torch.empty(s.shape,
+                                                  dtype=torch.float32,
+                                                  device=x.device),
+        "new_empty_payload": lambda: x.new_empty(p.shape, dtype=torch.int8),
+        "current_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(0),
+        "current_device": torch.cuda.current_device,
+        "contiguous_and_alignment": lambda: x.contiguous().data_ptr() % 16,
+        "dtype_code_by_str": lambda: _build.DTYPE_CODES[
+            str(x.dtype).split(".")[-1]],
+        "data_ptr_x3": lambda: (x.data_ptr(), p.data_ptr(), s.data_ptr()),
+        "ctypes_refused": lambda: lib.rt_quantize_int4(0, 0, 0, 0, 1, 0),
+        "ctypes_and_launch": lambda: lib.rt_quantize_int4(*ptrs, n_tiles, 1,
+                                                          stream),
+        "check_launch": lambda: _build.check_launch("quantize_int4", 0),
+        "torch_cuda_sleep_0": lambda: torch.cuda._sleep(0),
+    }
+    times = {k: host_times(fn) for k, fn in pieces.items()}
+    return {stat: {k: t[key] * 1e3 for k, t in times.items()}
+            for stat, key in (("median", "host_ms"),
+                              ("least", "host_ms_least"))}
+
+
+def codec_times(cfg, codec8, codec4) -> dict:
+    """The four codec kernels at the main path's shape (273 rows of the
+    served VLA's width), bfloat16; B3/B4 also at the two-pool downlink's
+    one row and at 16 x 273 rows, each beside the launch floor: the device
+    time per call of an empty kernel (``torch.cuda._sleep(0)``) queued the
+    same way."""
+    S_main, d = cfg.n_patches + 17, cfg.d_model
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0))
+    rec = {}
+    for name in ("quantize_int8", "dequantize_int8", "quantize_int4",
+                 "dequantize_int4"):
+        key = name.split("_")[0] + "_max_err"
+        cases = codec8 if name.endswith("int8") else codec4
+        served = [_time_codec(name, (1, S_main, d), floor_ms, behind=True)]
+        if name.endswith("int4"):
+            served += [_time_codec(name, (1, 1, d), floor_ms),
+                       _time_codec(name, (16, S_main, d), floor_ms)]
+        rec[name] = {"route": "cuda", "source": CODEC_SOURCE,
+                     "replaces": "src/repro/kernels/activation_codec/"
+                                 f"kernel.py:{CODEC_REPLACES[name]}",
+                     **served[0],
+                     "max_abs_err": max(c[key] for c in cases)}
+        if len(served) > 1:
+            rec[name]["served"] = served
+    return rec
+
+
+def phase_codec(cfg, lcfg) -> dict:
+    """``--codec-only``: B1-B4 alone — every int8 and int4 case against the
+    plain versions, the times at the served shapes with the launch floor,
+    and where the host time of an int4 call goes."""
+    codec8, codec4 = codec_cases(cfg, lcfg)
+    rec = codec_times(cfg, codec8, codec4)
+    info = {"phase": "codec", "src": _src_dir(), "codec_cases": codec8,
+            "codec4_cases": codec4, "times": rec,
+            "host_breakdown_us": codec_host_breakdown(
+                (1, cfg.n_patches + 17, cfg.d_model))}
+    emit(info)
+    return info
+
+
+def phase_kernels(cfg, lcfg, mcfg, zcfg, pcfg) -> dict:
+    """Every kernel against its plain version, at the shapes the main paths
+    give it (``cfg`` the served VLA, ``lcfg`` Llama-3.2-3B, ``mcfg``
+    Mamba2-1.3B, ``zcfg`` Zamba2-1.2B, ``pcfg`` phi3-mini-3.8b) and at
+    awkward ones, then times at the main path's shapes.  Returns the
+    per-kernel records for the summary line."""
+    codec8, codec4 = codec_cases(cfg, lcfg)
     attn_cases, dec_cases = attention_cases(cfg, lcfg, zcfg, pcfg)
     ssd = ssd_cases(mcfg, zcfg)
 
     # ---- times at the main path's shapes
-    x = _codec_input((1, S_main, d), bf, 1)
-    q8, s8 = codec_ops.quantize(x)
-    n = x.numel()
-    rec = {}
-    b_ms, b_by = bound(n * 2 + n + n // 128 * 4, 6 * n, f32)
-    rec["quantize_int8"] = {
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/activation_codec.cu",
-        "replaces": "src/repro/kernels/activation_codec/kernel.py:48",
-        "shape": [1, S_main, d], "dtype": "bfloat16",
-        "max_abs_err": max(c["quantize_max_err"] for c in codec_cases),
-        "ms": time_ms(lambda: codec_ops.quantize(x)),
-        "host_ms": host_ms(lambda: codec_ops.quantize(x)),
-        "plain_ms": time_ms(lambda: codec_ops.quantize_plain(x)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    b_ms, b_by = bound(n + n // 128 * 4 + n * 2, 2 * n, f32)
-    rec["dequantize_int8"] = {
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/activation_codec.cu",
-        "replaces": "src/repro/kernels/activation_codec/kernel.py:71",
-        "shape": [1, S_main, d], "dtype": "bfloat16",
-        "max_abs_err": max(c["dequantize_max_err"] for c in codec_cases),
-        "ms": time_ms(lambda: codec_ops.dequantize(q8, s8, bf)),
-        "host_ms": host_ms(lambda: codec_ops.dequantize(q8, s8, bf)),
-        "plain_ms": time_ms(lambda: codec_ops.dequantize_plain(q8, s8, bf)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-
-    p4, s4 = codec_ops.quantize_int4(x)
-    b_ms, b_by = bound(n * 2 + n // 2 + n // 128 * 4, 6 * n, f32)
-    rec["quantize_int4"] = {
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/activation_codec.cu",
-        "replaces": "src/repro/kernels/activation_codec/kernel.py:113",
-        "shape": [1, S_main, d], "dtype": "bfloat16",
-        "max_abs_err": max(c["quantize_max_err"] for c in codec4_cases),
-        "ms": time_ms(lambda: codec_ops.quantize_int4(x)),
-        "host_ms": host_ms(lambda: codec_ops.quantize_int4(x)),
-        "plain_ms": time_ms(lambda: codec_ops.quantize_int4_plain(x)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    b_ms, b_by = bound(n // 2 + n // 128 * 4 + n * 2, 4 * n, f32)
-    rec["dequantize_int4"] = {
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/activation_codec.cu",
-        "replaces": "src/repro/kernels/activation_codec/kernel.py:137",
-        "shape": [1, S_main, d], "dtype": "bfloat16",
-        "max_abs_err": max(c["dequantize_max_err"] for c in codec4_cases),
-        "ms": time_ms(lambda: codec_ops.dequantize_int4(p4, s4, bf)),
-        "host_ms": host_ms(lambda: codec_ops.dequantize_int4(p4, s4, bf)),
-        "plain_ms": time_ms(
-            lambda: codec_ops.dequantize_int4_plain(p4, s4, bf)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-
+    rec = codec_times(cfg, codec8, codec4)
     rec.update(attention_times(cfg, lcfg, zcfg, pcfg, attn_cases,
                                dec_cases))
     # Mamba2-1.3B's scan at batch 1 heads the summary; the other served
@@ -1009,8 +1192,10 @@ def phase_kernels(cfg, lcfg, mcfg, zcfg, pcfg) -> dict:
                              "bfloat16_vs_plain_bf16":
                                  f"{SSD_BF16_PLAIN_REL} x max|ref|"}},
           "timing": "device time: CUDA events, median of 20 x 10 calls "
-                    "queued behind other work; host_ms: time to issue a call",
-          "codec_cases": codec_cases, "codec4_cases": codec4_cases,
+                    "queued behind other work; host_ms: time to issue a "
+                    "call, the median of 5 runs of 200 (host_ms_least, "
+                    "codec rows: the least run)",
+          "codec_cases": codec8, "codec4_cases": codec4,
           "attention_cases": attn_cases,
           "decode_cases": dec_cases,
           "ssd_cases": ssd,
@@ -2280,6 +2465,9 @@ def main() -> None:
                          "kernels")
     ap.add_argument("--ssd-only", action="store_true",
                     help="run only the SSD scan (B7) cases and times")
+    ap.add_argument("--codec-only", action="store_true",
+                    help="run only the int8 and int4 codec (B1-B4) cases, "
+                         "times and host-time breakdown")
     ap.add_argument("--src", default=None,
                     help="drive the repro_torch under this directory instead "
                          "of this checkout's src/")
@@ -2287,8 +2475,10 @@ def main() -> None:
 
     env = phase_env()
     torch.cuda.set_device(0)
-    if args.attention_only or args.ssd_only:
+    if args.attention_only or args.ssd_only or args.codec_only:
         phase_build()
+        if args.codec_only:
+            phase_codec(get_config("openvla-7b"), get_config("llama3.2-3b"))
         if args.attention_only:
             phase_attention(get_config("openvla-7b"),
                             get_config("llama3.2-3b"),
@@ -2361,7 +2551,8 @@ def main() -> None:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        **({"served": r["served"]} if "served" in r else {})})
+                        **{k: r[k] for k in ("launch_floor_ms", "served")
+                           if k in r}})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

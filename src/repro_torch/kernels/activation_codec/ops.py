@@ -9,11 +9,20 @@ rank is flattened to ``(rows, D)``.
 ``dequantize_int4_pallas``, of ``src/repro/kernels/activation_codec/
 kernel.py``, with the CUDA kernels of ``csrc/activation_codec.cu``.  All
 four are bound by bytes on the card (each element read once and written
-once, a handful of operations each), so the kernels make one pass with one
-warp per (row, 128-column block) for int8 and per (row, 256-column tile)
-for int4, vector loads and stores, and nothing kept in device memory
-between the abs-max and the rounding.  At the served size (273 x 4096) the
-traffic is a few megabytes, so the launch itself is most of the time.
+once, a handful of operations each), and at the served size (273 x 4096,
+a few megabytes already in L2) a call lasts about as long as the card
+takes to start and drain a grid.  int8: one warp per (row, 128-column
+block).  int4 (redesigned for Hopper): one warp per (row, 256-column
+tile), launched as a programmatic dependent launch so that the grid is
+resident while the kernel ahead finishes, the block abs-max by one warp
+reduction over the float bits, no conversion instruction per element, and
+the rounding by a reciprocal product that takes the IEEE division only
+within 2^-18 of a half-integer or where a scale lies below FLT_MIN, which
+keeps it bit-equal to ``torch.round(x / s)`` (the argument is in the
+source's header).  On the host a call allocates its outputs with ``new_empty``
+(cheaper than ``torch.empty`` with a device) and reads the stream's raw
+handle (``_stream``): on the H100 machine the allocations and the
+``Stream`` object were the largest shares of a call's host time.
 
 Dispatch is by where the tensor lies, nothing else: a CPU tensor takes the
 plain version (``quantize_plain`` / ``dequantize_plain`` /
@@ -60,17 +69,31 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+_DTYPE_CODE = {torch.float32: _build.DTYPE_CODES["float32"],
+               torch.bfloat16: _build.DTYPE_CODES["bfloat16"]}
+
+
+def _stream(device: torch.device) -> int:
+    """The handle of the current stream on ``device`` (a card), as
+    ``torch.cuda.current_stream(device).cuda_stream`` gives it but without
+    building a ``Stream`` object, which took a fifth of a call's host time
+    on the H100 machine."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
+
+
 def _launch(wrapper, entry: str, tensors, units, dtype) -> None:
     """Launch the C entry ``entry`` on the current stream of the card the
     tensors lie on, raise if the launch was refused, and count it on
     ``wrapper``.  Every codec entry takes three pointers, ``units`` (the
     number of blocks or tiles, and for int8 the block's width), the
     floating type's code and the stream."""
-    with _on_device(tensors[0].device):
+    a, b, c = tensors
+    with _on_device(a.device):
         rc = getattr(_build.lib(), entry)(
-            *(t.data_ptr() for t in tensors), *units,
-            _build.DTYPE_CODES[str(dtype).split(".")[-1]],
-            torch.cuda.current_stream().cuda_stream)
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), *units,
+            _DTYPE_CODE[dtype], _stream(a.device))
     _build.check_launch(entry[len("rt_"):], rc)
     wrapper.launches += 1
 
@@ -86,9 +109,8 @@ def quantize(x: torch.Tensor, block: int = ref.BLOCK
     D = x.shape[-1]
     if block < 1 or D % block != 0:
         raise ValueError(f"last dim {D} is not a multiple of {block}")
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    s = torch.empty((*x.shape[:-1], D // block), dtype=torch.float32,
-                    device=x.device)
+    q = x.new_empty(x.shape, dtype=torch.int8)
+    s = x.new_empty((*x.shape[:-1], D // block), dtype=torch.float32)
     if x.numel() == 0:
         return q, s
     x = _aligned(x)
@@ -117,7 +139,7 @@ def dequantize(q: torch.Tensor, s: torch.Tensor, dtype=torch.bfloat16,
         raise ValueError(f"payload {tuple(q.shape)} on {q.device} and scales "
                          f"{tuple(s.shape)} on {s.device} do not belong "
                          f"together at block {block}")
-    out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    out = q.new_empty(q.shape, dtype=dtype)
     if q.numel() == 0:
         return out
     q, s = _aligned(q), _aligned(s)
@@ -143,10 +165,8 @@ def quantize_int4(x: torch.Tensor, block: int = ref.BLOCK
     D = x.shape[-1]
     if D % (2 * block) != 0:
         raise ValueError(f"last dim {D} is not a multiple of 2 * {block}")
-    p = torch.empty((*x.shape[:-1], D // 2), dtype=torch.int8,
-                    device=x.device)
-    s = torch.empty((*x.shape[:-1], D // block), dtype=torch.float32,
-                    device=x.device)
+    p = x.new_empty((*x.shape[:-1], D // 2), dtype=torch.int8)
+    s = x.new_empty((*x.shape[:-1], D // block), dtype=torch.float32)
     if x.numel() == 0:
         return p, s
     x = _aligned(x)
@@ -178,7 +198,7 @@ def dequantize_int4(p: torch.Tensor, s: torch.Tensor, dtype=torch.bfloat16,
         raise ValueError(f"packed payload {tuple(p.shape)} on {p.device} and "
                          f"scales {tuple(s.shape)} on {s.device} do not "
                          f"belong together at block {block}")
-    out = torch.empty((*p.shape[:-1], D), dtype=dtype, device=p.device)
+    out = p.new_empty((*p.shape[:-1], D), dtype=dtype)
     if p.numel() == 0:
         return out
     p, s = _aligned(p), _aligned(s)

@@ -161,7 +161,6 @@ def test_a_block_the_kernels_do_not_take_raises_on_the_card(monkeypatch):
     reduced ``d_model = 64``, one block a row) runs the plain version on a
     CPU tensor and reaches the C entries with its width on a card, while a
     block that does not divide the row raises there before any launch."""
-    import types
     from repro_torch.kernels import _build
     from repro_torch.kernels.activation_codec import ops as codec
     x = torch.ones((2, 64))
@@ -170,8 +169,7 @@ def test_a_block_the_kernels_do_not_take_raises_on_the_card(monkeypatch):
     fake = _FakeLib()
     monkeypatch.setattr(_build, "lib", lambda: fake)
     monkeypatch.setattr(codec, "_device_kind", lambda t: "cuda")
-    monkeypatch.setattr(codec.torch.cuda, "current_stream",
-                        lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(codec, "_stream", lambda device: 0)
     monkeypatch.setattr(codec.quantize, "launches", 0)
     monkeypatch.setattr(codec.dequantize, "launches", 0)
     q2, s2 = codec.quantize(x, block=64)
@@ -243,7 +241,6 @@ def test_int4_launches_its_kernel_on_a_cuda_tensor(monkeypatch):
     C entry expects, and count the launch; what the kernels do not take
     raises before any launch."""
     import contextlib
-    import types
     from repro_torch.kernels import _build
     from repro_torch.kernels.activation_codec import ops as codec
     fake = _FakeLib()
@@ -251,8 +248,7 @@ def test_int4_launches_its_kernel_on_a_cuda_tensor(monkeypatch):
     monkeypatch.setattr(codec, "_device_kind", lambda t: "cuda")
     monkeypatch.setattr(codec.torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(codec.torch.cuda, "current_stream",
-                        lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(codec, "_stream", lambda device: 0)
     monkeypatch.setattr(codec.quantize_int4, "launches", 0)
     monkeypatch.setattr(codec.dequantize_int4, "launches", 0)
     x = torch.ones((3, 5, 512), dtype=torch.bfloat16)
@@ -277,6 +273,106 @@ def test_int4_launches_its_kernel_on_a_cuda_tensor(monkeypatch):
         codec.dequantize_int4(p, s, torch.float16)
     assert len(fake.calls) == 2
     assert codec.quantize_int4.launches == codec.dequantize_int4.launches == 1
+
+
+@pytest.fixture
+def int4_card(monkeypatch):
+    """The int4 wrappers on a stand-in card: the library is a ``_FakeLib``,
+    every tensor counts as a CUDA tensor, the stream's handle is 77 and the
+    launch counts start at 0."""
+    import contextlib
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.activation_codec import ops as codec
+    fake = _FakeLib()
+    monkeypatch.setattr(_build, "lib", lambda: fake)
+    monkeypatch.setattr(codec, "_device_kind", lambda t: "cuda")
+    monkeypatch.setattr(codec.torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(codec, "_stream", lambda device: 77)
+    monkeypatch.setattr(codec.quantize_int4, "launches", 0)
+    monkeypatch.setattr(codec.dequantize_int4, "launches", 0)
+    return fake, codec
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.bfloat16, 1),
+                                        (torch.float32, 0)],
+                         ids=["bfloat16", "float32"])
+def test_int4_passes_pointers_units_and_the_stream(int4_card, dtype, code):
+    """Each int4 C entry gets the three tensors' pointers in its order, the
+    tile count, the type's code and the current stream, in the number of
+    arguments its signature declares."""
+    from repro_torch.kernels import _build
+    fake, codec = int4_card
+    x = torch.zeros((2, 273, 1024), dtype=dtype)
+    p, s = codec.quantize_int4(x)
+    out = codec.dequantize_int4(p, s, dtype)
+    (n1, a1), (n2, a2) = fake.calls
+    assert n1 == "rt_quantize_int4" and n2 == "rt_dequantize_int4"
+    assert len(a1) == len(_build.SIGNATURES[n1])
+    assert len(a2) == len(_build.SIGNATURES[n2])
+    assert a1 == (x.data_ptr(), p.data_ptr(), s.data_ptr(), 2 * 273 * 4,
+                  code, 77)
+    assert a2 == (p.data_ptr(), s.data_ptr(), out.data_ptr(), 2 * 273 * 4,
+                  code, 77)
+    assert codec.quantize_int4.launches == codec.dequantize_int4.launches == 1
+
+
+def test_int4_copies_an_input_off_a_16_byte_boundary(int4_card):
+    """The kernels read 8 or 16 bytes at a time: a view one element into its
+    storage reaches the C entry as an aligned copy, a strided view as a
+    contiguous one."""
+    fake, codec = int4_card
+    x = torch.zeros(2 * 256 + 1, dtype=torch.bfloat16)[1:].view(2, 256)
+    codec.quantize_int4(x)
+    assert x.data_ptr() % 16 != 0 and fake.calls[-1][1][0] % 16 == 0
+    y = torch.zeros((512, 2), dtype=torch.bfloat16).t()
+    codec.quantize_int4(y)
+    b = fake.calls[-1][1][0]
+    assert b != y.data_ptr() and b % 16 == 0
+    assert codec.quantize_int4.launches == 2
+
+
+def test_int4_launches_nothing_for_an_empty_input(int4_card):
+    fake, codec = int4_card
+    p, s = codec.quantize_int4(torch.zeros((0, 256)))
+    assert p.shape == (0, 128) and s.shape == (0, 2)
+    assert codec.dequantize_int4(p, s, torch.float32).shape == (0, 256)
+    assert not fake.calls
+    assert codec.quantize_int4.launches == codec.dequantize_int4.launches == 0
+
+
+# what the int4 kernels do not take, beyond the refusals of
+# test_int4_launches_its_kernel_on_a_cuda_tensor
+INT4_REFUSED = {
+    "int8 input": (TypeError, lambda c: c.quantize_int4(
+        torch.zeros((2, 256), dtype=torch.int8))),
+    "dequantize block 64": (NotImplementedError, lambda c: c.dequantize_int4(
+        torch.zeros((2, 128), dtype=torch.int8), torch.ones((2, 2)),
+        block=64)),
+    "int32 payload": (TypeError, lambda c: c.dequantize_int4(
+        torch.zeros((2, 128), dtype=torch.int32), torch.ones((2, 2)))),
+    "float64 scales": (TypeError, lambda c: c.dequantize_int4(
+        torch.zeros((2, 128), dtype=torch.int8),
+        torch.ones((2, 2), dtype=torch.float64))),
+    "scales of another row count": (ValueError, lambda c: c.dequantize_int4(
+        torch.zeros((2, 128), dtype=torch.int8), torch.ones((3, 2)))),
+    "payload width no multiple of 128": (ValueError,
+                                         lambda c: c.dequantize_int4(
+        torch.zeros((2, 192), dtype=torch.int8), torch.ones((2, 3)))),
+    "scales on another device": (ValueError, lambda c: c.dequantize_int4(
+        torch.zeros((2, 128), dtype=torch.int8),
+        torch.ones((2, 2), device="meta"))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INT4_REFUSED))
+def test_int4_refuses_before_a_launch(int4_card, case):
+    fake, codec = int4_card
+    exc, call = INT4_REFUSED[case]
+    with pytest.raises(exc):
+        call(codec)
+    assert not fake.calls
+    assert codec.quantize_int4.launches == codec.dequantize_int4.launches == 0
 
 
 def test_decode_attention_launches_its_kernel_on_a_cuda_tensor(monkeypatch):
