@@ -74,8 +74,9 @@ cases and times alone, and counts the kernels of one Llama-3.2-3B and one
 Zamba2-1.2B decode step (about a minute); ``--ssd-only`` runs the SSD
 scan's cases and its times at the four served shapes; ``--codec-only``
 runs the int8 and int4 codecs' cases, their times at the served shapes
-beside the launch floor (an empty kernel queued the same way), and where
-the host time of an int4 call goes.  With
+beside the launch floor (an empty kernel queued the same way), what the
+quantise kernels' rounding division costs (inputs with no tie, random
+ones, all ties), and where the host time of an int4 call goes.  With
 ``--src DIR`` each does so for the ``repro_torch`` under ``DIR``, e.g. a
 parent commit unpacked beside this one, so that two versions are compared
 in one call.
@@ -94,6 +95,9 @@ import sys
 import time
 from contextlib import redirect_stdout
 
+_OWN_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+
+
 def _src_dir() -> str:
     """The ``src`` whose ``repro_torch`` this script drives: this
     checkout's, or the one after ``--src`` (to run the same cases and times
@@ -101,7 +105,7 @@ def _src_dir() -> str:
     archive``, beside this one's in one call)."""
     if "--src" in sys.argv[1:-1]:
         return os.path.abspath(sys.argv[sys.argv.index("--src") + 1])
-    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    return _OWN_SRC
 
 
 sys.path.insert(0, _src_dir())
@@ -263,15 +267,102 @@ def phase_build() -> None:
 
 
 # ================================================================= kernels
-def _codec_input(shape, dtype, seed):
+def _codec_input(shape, dtype, seed, case="zero_lo", qmax=7, block=128):
+    """Inputs for the codecs, 3 N(0, 1) at heart.  ``qmax`` is the codec's
+    quantum (7 for int4, 127 for int8) and ``block`` its block width.
+    ``zero_lo`` / ``zero_hi``: the first 128 columns of the first row all
+    zero (int8: a zero block), or the next 128 (int4: one all-zero
+    128-block beside a non-zero one in the same 256-column tile).  ``ties``:
+    every block holds ``qmax`` once, so its scale is qmax * RN(1/qmax) = 1.0
+    exactly (for 7 and 127), and the rest of it lies on the half-integers
+    -qmax + 1/2 ... qmax - 1/2, exact in bfloat16, so that every x / s is an
+    exact .5 tie for the half-to-even rounding.  ``integers``: the same with
+    the rest on the integers -qmax + 1 ... qmax, so that no x / s lies near a
+    tie.  ``near_ties``: see ``_near_tie_blocks``.  ``sub_flt_min``: every
+    other block scaled so that its scale lies below FLT_MIN (where RN(1/s)
+    overflows, and where it does not; many elements subnormal), every
+    fourth one to a tiny normal scale, beside blocks of the usual size.
+    ``non_finite`` (int8): a NaN in every third block, +Inf in every sixth
+    of those, -Inf in every third from the second on, and every block's
+    first element 300 (past the int8 range at the scale 1 a NaN gives)."""
     x = torch.randn(shape, generator=gen(seed), device=DEV,
                     dtype=torch.float32) * 3.0
-    x.reshape(-1, shape[-1])[0, :128] = 0.0        # one all-zero block
+    rows = x.reshape(-1, shape[-1])
+    blocks = rows.view(-1, block)
+    if case == "zero_lo":
+        rows[0, :128] = 0.0
+    elif case == "zero_hi":
+        rows[0, 128:256] = 0.0
+    elif case in ("ties", "integers"):
+        k = torch.randint(-qmax, qmax, rows.shape, generator=gen(seed + 1),
+                          device=DEV).float()
+        rows.copy_(k + 0.5 if case == "ties" else k + 1.0)
+        blocks[:, 0] = float(qmax)
+    elif case == "near_ties":
+        _near_tie_blocks(rows, dtype, seed + 1, qmax, block)
+    elif case == "sub_flt_min":
+        overflows, finite = SUB_FLT_MIN_FACTORS[qmax]
+        blocks[0::4] *= overflows            # RN(1/s) overflows
+        blocks[2::4] *= finite               # RN(1/s) finite
+        blocks[1::4] *= 1e-30
+    elif case == "non_finite":
+        blocks[:, 0] = 300.0
+        blocks[0::3, 5] = float("nan")
+        blocks[0::6, 7] = float("inf")
+        blocks[1::3, 9] = float("-inf")
     return x.to(dtype)
 
 
-def check_codec(shape, dtype, seed, block=128) -> dict:
-    x = _codec_input(shape, dtype, seed)
+# what ``sub_flt_min`` scales its blocks by, per quantum: block scales near
+# 1e-40 (int8) or 1e-39 (int4), where RN(1/s) overflows, and near 5e-39,
+# where it is finite
+SUB_FLT_MIN_FACTORS = {7: (1e-39, 4e-39), 127: (1e-39, 7e-38)}
+
+
+def _plain_scales(x, qmax, block=128):
+    return (codec_ops.quantize_plain(x, block) if qmax == 127
+            else codec_ops.quantize_int4_plain(x))[1]
+
+
+def _case_checks(x, case, qmax, block=128):
+    """The checks that an input is what its case says: all scales 1.0 for
+    ``ties``, some scale below FLT_MIN for ``sub_flt_min``, and for
+    ``near_ties`` some element that the reciprocal alone rounds the wrong
+    way (returned, else None)."""
+    codec = "int8" if qmax == 127 else "int4"
+    if case == "ties":
+        s = _plain_scales(x, qmax, block)
+        if not torch.equal(s, torch.ones_like(s)):
+            raise AssertionError(f"{codec} ties input: scales are not all 1.0")
+    if case == "sub_flt_min":
+        s_min = _plain_scales(x, qmax, block).min().item()
+        if not 0.0 < s_min < torch.finfo(torch.float32).tiny:
+            raise AssertionError(f"{codec} sub_flt_min input: smallest scale "
+                                 f"{s_min} is not below FLT_MIN")
+    if case != "near_ties":
+        return None
+    flips = _reciprocal_flips(x, qmax, block)
+    if flips == 0:
+        raise AssertionError(f"{codec} near-ties input: no element that the "
+                             "reciprocal alone would round the wrong way")
+    return flips
+
+
+def _non_finite_want(x, q_p, block):
+    """What the header of ``csrc/activation_codec.cu`` states for
+    non-finite inputs: the plain version's values, but -127 for a NaN and
+    for +-Inf in a block without a NaN (where the plain version's cast of a
+    NaN is undefined)."""
+    xb = x.reshape(-1, block)
+    nan_block = xb.isnan().any(-1, keepdim=True)
+    want = q_p.reshape(-1, block).clone()
+    want[xb.isnan() | (xb.isinf() & ~nan_block)] = -127
+    return want.reshape(q_p.shape)
+
+
+def check_codec(shape, dtype, seed, block=128, case="zero_lo") -> dict:
+    x = _codec_input(shape, dtype, seed, case, 127, block)
+    flips = _case_checks(x, case, 127, block)
     q_k, s_k = codec_ops.quantize(x, block)
     q_p, s_p = codec_ops.quantize_plain(x, block)
     torch.cuda.synchronize()
@@ -279,39 +370,45 @@ def check_codec(shape, dtype, seed, block=128) -> dict:
             or s_k.shape != (*x.shape[:-1], x.shape[-1] // block):
         raise AssertionError(f"quantize {shape}: wrong output {q_k.shape} "
                              f"{q_k.dtype} {s_k.shape}")
+    if case == "non_finite":
+        q_p = _non_finite_want(x, q_p, block)
     q_err = (q_k.int() - q_p.int()).abs().max().item()
-    s_err = (s_k - s_p).abs().max().item()
+    s_err = (s_k - s_p).abs().nan_to_num().max().item()
     if not (torch.equal(q_k, q_p) and torch.equal(s_k, s_p)):
-        raise AssertionError(f"quantize_int8 {shape} {dtype}: kernel and "
-                             f"plain version differ (payload by {q_err}, "
+        raise AssertionError(f"quantize_int8 {shape} {dtype} {case}: kernel "
+                             f"and plain version differ (payload by {q_err}, "
                              f"scales by {s_err}); they are held bit-equal")
     d_k = codec_ops.dequantize(q_k, s_k, dtype, block)
     d_p = codec_ops.dequantize_plain(q_k, s_k, dtype, block)
     torch.cuda.synchronize()
-    d_err = (d_k.float() - d_p.float()).abs().max().item()
-    if not torch.equal(d_k, d_p):
-        raise AssertionError(f"dequantize_int8 {shape} {dtype}: kernel and "
-                             f"plain version differ by {d_err}; they are "
+    nan = d_p.isnan()
+    d_err = (d_k.float() - d_p.float())[~nan].abs().nan_to_num().max().item()
+    if not (torch.equal(d_k.isnan(), nan)
+            and torch.equal(d_k[~nan], d_p[~nan])):
+        raise AssertionError(f"dequantize_int8 {shape} {dtype} {case}: kernel "
+                             f"and plain version differ by {d_err}; they are "
                              "held bit-equal")
     return {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
-            "block": block, "quantize_max_err": max(q_err, s_err),
-            "dequantize_max_err": d_err}
+            "block": block, "case": case,
+            "quantize_max_err": max(q_err, s_err), "dequantize_max_err": d_err,
+            **({"reciprocal_flips": flips} if flips is not None else {})}
 
 
-def _near_tie_blocks(rows, dtype, seed):
-    """Fill every 128-block of ``rows`` (float32, (R, D)) with inputs whose
-    quotient x / s lies at or next to a half-integer.  Even blocks: the
-    abs-max is 7 m 2^e for an odd m, so s = RN(7 m 2^e RN(1/7)) is m 2^e or
-    an ulp off it, and the other elements are (2k + 1) m 2^(e-1) (k = 0 ..
-    6, random signs), exact in ``dtype``; m = 1 gives exact ties (s = 2^e).
-    Odd blocks: the abs-max is a 2^e with a = 1 + j/128, and the other
-    elements a (2k + 1) 2^e / 14 rounded to ``dtype``, so that k = 3 gives
-    a 2^(e-1) exactly and x / s lies an ulp or so off 3.5.  Then a third of
-    all elements move one ulp of ``dtype`` up or down.  Some of these
-    elements a product with RN(1/s) rounds the other way than the IEEE
-    quotient."""
+def _near_tie_blocks(rows, dtype, seed, qmax=7, block=128):
+    """Fill every block of ``rows`` (float32, (R, D), blocks of ``block``
+    columns) with inputs whose quotient x / s lies at or next to a
+    half-integer, for the quantum ``qmax``.  Even blocks: the abs-max is
+    qmax m 2^e for an odd m, so s = RN(qmax m 2^e RN(1/qmax)) is m 2^e or an
+    ulp off it, and the other elements are (2k + 1) m 2^(e-1) (k = 0 ..
+    qmax - 1, random signs) rounded to ``dtype`` (exact for int4); m = 1
+    gives exact ties (s = 2^e).  Odd blocks: the abs-max is a 2^e with
+    a = 1 + j/128, and the other elements a (2k + 1) 2^e / (2 qmax) rounded
+    to ``dtype``, so that k = (qmax - 1) / 2 gives a 2^(e-1) exactly and
+    x / s lies an ulp or so off qmax / 2.  Then a third of all elements move
+    one ulp of ``dtype`` up or down.  Some of these elements a product with
+    RN(1/s) rounds the other way than the IEEE quotient."""
     g = gen(seed)
-    blocks = rows.view(-1, 128)
+    blocks = rows.view(-1, block)
     nb = blocks.shape[0]
     ms = torch.tensor([1, 3, 5, 9, 11, 13, 15, 17, 19], device=DEV)
     m = ms[torch.randint(0, len(ms), (nb, 1), generator=g, device=DEV)]
@@ -319,79 +416,35 @@ def _near_tie_blocks(rows, dtype, seed):
                                  device=DEV).float())
     a = 1.0 + torch.randint(0, 128, (nb, 1), generator=g,
                             device=DEV).float() / 128
-    k = torch.randint(0, 7, (nb, 128), generator=g, device=DEV)
-    sign = torch.randint(0, 2, (nb, 128), generator=g, device=DEV) * 2 - 1
+    k = torch.randint(0, qmax, (nb, block), generator=g, device=DEV)
+    sign = torch.randint(0, 2, (nb, block), generator=g, device=DEV) * 2 - 1
     odd = (torch.arange(nb, device=DEV) % 2 == 1)[:, None]
-    amax = torch.where(odd, a * e, (7 * m).float() * e)
-    x = torch.where(odd, a * e * (2 * k + 1).float() / 14,
+    amax = torch.where(odd, a * e, (qmax * m).float() * e)
+    x = torch.where(odd, a * e * (2 * k + 1).float() / (2 * qmax),
                     ((2 * k + 1) * m).float() * e / 2)
     x[:, 0] = amax[:, 0]
     x = (sign * x).to(dtype)
     bits = x.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
-    step = torch.randint(-1, 2, (nb, 128), generator=g, device=DEV)
+    step = torch.randint(-1, 2, (nb, block), generator=g, device=DEV)
     step[:, 0] = 0
     bits += step.to(bits.dtype)              # one ulp up / down, same sign
     blocks.copy_(x.float())
 
 
-def _codec4_input(shape, dtype, seed, case):
-    """Inputs for the packed-int4 codec.  ``zero_lo`` / ``zero_hi``: one
-    all-zero 128-block beside a non-zero one in the same 256-column tile.
-    ``ties``: every block holds 7.0 once, so its scale is 7 * (1/7) = 1.0
-    exactly, and the rest of it lies on the half-integers -6.5 ... 6.5, so
-    that every x / s is an exact .5 tie for the half-to-even rounding.
-    ``near_ties``: see ``_near_tie_blocks``.  ``sub_flt_min``: every other
-    128-block scaled so that its scale lies below FLT_MIN (scales about
-    1e-39, where RN(1/s) overflows, and about 5e-39, where it does not;
-    many elements subnormal), every fourth one to a tiny normal scale,
-    beside blocks of the usual size."""
-    x = torch.randn(shape, generator=gen(seed), device=DEV,
-                    dtype=torch.float32) * 3.0
-    rows = x.reshape(-1, shape[-1])
-    if case == "zero_lo":
-        rows[0, :128] = 0.0
-    elif case == "zero_hi":
-        rows[0, 128:256] = 0.0
-    elif case == "ties":
-        k = torch.randint(-7, 7, rows.shape, generator=gen(seed + 1),
-                          device=DEV).float() + 0.5
-        k[:, ::128] = 7.0
-        rows.copy_(k)
-    elif case == "near_ties":
-        _near_tie_blocks(rows, dtype, seed + 1)
-    elif case == "sub_flt_min":
-        blocks = rows.view(-1, 128)
-        blocks[0::4] *= 1e-39                # RN(1/s) overflows
-        blocks[2::4] *= 4e-39                # RN(1/s) finite
-        blocks[1::4] *= 1e-30
-    return x.to(dtype)
-
-
-def _reciprocal_flips(x) -> int:
+def _reciprocal_flips(x, qmax=7, block=128) -> int:
     """Elements of ``x`` whose rint(x * RN(1/s)) differs from
-    rint(x / s) (IEEE division), s the plain version's block scales: how
-    many elements a rounding by the reciprocal alone would get wrong."""
-    s = codec_ops.quantize_int4_plain(x)[1]
-    xb = x.float().reshape(*x.shape[:-1], -1, 128)
+    rint(x / s) (IEEE division), s the plain version's block scales for the
+    quantum ``qmax``: how many elements a rounding by the reciprocal alone
+    would get wrong."""
+    s = _plain_scales(x, qmax, block)
+    xb = x.float().reshape(*x.shape[:-1], -1, block)
     sb = s[..., None]
     return int((torch.round(xb * (1.0 / sb)) != torch.round(xb / sb)).sum())
 
 
 def check_codec4(shape, dtype, seed, case="zero_lo") -> dict:
-    x = _codec4_input(shape, dtype, seed, case)
-    if case == "ties":
-        s_ones = codec_ops.quantize_int4_plain(x)[1]
-        if not torch.equal(s_ones, torch.ones_like(s_ones)):
-            raise AssertionError("int4 ties input: scales are not all 1.0")
-    flips = _reciprocal_flips(x) if case == "near_ties" else None
-    if flips == 0:
-        raise AssertionError("int4 near-ties input: no element that the "
-                             "reciprocal alone would round the wrong way")
-    if case == "sub_flt_min":
-        s_min = codec_ops.quantize_int4_plain(x)[1].min().item()
-        if not 0.0 < s_min < torch.finfo(torch.float32).tiny:
-            raise AssertionError(f"int4 sub_flt_min input: smallest scale "
-                                 f"{s_min} is not below FLT_MIN")
+    x = _codec_input(shape, dtype, seed, case)
+    flips = _case_checks(x, case, 7)
     p_k, s_k = codec_ops.quantize_int4(x)
     p_p, s_p = codec_ops.quantize_int4_plain(x)
     torch.cuda.synchronize()
@@ -971,7 +1024,9 @@ CODEC_REPLACES = {"quantize_int8": 48, "dequantize_int8": 71,
 def codec_cases(cfg, lcfg) -> tuple:
     """Every int8 (B1/B2) and int4 (B3/B4) case, each held bit-equal to the
     plain version: the main paths' shapes (``cfg`` the served VLA, ``lcfg``
-    Llama-3.2-3B) and awkward ones."""
+    Llama-3.2-3B) and awkward ones.  The int8 ``non_finite`` cases hold
+    what this checkout's kernel source states for NaN and Inf, so they run
+    only on this checkout's ``repro_torch`` (not under ``--src``)."""
     S_main = cfg.n_patches + 17
     d, d_l = cfg.d_model, lcfg.d_model
     bf, f32 = torch.bfloat16, torch.float32
@@ -994,6 +1049,28 @@ def codec_cases(cfg, lcfg) -> tuple:
         check_codec((5, 100), f32, 14, 100),
         check_codec((3, 7, 100), bf, 15, 100),
     ]
+    for dt, seed in ((bf, 16), (f32, 26)):
+        codec8 += [
+            check_codec((1, S_main, d), dt, seed, case="ties"),
+            # quotients at and next to half-integers (the rounding's slow
+            # path), at the 128-column block and in the general kernels
+            check_codec((1, S_main, d), dt, seed + 1, case="near_ties"),
+            check_codec((S_main, 64), dt, seed + 2, 64, "near_ties"),
+            check_codec((37, 1000), dt, seed + 3, 100, "near_ties"),
+            check_codec((37, 1000), dt, seed + 4, 100, "ties"),
+            # scales below FLT_MIN (the whole block divides), subnormal inputs
+            check_codec((1, S_main, d), dt, seed + 5, case="sub_flt_min"),
+            check_codec((S_main, 64), dt, seed + 6, 64, "sub_flt_min"),
+            # many rows: 139 776 blocks, more than the card holds at once
+            check_codec((16, S_main, d), dt, seed + 7),
+            # a block count that fills no whole thread block (37 x 6 blocks)
+            check_codec((37, 768), dt, seed + 8),
+        ]
+        if _src_dir() == _OWN_SRC:      # this checkout's kernels' statement
+            codec8.append(check_codec((3, 7, 1000), dt, seed + 9, 100,
+                                      "non_finite"))
+            codec8.append(check_codec((1, S_main, d), dt, seed + 9,
+                                      case="non_finite"))
     codec4 = [
         check_codec4((1, S_main, d), bf, 40),         # uplink, main path
         check_codec4((1, S_main, d), f32, 41),
@@ -1020,49 +1097,80 @@ def codec_cases(cfg, lcfg) -> tuple:
     return codec8, codec4
 
 
-def _codec_bytes(name, n) -> tuple:
+def _codec_bytes(name, n, block=128) -> tuple:
     """(bytes, operations) of one call on ``n`` bfloat16 elements: each
     input read once and each output written once."""
-    return {"quantize_int8": (n * 2 + n + n // 128 * 4, 6 * n),
-            "dequantize_int8": (n + n // 128 * 4 + n * 2, 2 * n),
+    return {"quantize_int8": (n * 2 + n + n // block * 4, 6 * n),
+            "dequantize_int8": (n + n // block * 4 + n * 2, 2 * n),
             "quantize_int4": (n * 2 + n // 2 + n // 128 * 4, 6 * n),
             "dequantize_int4": (n // 2 + n // 128 * 4 + n * 2, 4 * n)}[name]
 
 
-def _time_codec(name, shape, floor_ms, behind=False) -> dict:
-    """Device, host and plain times of one codec kernel on bfloat16 at
-    ``shape``, with its bound and the launch floor measured beside it.
-    ``behind``: also the device time the call adds behind a PyTorch
-    elementwise kernel that rewrites its input in place (as the served path
-    runs it, after the layer that wrote the activation):
-    time(elementwise, then the call) - time(elementwise)."""
+def _codec_call(name, x, block=128) -> tuple:
+    """(the call, its plain version, its input) of one codec kernel on
+    ``x`` (bfloat16), the dequantising ones on ``x`` quantised."""
     bf = torch.bfloat16
-    x = _codec_input(shape, bf, 1)
-    q8, s8 = codec_ops.quantize(x)
-    q4, s4 = codec_ops.quantize_int4(x)
-    fn, plain, inp = {             # the call, its plain version, its input
-        "quantize_int8": (lambda: codec_ops.quantize(x),
-                          lambda: codec_ops.quantize_plain(x), x),
-        "dequantize_int8": (lambda: codec_ops.dequantize(q8, s8, bf),
-                            lambda: codec_ops.dequantize_plain(q8, s8, bf),
-                            q8),
-        "quantize_int4": (lambda: codec_ops.quantize_int4(x),
-                          lambda: codec_ops.quantize_int4_plain(x), x),
-        "dequantize_int4": (lambda: codec_ops.dequantize_int4(q4, s4, bf),
-                            lambda: codec_ops.dequantize_int4_plain(q4, s4,
-                                                                    bf), q4),
-    }[name]
-    nbytes, ops = _codec_bytes(name, x.numel())
+    if name == "quantize_int8":
+        return (lambda: codec_ops.quantize(x, block),
+                lambda: codec_ops.quantize_plain(x, block), x)
+    if name == "quantize_int4":
+        return (lambda: codec_ops.quantize_int4(x),
+                lambda: codec_ops.quantize_int4_plain(x), x)
+    if name == "dequantize_int8":
+        q, s = codec_ops.quantize(x, block)
+        return (lambda: codec_ops.dequantize(q, s, bf, block),
+                lambda: codec_ops.dequantize_plain(q, s, bf, block), q)
+    p, s = codec_ops.quantize_int4(x)
+    return (lambda: codec_ops.dequantize_int4(p, s, bf),
+            lambda: codec_ops.dequantize_int4_plain(p, s, bf), p)
+
+
+def _time_codec(name, shape, floor_ms, behind=False, block=128) -> dict:
+    """Device, host and plain times of one codec kernel on bfloat16 at
+    ``shape`` (int8 at ``block`` columns), with its bound and the launch
+    floor measured beside it.  ``behind``: also the device time the call
+    adds behind a PyTorch elementwise kernel that rewrites its input in
+    place (as the served path runs it, after the layer that wrote the
+    activation): time(elementwise, then the call) - time(elementwise)."""
+    x = _codec_input(shape, torch.bfloat16, 1)
+    fn, plain, inp = _codec_call(name, x, block)
+    nbytes, ops = _codec_bytes(name, x.numel(), block)
     b_ms, b_by = bound(nbytes, ops, torch.float32)
     rec = {"shape": list(shape), "dtype": "bfloat16", "ms": time_ms(fn),
            **host_times(fn), "plain_ms": time_ms(plain),
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
            "launch_floor_ms": floor_ms, "library_ms": None}
+    if block != 128:
+        rec["block"] = block
     if behind:
         pre = lambda: inp.add_(0)                          # noqa: E731
         pre_ms = time_ms(pre)
         rec["elementwise_ms"] = pre_ms
         rec["ms_behind_elementwise"] = time_ms(lambda: (pre(), fn())) - pre_ms
+    return rec
+
+
+def division_cost(name, shape) -> dict:
+    """What the rounding's division costs a quantise kernel
+    (int8 or int4) on bfloat16 at ``shape``, back to back: its time on
+    inputs where no element divides (``integers``), on the served random
+    input, and where every element but each block's abs-max divides
+    (``ties``); and the share of the random input's elements, and of its
+    warps (blocks, int8; tiles, int4), that divide, computed here from the
+    kernel's rule (a product RN(x * RN(1/s)) within the margin of a
+    half-integer)."""
+    qmax, margin, width = ((127, 2.0 ** -15, 128) if name.endswith("int8")
+                           else (7, 2.0 ** -18, 256))
+    rec = {"shape": list(shape), "dtype": "bfloat16"}
+    for case in ("integers", "zero_lo", "ties"):
+        x = _codec_input(shape, torch.bfloat16, 1, case, qmax)
+        rec[f"{case}_ms"] = time_ms(_codec_call(name, x)[0])
+    x = _codec_input(shape, torch.bfloat16, 1, "zero_lo", qmax)
+    s = _plain_scales(x, qmax)
+    y = x.float().reshape(*x.shape[:-1], -1, 128) * (1.0 / s[..., None])
+    near = ((y - torch.round(y)).abs() >= 0.5 - margin).reshape(-1, width)
+    rec["random_element_share"] = near.float().mean().item()
+    rec["random_warp_share"] = near.any(-1).float().mean().item()
     return rec
 
 
@@ -1107,12 +1215,16 @@ def codec_host_breakdown(shape) -> dict:
                               ("least", "host_ms_least"))}
 
 
-def codec_times(cfg, codec8, codec4) -> dict:
+def codec_times(cfg, lcfg, codec8, codec4) -> dict:
     """The four codec kernels at the main path's shape (273 rows of the
-    served VLA's width), bfloat16; B3/B4 also at the two-pool downlink's
-    one row and at 16 x 273 rows, each beside the launch floor: the device
+    served VLA's width), bfloat16, each beside the launch floor: the device
     time per call of an empty kernel (``torch.cuda._sleep(0)``) queued the
-    same way."""
+    same way.  Also at the other served shapes: B1/B2 at the two-pool
+    downlink (the action rows), ``serve_lm``'s cut (4 x 17 rows of
+    Llama-3.2-3B), ``serve_cli``'s 4 x 17 rows of 64 columns at block 64,
+    and 16 x 273 rows; B3/B4 at the two-pool downlink's one row and at
+    16 x 273 rows.  The quantise kernels add what their division costs
+    (``division_cost``)."""
     S_main, d = cfg.n_patches + 17, cfg.d_model
     floor_ms = time_ms(lambda: torch.cuda._sleep(0))
     rec = {}
@@ -1121,25 +1233,35 @@ def codec_times(cfg, codec8, codec4) -> dict:
         key = name.split("_")[0] + "_max_err"
         cases = codec8 if name.endswith("int8") else codec4
         served = [_time_codec(name, (1, S_main, d), floor_ms, behind=True)]
-        if name.endswith("int4"):
+        if name.endswith("int8"):
+            served += [
+                _time_codec(name, (1, cfg.action_dim, d), floor_ms),
+                _time_codec(name, (LM_MICRO_BATCH, LM_SEQ, lcfg.d_model),
+                            floor_ms),
+                _time_codec(name, (LM_MICRO_BATCH, LM_SEQ, 64), floor_ms,
+                            block=64),
+                _time_codec(name, (16, S_main, d), floor_ms)]
+        else:
             served += [_time_codec(name, (1, 1, d), floor_ms),
                        _time_codec(name, (16, S_main, d), floor_ms)]
         rec[name] = {"route": "cuda", "source": CODEC_SOURCE,
                      "replaces": "src/repro/kernels/activation_codec/"
                                  f"kernel.py:{CODEC_REPLACES[name]}",
                      **served[0],
-                     "max_abs_err": max(c[key] for c in cases)}
-        if len(served) > 1:
-            rec[name]["served"] = served
+                     "max_abs_err": max(c[key] for c in cases),
+                     "served": served}
+        if name.startswith("quantize"):
+            rec[name]["division"] = division_cost(name, (1, S_main, d))
     return rec
 
 
 def phase_codec(cfg, lcfg) -> dict:
     """``--codec-only``: B1-B4 alone — every int8 and int4 case against the
-    plain versions, the times at the served shapes with the launch floor,
-    and where the host time of an int4 call goes."""
+    plain versions, the times at the served shapes with the launch floor
+    and the division's cost, and where the host time of an int4 call
+    goes."""
     codec8, codec4 = codec_cases(cfg, lcfg)
-    rec = codec_times(cfg, codec8, codec4)
+    rec = codec_times(cfg, lcfg, codec8, codec4)
     info = {"phase": "codec", "src": _src_dir(), "codec_cases": codec8,
             "codec4_cases": codec4, "times": rec,
             "host_breakdown_us": codec_host_breakdown(
@@ -1159,7 +1281,7 @@ def phase_kernels(cfg, lcfg, mcfg, zcfg, pcfg) -> dict:
     ssd = ssd_cases(mcfg, zcfg)
 
     # ---- times at the main path's shapes
-    rec = codec_times(cfg, codec8, codec4)
+    rec = codec_times(cfg, lcfg, codec8, codec4)
     rec.update(attention_times(cfg, lcfg, zcfg, pcfg, attn_cases,
                                dec_cases))
     # Mamba2-1.3B's scan at batch 1 heads the summary; the other served

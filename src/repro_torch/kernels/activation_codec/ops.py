@@ -11,18 +11,20 @@ kernel.py``, with the CUDA kernels of ``csrc/activation_codec.cu``.  All
 four are bound by bytes on the card (each element read once and written
 once, a handful of operations each), and at the served size (273 x 4096,
 a few megabytes already in L2) a call lasts about as long as the card
-takes to start and drain a grid.  int8: one warp per (row, 128-column
-block).  int4 (redesigned for Hopper): one warp per (row, 256-column
-tile), launched as a programmatic dependent launch so that the grid is
-resident while the kernel ahead finishes, the block abs-max by one warp
-reduction over the float bits, no conversion instruction per element, and
-the rounding by a reciprocal product that takes the IEEE division only
-within 2^-18 of a half-integer or where a scale lies below FLT_MIN, which
-keeps it bit-equal to ``torch.round(x / s)`` (the argument is in the
-source's header).  On the host a call allocates its outputs with ``new_empty``
-(cheaper than ``torch.empty`` with a device) and reads the stream's raw
-handle (``_stream``): on the H100 machine the allocations and the
-``Stream`` object were the largest shares of a call's host time.
+takes to start and drain a grid.  Both codecs (redesigned for Hopper):
+one warp per (row, 128-column block) for int8 and per (row, 256-column
+tile) for int4, launched as programmatic dependent launches so that the
+grid is resident while the kernel ahead finishes, the block abs-max by one
+warp reduction over the float bits, no conversion instruction per element,
+and the rounding by a reciprocal product that takes the IEEE division only
+within a margin of a half-integer (2^-15 for int8, 2^-18 for int4), where
+a scale lies below FLT_MIN or in a block holding a NaN, which keeps it
+bit-equal to ``torch.round(x / s)`` for finite inputs (the argument, and
+what the kernels give for NaN and Inf, are in the source's header).  On
+the host a call allocates its outputs with ``new_empty`` (cheaper than
+``torch.empty`` with a device) and reads the stream's raw handle
+(``_stream``): on the H100 machine the allocations and the ``Stream``
+object were the largest shares of a call's host time.
 
 Dispatch is by where the tensor lies, nothing else: a CPU tensor takes the
 plain version (``quantize_plain`` / ``dequantize_plain`` /
