@@ -5,14 +5,15 @@
 
 Drives the port's main paths at full width and depth with random weights
 made from a seed — OpenVLA-7B and CogACT-7B action requests served by split
-co-inference (``repro_torch.runtime.partition.VLASplitExecutor``), the
+co-inference (``repro_torch.runtime.partition.VLASplitExecutor``), OpenVLA-7B
+requests through the temporal-delta transport (``DeltaTransport``), the
 paper's closed loop (``repro_torch.core.RoboECC``) choosing the cut and the
 codec of every CogACT request, Llama-3.2-3B prefill and greedy decode
 (``repro_torch.runtime.serving.greedy_generate``), Llama-3.2-3B requests
 served by split co-inference (``LMSplitExecutor``), prefill and greedy
 decode of Mamba2-1.3B (SSM), Zamba2-1.2B (hybrid) and phi3-mini-3.8b (head
-dim 96), and the port's serving entry point with the int8 codec at the
-reduced width of 64 columns — and holds every
+dim 96), the port's serving entry point with the int8 codec at the
+reduced width of 64 columns, and the paper's example scripts — and holds every
 hand-written kernel on those paths against its plain PyTorch version on the
 card.  Needs one card,
 ``nvcc`` and no network; the kernels are built from
@@ -26,7 +27,17 @@ Phases, one JSON line each:
   kernels       each kernel against its plain version at the main paths'
                 shapes and at awkward ones, with times
   serve         8 OpenVLA-7B int8 requests with the cut walking the pool,
-                one two-pool request, and the checks on what came out
+                one two-pool request, and the checks on what came out;
+                then 4 of them and the two-pool one again with a flight
+                recorder: two executor spans each, the same outputs and
+                launches, a Chrome trace written to build/ and read back
+  delta         OpenVLA-7B over a static and a dynamic scene, 24 action
+                steps each, through the temporal-delta transport (int8):
+                key and delta frames, the measured fraction of changed
+                rows at the cut against the scene's, bytes per step
+                against the plain int8 payload, exact codec launches,
+                encode and decode host walls, and the checks against the
+                plain codec, the wire accounting and the error bound
   serve_cogact  8 CogACT-7B packed-int4 requests walking the pool that
                 Alg. 1 places, one two-pool request with an int4 downlink,
                 the checks on what came out, stage times and profiles
@@ -54,6 +65,9 @@ Phases, one JSON line each:
   serve_cli     ``python -m repro_torch.launch.serve --codec --requests 4``
                 on the card: its reduced data plane (d_model 64) ships the
                 cut through the int8 codec at one 64-column block a row
+  examples      ``examples/quickstart_torch.py``, ``serve_vla_ecc_torch.py``
+                and ``multi_arch_segmentation_torch.py``, each as its own
+                process on the card, with their walls
 
 Every ``generate*`` phase also profiles one prefill by kernel family,
 holds the synchronised step loop's tokens equal to ``greedy_generate``'s,
@@ -87,6 +101,7 @@ import argparse
 import gc
 import io
 import json
+import math
 import os
 import re
 import statistics
@@ -110,12 +125,14 @@ def _src_dir() -> str:
 
 sys.path.insert(0, _src_dir())
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import core
 from repro_torch.configs import get_config
+from repro_torch.core.telemetry import FlightRecorder
 from repro_torch.kernels import _build
 from repro_torch.kernels.activation_codec import ops as codec_ops
 from repro_torch.kernels.activation_codec import ref as codec_ref
@@ -130,10 +147,12 @@ from repro_torch.models.ssm import ssd_step
 from repro_torch.models.transformer import lm_hidden, lm_logits
 from repro_torch.models.vla import vla_backbone
 from repro_torch.runtime.kvcache import cache_bytes
-from repro_torch.runtime.partition import (LMSplitExecutor, SplitPlan,
-                                           VLASplitExecutor,
-                                           decode_activation,
-                                           encode_activation, payload_bytes)
+from repro_torch.runtime.partition import (DeltaTransport, LMSplitExecutor,
+                                           SplitPlan, VLASplitExecutor,
+                                           decode_activation, delta_decode,
+                                           delta_encode, encode_activation,
+                                           payload_bytes)
+from repro_torch.runtime.trace_export import chrome_trace, export_chrome_trace
 from repro_torch.runtime.scheduler import MicroBatcher, Request
 from repro_torch.runtime.serving import (greedy_generate, make_serve_step,
                                          prefill_and_pad)
@@ -1560,16 +1579,58 @@ def profile_request(fn) -> dict:
                     for k, us, c in rows[:8]]}
 
 
-def phase_serve(cfg, n_requests: int = 8) -> dict:
+def setup_openvla(cfg) -> dict:
+    """OpenVLA-7B's parameters on the card, shared by ``serve`` and
+    ``delta``."""
     held_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     model = build(cfg)
     t0 = time.perf_counter()
     params = model.init(gen(SEED), DEV)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    peak_init = torch.cuda.max_memory_allocated()
-    n_params = sum(t.numel() for t in tree_leaves(params))
+    return {"cfg": cfg, "params": params,
+            "init_s": time.perf_counter() - t0,
+            "held_before": held_before,
+            "peak_init": torch.cuda.max_memory_allocated(),
+            "n_params": sum(t.numel() for t in tree_leaves(params))}
+
+
+def _span_checks(rec, n_before: int, wall_ms: float) -> list:
+    """The two spans one traced request adds: edge then cloud, on the
+    executor lanes, adjacent, together within the request's wall."""
+    groups = rec.spans.items[n_before:]
+    if len(groups) != 2 or any(len(g) != 1 for g in groups):
+        raise AssertionError(f"a traced request added {groups}")
+    (e,), (c,) = groups
+    if (e.name, e.lane, c.name, c.lane) != ("edge_fwd", "executor:edge",
+                                            "cloud_fwd", "executor:cloud") \
+            or {e.cat, c.cat} != {"executor"}:
+        raise AssertionError(f"executor spans {e}, {c}")
+    if not (e.dur_s >= 0.0 and c.dur_s >= 0.0 and c.t0_s >= e.t0_s
+            and abs(c.t0_s - (e.t0_s + e.dur_s)) <= 1e-9
+            and (e.dur_s + c.dur_s) * 1e3 <= wall_ms):
+        raise AssertionError(f"edge {e.dur_s} s + cloud {c.dur_s} s against "
+                             f"a request wall of {wall_ms} ms")
+    return [e.dur_s * 1e3, c.dur_s * 1e3]
+
+
+def _same_payload(a: dict, b: dict) -> bool:
+    """Byte equality of two payloads: tensors, a delta frame's numpy mask,
+    and the two legs of a two-pool run."""
+    def same(u, v):
+        if isinstance(u, dict):
+            return _same_payload(u, v)
+        if isinstance(u, np.ndarray):
+            return isinstance(v, np.ndarray) and u.dtype == v.dtype \
+                and np.array_equal(u, v)
+        return torch.equal(u, v)
+    return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+
+
+def phase_serve(st: dict, n_requests: int = 8) -> dict:
+    cfg, params = st["cfg"], st["params"]
+    held_before, init_s = st["held_before"], st["init_s"]
+    peak_init, n_params = st["peak_init"], st["n_params"]
 
     Lv, L = cfg.vit_layers, cfg.n_layers
     lo, hi = Lv + min(14, L - 1), Lv + min(18, L)
@@ -1592,7 +1653,7 @@ def phase_serve(cfg, n_requests: int = 8) -> dict:
 
     # ---- the main path: counts set to 0 just before, read just after
     requests = [request() for _ in range(n_requests)]
-    walls = []
+    walls, untraced = [], []
     _reset_counts()
     for (patches, tokens), cut in zip(requests, cuts):
         before = _counts()
@@ -1600,6 +1661,7 @@ def phase_serve(cfg, n_requests: int = 8) -> dict:
             lambda: ex.run(params, patches, tokens, cut))
         walls.append(ms)
         moved = _moved(before)
+        untraced.append((action, payload, moved))
         want = _want(L, "int8")
         if moved != want:
             raise AssertionError(f"launch counts moved by {moved} in one "
@@ -1665,6 +1727,34 @@ def phase_serve(cfg, n_requests: int = 8) -> dict:
             (1, cfg.action_dim, cfg.d_model)):
         raise AssertionError("downlink payload bytes")
 
+    # ---- executor spans: 4 of the requests and the two-pool one again, with
+    # a flight recorder; the same actions, payloads and launches as without
+    rec = FlightRecorder(mode="full")
+    traced = [(ex, requests[i], cuts[i], untraced[i]) for i in range(4)]
+    traced.append((ex2, (patches, tokens), cut, (a2, pay2, moved2)))
+    span_ms, traced_walls = [], []
+    for exr, (p_i, t_i), c_i, (a_i, pay_i, moved_i) in traced:
+        n_before = len(rec.spans.items)
+        before = _counts()
+        ms, (a_t, pay_t) = _wall_ms(
+            lambda: exr.run(params, p_i, t_i, c_i, recorder=rec))
+        if _moved(before) != moved_i or not torch.equal(a_t, a_i) \
+                or not _same_payload(pay_t, pay_i):
+            raise AssertionError("a traced request differs from the same "
+                                 "request without a recorder")
+        span_ms.append(_span_checks(rec, n_before, ms))
+        traced_walls.append(ms)
+    trace_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "build", "serve_executor.trace.json")
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    with open(export_chrome_trace(rec, trace_path)) as f:
+        loaded = json.load(f)
+    spans_x = [e for e in loaded["traceEvents"] if e["ph"] == "X"]
+    if loaded != json.loads(json.dumps(chrome_trace(rec))) \
+            or [e["name"] for e in spans_x] != ["edge_fwd", "cloud_fwd"] * 5:
+        raise AssertionError(f"Chrome trace {trace_path} read back as "
+                             f"{[e['name'] for e in spans_x]}")
+
     # ---- what the card has no kernel for raises, and launches nothing:
     # int4 at a width that is no multiple of 256 or at a block other than
     # 128 columns, an int8 block that does not divide the row, an unbuilt
@@ -1712,6 +1802,15 @@ def phase_serve(cfg, n_requests: int = 8) -> dict:
             "stage_wall_ms_median": {k: statistics.median(v)
                                      for k, v in stages.items()},
             "two_pool_request_wall_ms": ms2,
+            "executor_spans": {
+                "requests": "4 single-pool and the two-pool one, again with "
+                            "FlightRecorder(mode='full'): actions, payloads "
+                            "and launches equal to the untraced runs",
+                "edge_cloud_span_ms": span_ms,
+                "traced_request_wall_ms": traced_walls,
+                "chrome_trace": os.path.relpath(
+                    trace_path, os.path.dirname(os.path.abspath(__file__))),
+                "chrome_trace_events": len(loaded["traceEvents"])},
             "profile_one_request": prof,
             "payload_bytes": payload_bytes(payload),
             "downlink_payload_bytes": payload_bytes(pay2["down"]),
@@ -1724,6 +1823,344 @@ def phase_serve(cfg, n_requests: int = 8) -> dict:
                                for t in tree_leaves(params)),
             "peak_at_init_bytes": peak_init,
             "peak_memory_bytes": peak}
+    emit(info)
+    return info
+
+
+# =================================================================== delta
+# the reference's DeltaTransport defaults; 24 action steps a scene; the cut
+# after 16 LLM blocks lies inside serve's pool
+DELTA_SCENES, DELTA_STEPS = ("static", "dynamic"), 24
+DELTA_THRESHOLD, DELTA_RESYNC, DELTA_CUT = 0.02, 8, 16
+
+
+def _scene_images(cfg, scene: str, seed: int) -> list:
+    """``DELTA_STEPS`` images of one scene: each is the previous step's
+    with ``ceil(f_t * n_patches)`` patch rows redrawn, ``f_t`` the scene
+    trace's change fraction (``core.generate_scene_trace``)."""
+    frac = core.generate_scene_trace(DELTA_STEPS, core.SCENES[scene], seed)
+    g = gen(seed)
+    n = cfg.n_patches
+    patches = torch.randn((1, n, cfg.vit_dim), generator=g, device=DEV)
+    out = [(float(frac[0]), n, patches)]
+    for f in frac[1:]:
+        k = math.ceil(float(f) * n)
+        rows = torch.randperm(n, generator=g, device=DEV)[:k]
+        patches = patches.clone()
+        patches[:, rows] = torch.randn((1, k, cfg.vit_dim), generator=g,
+                                       device=DEV)
+        out.append((float(f), k, patches))
+    return out
+
+
+def _changed_rows(x, ref) -> torch.Tensor:
+    """The rows ``delta_encode`` counts as changed, by its own test."""
+    absmax = float(x.abs().max())
+    rowdiff = (x - ref.to(x.dtype)).abs().amax(dim=(0, 2))
+    return rowdiff > DELTA_THRESHOLD * absmax
+
+
+def _threshold_rounding_check() -> dict:
+    """On the card the change test compares in the activation's dtype, as
+    the JAX package's weak-typed scalar does: a row changed by exactly
+    bf16(0.0201 * max|x|) is not shipped in bf16, and is in float32."""
+    x = torch.zeros((1, 4, 256), device=DEV)
+    ref = torch.zeros_like(x)
+    x[0, 0, 0] = ref[0, 0, 0] = 1.0
+    x[0, 1, 5], x[0, 2, 5], x[0, 3, 5] = (v * 2.0 ** -13
+                                          for v in (165, 164, 166))
+    got = {}
+    for dtype, want in ((torch.bfloat16, [0, 0, 0, 1]),
+                        (torch.float32, [0, 1, 0, 1])):
+        payload, _, key = delta_encode(x.to(dtype), "int8", ref.to(dtype),
+                                       threshold=0.0201)
+        mask = [int(b) for b in np.unpackbits(payload["mask"])[:4]]
+        if key or mask != want:
+            raise AssertionError(f"{dtype}: change mask {mask}, expected "
+                                 f"{want} (the reference's)")
+        got[str(dtype).split(".")[-1]] = mask
+    return got
+
+
+def _delta_launches(tried: bool, key: bool, n_changed) -> tuple:
+    """(quantise, dequantise) launches of one ``DeltaTransport.step``: a
+    tried delta encodes its changed rows (none when no row changed, the
+    wrappers return before a launch on an empty tensor), a key frame
+    encodes the whole activation, and the reconstruction decodes what was
+    shipped."""
+    return (int(tried and n_changed > 0) + int(key),
+            int(key or n_changed > 0))
+
+
+def delta_mixing(cfg, params, tokens, images: list) -> dict:
+    """Where the static scene's change spreads: the fraction of image and
+    text rows over the threshold between its first two steps, right after
+    the ViT (no LLM block on the edge) and at the delta path's cut."""
+    Lv, L = cfg.vit_layers, cfg.n_layers
+    ex = VLASplitExecutor(cfg, SplitPlan(Lv, Lv + L))
+    n = cfg.n_patches
+    out = {"patch_rows_redrawn": images[1][1], "n_patches": n}
+    for depth in (0, min(DELTA_CUT, L)):
+        x0, x1 = (ex._edge_hidden(params, img[2], tokens, Lv + depth)
+                  for img in images[:2])
+        changed = _changed_rows(x1, x0).float()
+        out[f"llm_blocks_{depth}"] = {
+            "image_rows_changed": changed[:n].mean().item(),
+            "text_rows_changed": changed[n:].mean().item()}
+    return out
+
+
+def delta_replan(cfg, scenes: dict) -> dict:
+    """The planner's side of each scene: ``RoboECC`` planned with a delta
+    codec priced at the scene's mean change fraction, then told the
+    fraction measured at the cut (``observe_change_frac``)."""
+    out = {}
+    for name, sc in scenes.items():
+        d0 = core.make_delta_codec(change_frac=sc["scene_frac_mean"],
+                                   resync_every=DELTA_RESYNC,
+                                   threshold=DELTA_THRESHOLD,
+                                   row_elems=cfg.d_model)
+        ctl = core.RoboECC(get_config(cfg.name), core.ORIN, core.A100,
+                           cloud_budget_bytes=12.1e9, nominal_bw_bps=1e6,
+                           codec=d0, adjust_codecs=[d0, "identity", "int8"])
+        before = (ctl.seg.split, ctl.codec.bytes_per_elem)
+        replanned = ctl.observe_change_frac(sc["changed_frac_at_cut_mean"],
+                                            nominal_bw_bps=1e6)
+        out[name] = {"priced_change_frac": d0.change_frac,
+                     "measured_change_frac": sc["changed_frac_at_cut_mean"],
+                     "replanned": replanned,
+                     "split_before_after": [before[0], ctl.seg.split],
+                     "bytes_per_elem_before_after": [before[1],
+                                                     ctl.codec.bytes_per_elem]}
+    return out
+
+
+def delta_frames_check(S: int, D: int) -> dict:
+    """Delta frames on the card, beside the main path (whose cut rows all
+    change, so it ships key frames only): a stream at the cut's shape in
+    which about a fifth of the rows move for 7 steps and then none, through
+    one ``DeltaTransport`` on the card and one on the CPU (the plain
+    codec).  Payloads byte-equal, reconstructions equal, exact launches on
+    the card (none for a frame with no changed row), and the host walls of
+    a delta frame."""
+    g = torch.Generator().manual_seed(SEED + 45)
+    x = torch.randn((1, S, D), generator=g).to(torch.bfloat16)
+    frames = [x]
+    for t in range(11):
+        x = x.clone()
+        if t < 7:
+            rows = torch.rand(S, generator=g) < 0.2
+            x[0, rows] += (0.5 * torch.randn((int(rows.sum()), D),
+                                             generator=g)).to(x.dtype)
+        frames.append(x)
+    trs = [DeltaTransport("int8", threshold=DELTA_THRESHOLD,
+                          resync_every=DELTA_RESYNC) for _ in range(2)]
+    steps = []
+    for t, f in enumerate(frames):
+        fd = f.to(DEV)
+        ref = trs[0]._ref.get(0)
+        tried = ref is not None and trs[0]._ssk[0] + 1 < DELTA_RESYNC
+        n_changed = int(_changed_rows(fd, ref).sum()) if ref is not None \
+            else None
+        before = _counts()
+        enc_ms, (pay, recon, key) = _wall_ms(lambda: trs[0].step(0, fd))
+        moved = _moved(before)
+        pay_cpu, recon_cpu, key_cpu = trs[1].step(0, f)
+        q, dq = _delta_launches(tried, key, n_changed)
+        want = dict.fromkeys(WRAPPERS, 0)
+        want["quantize_int8"], want["dequantize_int8"] = q, dq
+        on_host = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                   for k, v in pay.items()}
+        if key != key_cpu or moved != want \
+                or not _same_payload(on_host, pay_cpu) \
+                or not torch.equal(recon.cpu(), recon_cpu):
+            raise AssertionError(f"delta frame {t} on the card: key {key} / "
+                                 f"{key_cpu}, launches {moved} against "
+                                 f"{want}, or payloads differ from the CPU")
+        dec_ms, back = _wall_ms(lambda: delta_decode(pay, ref, fd.dtype))
+        if not torch.equal(back, recon):
+            raise AssertionError(f"delta frame {t}: delta_decode differs")
+        steps.append({"key": key, "changed_rows": n_changed,
+                      "wire_bytes": payload_bytes(pay), "encode_ms": enc_ms,
+                      "decode_ms": dec_ms, "quantize_int8": q,
+                      "dequantize_int8": dq})
+    delta = [r for r in steps if not r["key"]]
+    if not (any(r["changed_rows"] for r in delta)
+            and any(r["changed_rows"] == 0 for r in delta)):
+        raise AssertionError(f"the stream did not give both kinds of delta "
+                             f"frame: {steps}")
+    return {"shape": [1, S, D], "dtype": "bfloat16",
+            "compared_with": "the same stream through DeltaTransport on the "
+                             "CPU: payloads byte-equal",
+            "steps": steps}
+
+
+def phase_delta(st: dict) -> dict:
+    """OpenVLA-7B requests over a static and a dynamic scene through the
+    temporal-delta transport (int8 base codec): the edge forward to the
+    raw cut activation, ``DeltaTransport.step``, the cloud forward from the
+    reconstruction.  Counts are set to 0 before the two scenes and read
+    after; then every frame is checked against the plain codec, the
+    reference's wire accounting and error bound, and each key frame's
+    action against ``VLASplitExecutor.run`` on the same request."""
+    cfg, params = st["cfg"], st["params"]
+    Lv, L = cfg.vit_layers, cfg.n_layers
+    cut = Lv + min(DELTA_CUT, L)
+    ex = VLASplitExecutor(cfg, SplitPlan(Lv + min(14, L - 1),
+                                         Lv + min(18, L), codec="int8"))
+    S = cfg.n_patches + 17
+    tokens = torch.randint(0, cfg.vocab_size, (1, 17), generator=gen(SEED + 40),
+                           device=DEV)
+    scenes = {name: _scene_images(cfg, name, SEED + 41 + i)
+              for i, name in enumerate(DELTA_SCENES)}
+    ex.run(params, scenes["static"][0][2], tokens, cut)          # warm-up
+    torch.cuda.synchronize()
+
+    # ---- the main path: counts set to 0 just before, read just after
+    frames = {name: [] for name in DELTA_SCENES}
+    transports = {}
+    _reset_counts()
+    for name in DELTA_SCENES:
+        tr = transports[name] = DeltaTransport(
+            "int8", threshold=DELTA_THRESHOLD, resync_every=DELTA_RESYNC)
+        x_prev = None
+        for f, k, patches in scenes[name]:
+            ref = tr._ref.get(0)
+            tried = ref is not None and tr._ssk[0] + 1 < DELTA_RESYNC
+            before = _counts()
+            edge_ms, x = _wall_ms(
+                lambda: ex._edge_hidden(params, patches, tokens, cut))
+            enc_ms, (payload, recon, key) = _wall_ms(lambda: tr.step(0, x))
+            cloud_ms, action = _wall_ms(lambda: ex._action_decode(
+                params, ex._cloud_hidden(params, recon, cut), None))
+            moved = _moved(before)
+            n_changed = int(_changed_rows(x, ref).sum()) if ref is not None \
+                else None
+            want = _want(L)
+            want["quantize_int8"], want["dequantize_int8"] = \
+                _delta_launches(tried, key, n_changed)
+            if moved != want:
+                raise AssertionError(f"{name}: a step moved the counts by "
+                                     f"{moved}, expected {want}")
+            _check_action(cfg, action)
+            rows_moved = None if x_prev is None else int(
+                (x != x_prev).any(dim=2).sum())
+            frames[name].append(dict(
+                scene_frac=f, patch_rows=k, x=x, ref=ref, payload=payload,
+                recon=recon, key=key, tried=tried, n_changed=n_changed,
+                rows_moved=rows_moved, patches=patches, action=action,
+                edge_ms=edge_ms, encode_ms=enc_ms, cloud_ms=cloud_ms,
+                q=moved["quantize_int8"], dq=moved["dequantize_int8"]))
+            x_prev = x
+    launches = _counts()
+
+    # ---- the checks, after the counts were read
+    err_bound = core.CODECS["int8"].err_bound
+    plain_bytes = payload_bytes(encode_activation(frames["static"][0]["x"],
+                                                  "int8"))
+    out = {}
+    for name in DELTA_SCENES:
+        steps = []
+        for t, fr in enumerate(frames[name]):
+            x, payload, ref, recon = (fr["x"], fr["payload"], fr["ref"],
+                                      fr["recon"])
+            plain_ms, plain = _wall_ms(lambda: encode_activation(x, "int8"))
+            if fr["key"]:
+                if not _same_payload(payload, plain):
+                    raise AssertionError(f"{name} step {t}: key frame is not "
+                                         "the plain int8 payload")
+                a_run, pay_run = ex.run(params, fr["patches"], tokens, cut)
+                if not torch.equal(a_run, fr["action"]) \
+                        or not _same_payload(pay_run, payload):
+                    raise AssertionError(f"{name} step {t}: the key frame's "
+                                         "action is not VLASplitExecutor.run's")
+            else:
+                mask = payload["mask"]
+                changed = np.unpackbits(mask)[:S].astype(bool)
+                idx = np.flatnonzero(changed)
+                body = encode_activation(
+                    x[:, torch.from_numpy(idx).to(DEV), :], "int8")
+                if payload_bytes(payload) != mask.nbytes + payload_bytes(body) \
+                        or not _same_payload(
+                            {k: v for k, v in payload.items() if k != "mask"},
+                            body) or len(idx) != fr["n_changed"]:
+                    raise AssertionError(f"{name} step {t}: delta payload is "
+                                         "not the mask and the changed rows")
+                card = _changed_rows(x, ref).cpu().numpy()
+                cpu = _changed_rows(x.cpu(), ref.cpu()).numpy()
+                if not (np.array_equal(card, changed)
+                        and np.array_equal(cpu, changed)):
+                    raise AssertionError(f"{name} step {t}: the change mask "
+                                         "differs between the card and the CPU")
+            dec_ms, back = _wall_ms(lambda: delta_decode(payload, ref,
+                                                         x.dtype))
+            if not torch.equal(back, recon):
+                raise AssertionError(f"{name} step {t}: new_ref is not "
+                                     "delta_decode(payload, ref)")
+            xf = x.float()
+            lim = (err_bound + (0.0 if fr["key"] else DELTA_THRESHOLD)) \
+                * xf.abs().max().item()
+            err = (recon.float() - xf).abs().max().item()
+            if err > lim:
+                raise AssertionError(f"{name} step {t}: reconstruction error "
+                                     f"{err} over {lim}")
+            rel = None
+            if ref is not None:
+                rel = ((x - ref.to(x.dtype)).abs().amax(dim=(0, 2)).float()
+                       / xf.abs().max()).cpu()
+            steps.append({
+                "key": fr["key"], "scene_frac": fr["scene_frac"],
+                "row_change_over_max_min_median": None if rel is None
+                else [rel.min().item(), rel.median().item()],
+                "patch_rows_redrawn": fr["patch_rows"],
+                "changed_frac_at_cut": None if fr["n_changed"] is None
+                else fr["n_changed"] / S,
+                "moved_frac_at_cut": None if fr["rows_moved"] is None
+                else fr["rows_moved"] / S,
+                "wire_bytes": payload_bytes(payload),
+                "quantize_int8": fr["q"], "dequantize_int8": fr["dq"],
+                "recon_max_err": err, "err_limit": lim,
+                "edge_ms": fr["edge_ms"], "encode_ms": fr["encode_ms"],
+                "plain_encode_ms": plain_ms, "decode_ms": dec_ms,
+                "cloud_ms": fr["cloud_ms"]})
+        tr = transports[name]
+        wire = [r["wire_bytes"] for r in steps]
+        fracs = [r["scene_frac"] for r in steps]
+        measured = [r["changed_frac_at_cut"] for r in steps[1:]]
+        planner = core.make_delta_codec(change_frac=statistics.mean(fracs),
+                                        resync_every=DELTA_RESYNC,
+                                        threshold=DELTA_THRESHOLD,
+                                        row_elems=cfg.d_model)
+        out[name] = {
+            "keyframes": tr.n_keyframes, "delta_frames": tr.n_delta_frames,
+            "wire_bytes_total": sum(wire),
+            "plain_int8_bytes_total": plain_bytes * len(wire),
+            "wire_over_plain": sum(wire) / (plain_bytes * len(wire)),
+            "scene_frac_mean": statistics.mean(fracs),
+            "changed_frac_at_cut_mean": statistics.mean(measured),
+            "moved_frac_at_cut_mean": statistics.mean(
+                r["moved_frac_at_cut"] for r in steps[1:]),
+            "planner_bytes_per_step": planner.bytes_per_elem * S
+            * cfg.d_model,
+            "measured_bytes_per_step": statistics.mean(wire),
+            "quantize_int8": sum(r["quantize_int8"] for r in steps),
+            "dequantize_int8": sum(r["dequantize_int8"] for r in steps),
+            "median_ms": {k: statistics.median(r[k] for r in steps)
+                          for k in ("edge_ms", "encode_ms",
+                                    "plain_encode_ms", "decode_ms",
+                                    "cloud_ms")},
+            "steps": steps}
+    info = {"phase": "delta", "model": cfg.name, "cut": cut, "seq": S,
+            "dtype": cfg.dtype, "base_codec": "int8",
+            "threshold": DELTA_THRESHOLD, "resync_every": DELTA_RESYNC,
+            "steps_per_scene": DELTA_STEPS,
+            "plain_int8_bytes_per_step": plain_bytes,
+            "threshold_rounding": _threshold_rounding_check(),
+            "scenes": out,
+            "mixing": delta_mixing(cfg, params, tokens, scenes["static"]),
+            "planner": delta_replan(cfg, out),
+            "delta_frames_on_the_card": delta_frames_check(S, cfg.d_model),
+            "launches": launches}
     emit(info)
     return info
 
@@ -2575,6 +3012,41 @@ def phase_serve_cli(n_requests: int = 4) -> dict:
     return info
 
 
+# ================================================================ examples
+# the paper's example scripts on the port that use the card; the numpy-only
+# multi_arch_segmentation prints what the reference script prints, which
+# ends with its closing line rather than "OK"
+EXAMPLES = {"quickstart_torch.py": "OK",
+            "serve_vla_ecc_torch.py": "OK",
+            "multi_arch_segmentation_torch.py":
+                "(all 12 architectures segmented by the same Alg.1 + "
+                "Eq.1/Eq.2 models; DESIGN.md §4)"}
+
+
+def phase_examples() -> dict:
+    """Each example as its own process on the card, over the same
+    ``repro_torch``; fails unless it exits 0 with its last line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": _src_dir()}
+    runs = {}
+    for name, last in EXAMPLES.items():
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable,
+                              os.path.join(root, "examples", name)],
+                             cwd=root, env=env, capture_output=True,
+                             text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        lines = out.stdout.splitlines()
+        if out.returncode != 0 or not lines or lines[-1] != last:
+            raise AssertionError(f"examples/{name} exited {out.returncode} "
+                                 f"after {lines[-3:]}: {out.stderr[-2000:]}")
+        runs[name] = {"wall_s": wall, "lines": len(lines),
+                      "tail": lines[-4:]}
+    info = {"phase": "examples", "runs": runs}
+    emit(info)
+    return info
+
+
 # ==================================================================== main
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2626,7 +3098,10 @@ def main() -> None:
                             get_config("mamba2-1.3b"),
                             get_config("zamba2-1.2b"),
                             get_config("phi3-mini-3.8b"))
-    runs = {"serve": phase_serve(cfg)["launches"]}
+    ost = setup_openvla(cfg)
+    runs = {"serve": phase_serve(ost)["launches"]}
+    runs["delta"] = phase_delta(ost)["launches"]
+    del ost
     gc.collect()                    # the OpenVLA parameters go before CogACT
     torch.cuda.empty_cache()
     cst = setup_cogact(cogact)
@@ -2656,6 +3131,9 @@ def main() -> None:
         st, "generate_phi3", steps=PHI3_STEPS, batches=(1,),
         f32_check=True)["launches"]
     del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_examples()
 
     print(env["nvidia_smi"], flush=True)
     summary = []

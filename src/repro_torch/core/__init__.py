@@ -15,11 +15,12 @@ rewritten in PyTorch:
 * pool.py         — parameter-sharing pool
 * adjustment.py   — ΔNB / T_high / T_low fine-grained adjustment
 * network.py      — bandwidth trace simulator
+* scene.py        — scene-dynamics trace simulator (per-step token
+                    change fractions for the temporal-delta codec)
+* telemetry.py    — flight recorder: spans, streaming metrics, drift
+                    audit (standard library only)
 * pipeline.py     — streamed chunk-transport makespan model
 * controller.py   — end-to-end RoboECC controller
-
-``scene.py`` and ``telemetry.py`` of the reference are not carried yet:
-the controller does not import them.
 """
 from .adjustment import (AdjustmentDecision, PlacementDecision, Thresholds,
                          adjust, adjust_placement, calibrate_thresholds)
@@ -30,6 +31,8 @@ from .hardware import (A100, DEVICES, ORIN, THOR, TPU_V5E, DeviceSpec,
                        RooflineTerms, fit_eta, layer_latency, roofline,
                        stack_latency)
 from .network import NetworkSim, TraceConfig, generate_trace
+from .scene import (SCENES, SceneConfig, generate_scene_matrix,
+                    generate_scene_trace, scene_config)
 from .pipeline import (DEFAULT_CHUNK_GRID, chunk_sizes, stream_applies,
                        stream_bubble_fraction, stream_makespan,
                        stream_makespan_scalar)
@@ -59,6 +62,8 @@ __all__ = [
     "A100", "DEVICES", "ORIN", "THOR", "TPU_V5E", "DeviceSpec",
     "RooflineTerms", "fit_eta", "layer_latency", "roofline", "stack_latency",
     "NetworkSim", "TraceConfig", "generate_trace",
+    "SCENES", "SceneConfig", "generate_scene_matrix", "generate_scene_trace",
+    "scene_config",
     "DEFAULT_CHUNK_GRID", "chunk_sizes", "stream_applies",
     "stream_bubble_fraction", "stream_makespan", "stream_makespan_scalar",
     "PlacementPlan",

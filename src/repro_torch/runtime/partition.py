@@ -26,18 +26,38 @@ parameter tree, as in the JAX package.  On the card both codecs launch
 their hand-written kernels (int8: ``quantize`` / ``dequantize``; packed
 int4: ``quantize_int4`` / ``dequantize_int4``); int4 at a width that is no
 multiple of 256 raises here, before any kernel.  ``LMSplitExecutor``
-serves the dense family (MoE raises until its blocks are ported); the
-temporal-delta transport is not ported yet.
+serves the dense family (MoE raises until its blocks are ported).
+
+Temporal-delta transport (``core/codec.DeltaCodec``): ``delta_encode``
+ships only the token rows whose activation changed since the previous
+step against a cloud-side *reference* copy, plus a packed one-bit change
+mask (a numpy ``uint8`` array, as in the JAX package, so payloads compare
+byte for byte); every R-th frame is a full key frame, byte-identical to
+the plain ``encode_activation`` payload, that resyncs the reference.
+``DeltaTransport`` keeps the per-robot references, with bytes accounted
+against an optional budget in ``runtime.kvcache.ReferenceLedger``; an
+evicted robot's next frame is forced back to a key frame.  These run on
+the host around the forwards: the abs-max and the change mask are each
+read back from the device (two syncs a delta frame), and the changed rows
+go through the same codec kernels as a plain payload.
+
+Both executors take an optional ``core.telemetry.FlightRecorder``: with
+one, ``run`` synchronises the device at the cut and at the end and
+records two wall-clock spans on the ``executor:edge`` and
+``executor:cloud`` lanes; without one it neither syncs nor reads a clock.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import require_device, to_dtype
+from ..core.telemetry import Span
 from ..kernels.activation_codec import ops as codec
 from ..models import transformer as T
 from ..models import vla as V
@@ -46,6 +66,23 @@ from ..models.sharding import tree_leaves, tree_map
 from ..models.transformer import block_forward, _layer_slice
 
 Tree = Any
+
+
+def _record_exec_spans(recorder, t0: float, t1: float, t2: float) -> None:
+    """Two wall-clock spans — edge forward, then cloud forward (+ edge
+    tail for two-pool plans) — on the ``executor:*`` lanes.  Host
+    ``perf_counter`` time, so the trace mixes with the simulator's model
+    time only by lane, never by clock."""
+    recorder.record_span(Span(name="edge_fwd", cat="executor", t0_s=t0,
+                              dur_s=t1 - t0, lane="executor:edge"))
+    recorder.record_span(Span(name="cloud_fwd", cat="executor", t0_s=t1,
+                              dur_s=t2 - t1, lane="executor:cloud"))
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device's queued work (the card; nothing on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def chunk_sizes(total: int, n_chunks: int) -> Sequence[int]:
@@ -169,8 +206,11 @@ def decode_activation(payload: Dict, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def payload_bytes(payload: Dict) -> int:
-    return sum(v.numel() * v.element_size() for v in payload.values()
-               if isinstance(v, torch.Tensor))
+    """Wire bytes of every array in ``payload``: the tensors and the numpy
+    change mask of a delta frame alike."""
+    return sum(v.numel() * v.element_size() if isinstance(v, torch.Tensor)
+               else v.nbytes for v in payload.values()
+               if isinstance(v, (torch.Tensor, np.ndarray)))
 
 
 def chunk_payload(payload: Dict, n_chunks: int) -> List[Dict]:
@@ -197,11 +237,130 @@ def merge_chunks(chunks: List[Dict]) -> Dict:
     return {k: torch.cat([c[k] for c in chunks], dim=1) for k in chunks[0]}
 
 
-def _check_recorder(recorder) -> None:
-    if recorder is not None:
-        raise NotImplementedError(
-            "executor spans need the flight recorder, which is not "
-            "ported yet; pass recorder=None")
+# ------------------------------------------------- temporal-delta transport
+def delta_encode(x: torch.Tensor, base_codec: str,
+                 ref: Optional[torch.Tensor] = None, *,
+                 threshold: float = 0.02, resync_every: int = 8,
+                 steps_since_key: int = 0
+                 ) -> Tuple[Dict, torch.Tensor, bool]:
+    """Encode ``x`` against the reference ``ref`` from the previous step.
+
+    Returns ``(payload, new_ref, is_keyframe)``.  Key frames (``ref`` is
+    ``None``, ``resync_every <= 1``, the resync cadence fires, or the
+    delta would be at least as large as a full frame) produce a payload
+    **byte-identical** to ``encode_activation(x, base_codec)`` and reset
+    the reference.  Delta frames ship a packed one-bit change mask over the
+    token rows (axis 1) plus the base-codec encoding of just the changed
+    rows; a row counts as changed when ``max|x - ref|`` over that row
+    exceeds ``threshold * max|x|``, compared in ``x``'s dtype.
+    ``new_ref`` is the cloud-side reconstruction (``delta_decode`` of the
+    payload): both tiers update their reference from the *shipped* bytes.
+
+    Unsent rows satisfy ``|x - ref| <= threshold * max|x|`` at *this*
+    step by construction; ``DeltaCodec.err_bound`` is the planner's
+    envelope of that over a key-frame cycle.  Host-side: the abs-max and
+    the change mask are read back from the device."""
+    is_key = (ref is None or int(resync_every) <= 1
+              or int(steps_since_key) + 1 >= int(resync_every))
+    if not is_key:
+        absmax = float(x.abs().max())
+        rowdiff = (x - ref.to(x.dtype)).abs().amax(dim=(0, 2))
+        changed = (rowdiff > threshold * absmax).cpu().numpy()
+        idx = np.flatnonzero(changed)
+        S = x.shape[1]
+        body = encode_activation(
+            x[:, torch.from_numpy(idx).to(x.device), :], base_codec)
+        mask = np.packbits(changed)
+        # encoded bytes are linear in the token count (per-row block
+        # scales, no cross-token state), so the full-frame size follows
+        # from the changed-rows size without encoding twice
+        if idx.size and mask.nbytes + payload_bytes(body) \
+                >= payload_bytes(body) * (S / idx.size):
+            is_key = True       # delta no smaller than a key frame
+        else:
+            payload = {"mask": mask, **body}
+            new_ref = delta_decode(payload, ref, x.dtype)
+            return payload, new_ref, False
+    payload = encode_activation(x, base_codec)
+    return payload, decode_activation(payload, x.dtype), True
+
+
+def delta_decode(payload: Dict, ref: Optional[torch.Tensor] = None,
+                 dtype=torch.bfloat16) -> torch.Tensor:
+    """Reconstruct the full cut activation from a ``delta_encode``
+    payload.  Key-frame payloads (no ``"mask"`` key) decode standalone;
+    delta payloads scatter the decoded changed rows into a copy of
+    ``ref``."""
+    if "mask" not in payload:
+        return decode_activation(payload, dtype)
+    if ref is None:
+        raise ValueError("delta payload needs the reference activation "
+                         "(reference evicted? force a key frame)")
+    S = ref.shape[1]
+    changed = np.unpackbits(np.asarray(payload["mask"]),
+                            count=S).astype(bool)
+    idx = np.flatnonzero(changed)
+    out = ref.to(to_dtype(dtype), copy=True)
+    if idx.size:
+        body = {k: v for k, v in payload.items() if k != "mask"}
+        out[:, torch.from_numpy(idx).to(out.device), :] = \
+            decode_activation(body, dtype)
+    return out
+
+
+class DeltaTransport:
+    """Per-robot temporal-delta transport state.
+
+    One instance simulates both tiers of the delta channel for a fleet:
+    the per-robot reference activation (the cloud-side copy the edge
+    mirrors bit-exactly, since both update from the shipped bytes), the
+    steps-since-keyframe counter that drives the resync cadence, and the
+    ``ReferenceLedger`` byte accounting that makes references compete with
+    the KV budget.  When a ``put`` overflows the budget the stalest robots'
+    references are evicted and their next ``step`` is forced onto a key
+    frame."""
+
+    def __init__(self, base_codec: str = "int8", *,
+                 threshold: float = 0.02, resync_every: int = 8,
+                 budget_bytes: Optional[float] = None):
+        from .kvcache import ReferenceLedger
+        self.base_codec = base_codec
+        self.threshold = threshold
+        self.resync_every = int(resync_every)
+        self.ledger = ReferenceLedger(budget_bytes)
+        self._ref: Dict[int, torch.Tensor] = {}
+        self._ssk: Dict[int, int] = {}
+        self.n_keyframes = 0
+        self.n_delta_frames = 0
+        self.n_evictions = 0
+
+    def step(self, robot_id: int, x: torch.Tensor
+             ) -> Tuple[Dict, torch.Tensor, bool]:
+        """Encode ``x`` for ``robot_id`` and return
+        ``(payload, reconstruction, is_keyframe)`` — the reconstruction
+        is what the cloud decodes (and the next step's reference)."""
+        payload, new_ref, is_key = delta_encode(
+            x, self.base_codec, self._ref.get(robot_id),
+            threshold=self.threshold, resync_every=self.resync_every,
+            steps_since_key=self._ssk.get(robot_id, 0))
+        self._ref[robot_id] = new_ref
+        self._ssk[robot_id] = 0 if is_key else self._ssk[robot_id] + 1
+        if is_key:
+            self.n_keyframes += 1
+        else:
+            self.n_delta_frames += 1
+        for k in self.ledger.put(robot_id,
+                                 new_ref.numel() * new_ref.element_size()):
+            self.evict(k)
+            self.n_evictions += 1
+        return payload, new_ref, is_key
+
+    def evict(self, robot_id: int) -> None:
+        """Drop ``robot_id``'s reference; its next frame is a forced
+        key frame."""
+        self._ref.pop(robot_id, None)
+        self._ssk.pop(robot_id, None)
+        self.ledger.drop(robot_id)
 
 
 def _check_device(device: torch.device, **tensors) -> None:
@@ -329,12 +488,22 @@ class LMSplitExecutor:
         """One co-inference.  Single-pool plans return
         ``(logits, uplink_payload)``; two-pool plans take the second cut
         ``split2`` and return ``(logits, {"up": ..., "down": ...})`` — the
-        logits computed on the edge tail."""
-        _check_recorder(recorder)
+        logits computed on the edge tail.  With a ``FlightRecorder``
+        passed as ``recorder``, emits wall-clock edge/cloud spans (syncs
+        the device at the cut, so only pass one when tracing)."""
         _check_device(self.device, tokens=tokens)
         split = self.plan.clamp(split)
+        t0 = time.perf_counter() if recorder is not None else 0.0
         payload = self._edge_fwd(params, tokens, split)
-        return self._finish(params, payload, payload, split, split2)
+        t1 = 0.0
+        if recorder is not None:
+            _sync(self.device)
+            t1 = time.perf_counter()
+        out = self._finish(params, payload, payload, split, split2)
+        if recorder is not None:
+            _sync(self.device)
+            _record_exec_spans(recorder, t0, t1, time.perf_counter())
+        return out
 
     @torch.no_grad()
     def run_streamed(self, params, tokens, split: int, n_chunks: int,
@@ -499,8 +668,7 @@ class VLASplitExecutor:
         return self._action_decode(params, x, noise)
 
     # -- public API
-    def _prepare(self, patches, tokens, noise, generator, recorder):
-        _check_recorder(recorder)
+    def _prepare(self, patches, tokens, noise, generator):
         _check_device(self.device, patches=patches, tokens=tokens)
         if self.cfg.vla_action_head == "dit" and noise is None:
             noise = V.draw_noise(self.cfg, patches.shape[0], patches.device,
@@ -527,11 +695,21 @@ class VLASplitExecutor:
         ``(action, uplink_payload)``; two-pool plans take the second cut
         ``split2`` and return ``(action, {"up": ..., "down": ...})`` with
         the action decoded on the edge tail.  ``noise`` is the DiT's
-        initial draw (made from ``generator`` when left out)."""
-        noise = self._prepare(patches, tokens, noise, generator, recorder)
+        initial draw (made from ``generator`` when left out).
+        ``recorder`` as in ``LMSplitExecutor.run``."""
+        noise = self._prepare(patches, tokens, noise, generator)
         split = self.plan.clamp(split)
+        t0 = time.perf_counter() if recorder is not None else 0.0
         payload = self._edge_fwd(params, patches, tokens, split)
-        return self._finish(params, payload, payload, split, split2, noise)
+        t1 = 0.0
+        if recorder is not None:
+            _sync(self.device)
+            t1 = time.perf_counter()
+        out = self._finish(params, payload, payload, split, split2, noise)
+        if recorder is not None:
+            _sync(self.device)
+            _record_exec_spans(recorder, t0, t1, time.perf_counter())
+        return out
 
     @torch.no_grad()
     def run_streamed(self, params, patches, tokens, split: int,
@@ -541,7 +719,7 @@ class VLASplitExecutor:
         """One co-inference with the uplink payload shipped in
         ``n_chunks`` token-axis chunk slices; the small downlink tail never
         streams.  Actions are bit-identical to ``run``."""
-        noise = self._prepare(patches, tokens, noise, generator, None)
+        noise = self._prepare(patches, tokens, noise, generator)
         split = self.plan.clamp(split)
         payload = self._edge_fwd(params, patches, tokens, split)
         chunks = chunk_payload(payload, n_chunks)

@@ -50,3 +50,38 @@ def both_params(model_jax, model_torch, seed: int = 0, fill_zeros=False):
             lambda a, p: jnp.asarray(a).astype(p.dtype), np_tree, params)
     tparams = from_numpy_tree(np_tree, "cpu", specs=model_torch.param_specs)
     return params, tparams
+
+
+def to_port(value):
+    """A value of the JAX package's carried numpy modules (a dataclass of
+    ``repro.*`` such as ``FleetConfig``, ``TraceConfig``, ``DeviceSpec``,
+    ``DeltaCodec``, or a sequence of them) rebuilt as the port's class of
+    the same name in the same module, field by field."""
+    import dataclasses
+    import importlib
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        cls = type(value)
+        mod = importlib.import_module(
+            cls.__module__.replace("repro.", "repro_torch.", 1))
+        return getattr(mod, cls.__name__)(**{
+            f.name: to_port(getattr(value, f.name))
+            for f in dataclasses.fields(value) if f.init})
+    if isinstance(value, (list, tuple)):
+        return type(value)(to_port(v) for v in value)
+    return value
+
+
+def plain(value):
+    """A report of either package as nested builtins with each
+    dataclass's class name kept, so that two packages' reports compare
+    with ``==`` field by field."""
+    import dataclasses
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return (type(value).__name__,
+                {f.name: plain(getattr(value, f.name))
+                 for f in dataclasses.fields(value)})
+    if isinstance(value, (list, tuple)):
+        return type(value)(plain(v) for v in value)
+    if isinstance(value, dict):
+        return {k: plain(v) for k, v in value.items()}
+    return value

@@ -217,9 +217,6 @@ def test_the_executor_refuses_what_it_does_not_serve():
     with pytest.raises(ValueError, match="pool"):
         LMSplitExecutor(cfg, SplitPlan(0, cfg.n_layers + 1), device="cpu")
     ex = LMSplitExecutor(cfg, SplitPlan(0, 1), device="cpu")
-    with pytest.raises(NotImplementedError, match="recorder"):
-        ex.run({}, torch.zeros((1, 2), dtype=torch.int32), 0,
-               recorder=object())
     with pytest.raises(ValueError, match="meta"):
         ex.run({}, torch.zeros((1, 2), dtype=torch.int32, device="meta"), 0)
 

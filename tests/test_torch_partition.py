@@ -314,9 +314,6 @@ def test_split_plan_validation_matches_the_reference():
 def test_executor_refuses_what_is_not_ported(cogact):
     s = cogact
     Lv = s["ct"].vit_layers
-    ex = VLASplitExecutor(s["ct"], SplitPlan(Lv + 1, Lv + 3), device="cpu")
-    with pytest.raises(NotImplementedError, match="recorder"):
-        ex.run(s["pt"], *s["t_in"], Lv + 2, s["t_noise"], recorder=object())
     with pytest.raises(ValueError, match="LLM range"):
         VLASplitExecutor(s["ct"], SplitPlan(0, Lv + 3), device="cpu")
     with pytest.raises(ValueError, match="second pool"):
