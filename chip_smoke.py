@@ -12,8 +12,9 @@ codec of every CogACT request, Llama-3.2-3B prefill and greedy decode
 (``repro_torch.runtime.serving.greedy_generate``), Llama-3.2-3B requests
 served by split co-inference (``LMSplitExecutor``), prefill and greedy
 decode of Mamba2-1.3B (SSM), Zamba2-1.2B (hybrid) and phi3-mini-3.8b (head
-dim 96), the port's serving entry point with the int8 codec at the
-reduced width of 64 columns, and the paper's example scripts — and holds every
+dim 96), granite-moe-3b-a800m and deepseek-v2-lite-16b (MoE; MLA), the
+port's serving entry point with the int8 codec at the reduced width of 64
+columns, and the paper's example scripts — and holds every
 hand-written kernel on those paths against its plain PyTorch version on the
 card.  Needs one card,
 ``nvcc`` and no network; the kernels are built from
@@ -62,7 +63,25 @@ Phases, one JSON line each:
   generate_phi3 phi3-mini-3.8b (32 heads of 96): a 512-token prompt and 16
                 greedy steps at batch 1, as ``generate``, and the model in
                 float32 against its full forward
+  vla_heads     OpenVLA-7B's backbone (after ``delta``, the same
+                parameters) with the ``mlp``, ``lstm`` and ``diffusion``
+                action heads at full width: one int8 split request each,
+                exact launches, each head alone on the card against the
+                CPU on one cognition feature
+  generate_moe  granite-moe-3b-a800m (32 MoE layers, 40 experts top-8 in a
+                table of 48): a 512-token prompt and 32 greedy steps at
+                batch 1 and 4, as ``generate``, the float32 gate at a
+                capacity factor of 8, one MoE layer profiled
+  serve_moe     ``LMSplitExecutor`` on granite and then deepseek, a pool
+                inside the MoE group, int8 and then int4 on the cut, exact
+                bytes and launches, the decoded cut against the unsplit one
+  generate_mla  deepseek-v2-lite-16b (27 layers: 1 dense, 26 MoE with 64
+                experts top-6 and 2 shared; MLA): 16 steps at batch 1 and
+                4, flash attention at head dims (192, 128) in every layer
+                of the prefill, the absorbed decode in plain products
   serve_cli     ``python -m repro_torch.launch.serve --codec --requests 4``
+                for Llama-3.2-3B, then with ``--arch`` granite-moe-3b-a800m
+                and deepseek-v2-lite-16b
                 on the card: its reduced data plane (d_model 64) ships the
                 cut through the int8 codec at one 64-column block a row
   examples      ``examples/quickstart_torch.py``, ``serve_vla_ecc_torch.py``
@@ -140,12 +159,15 @@ from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import build
+from repro_torch.models.attention import mla_cache_specs, mla_decode
 from repro_torch.models.hybrid import n_sites
 from repro_torch.models.layers import rmsnorm
-from repro_torch.models.sharding import tree_leaves, tree_map
+from repro_torch.models.moe import capacity, moe_ffn
+from repro_torch.models.sharding import init_params, tree_leaves, tree_map
 from repro_torch.models.ssm import ssd_step
-from repro_torch.models.transformer import lm_hidden, lm_logits
-from repro_torch.models.vla import vla_backbone
+from repro_torch.models.transformer import _layer_slice, lm_hidden, lm_logits
+from repro_torch.models.vla import (action_head_specs, decode_action,
+                                   draw_noise, vla_backbone)
 from repro_torch.runtime.kvcache import cache_bytes
 from repro_torch.runtime.partition import (DeltaTransport, LMSplitExecutor,
                                            SplitPlan, VLASplitExecutor,
@@ -169,6 +191,10 @@ DEV = "cuda"
 LM_PROMPT, LM_STEPS, LM_BATCHES = 512, 64, (1, 4)
 LM_SEQ, LM_MICRO_BATCH = 17, 4
 PHI3_STEPS = 16
+# the MoE paths: granite-moe-3b-a800m (GQA) and deepseek-v2-lite-16b (MLA),
+# each generate_* phase's greedy steps
+GRANITE, DEEPSEEK = "granite-moe-3b-a800m", "deepseek-v2-lite-16b"
+MOE_STEPS = 32
 
 
 def emit(obj) -> None:
@@ -494,7 +520,9 @@ def check_codec4(shape, dtype, seed, case="zero_lo") -> dict:
             **({"reciprocal_flips": flips} if flips is not None else {})}
 
 
-def _attn_inputs(B, S, T, H, KV, D, dtype, seed, strided=False):
+def _attn_inputs(B, S, T, H, KV, D, dtype, seed, strided=False, Dv=None):
+    """q (B, S, H, D), k (B, T, KV, D), v (B, T, KV, Dv); ``Dv`` defaults
+    to ``D``."""
     g = gen(seed)
     if strided:      # q, k, v as views into one fused projection output
         assert S == T and H == KV
@@ -505,7 +533,7 @@ def _attn_inputs(B, S, T, H, KV, D, dtype, seed, strided=False):
                     dtype=torch.float32).to(dtype)
     k = torch.randn((B, T, KV, D), generator=g, device=DEV,
                     dtype=torch.float32).to(dtype)
-    v = torch.randn((B, T, KV, D), generator=g, device=DEV,
+    v = torch.randn((B, T, KV, Dv or D), generator=g, device=DEV,
                     dtype=torch.float32).to(dtype)
     return q, k, v
 
@@ -513,8 +541,9 @@ def _attn_inputs(B, S, T, H, KV, D, dtype, seed, strided=False):
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
-def check_attn(B, S, T, H, KV, D, dtype, causal, seed, strided=False) -> dict:
-    q, k, v = _attn_inputs(B, S, T, H, KV, D, dtype, seed, strided)
+def check_attn(B, S, T, H, KV, D, dtype, causal, seed, strided=False,
+               Dv=None) -> dict:
+    q, k, v = _attn_inputs(B, S, T, H, KV, D, dtype, seed, strided, Dv)
     out = fa_ops.flash_attention(q, k, v, causal=causal)
     ref = fa_ops.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -525,6 +554,7 @@ def check_attn(B, S, T, H, KV, D, dtype, causal, seed, strided=False) -> dict:
         raise AssertionError("flash_attention: output is not finite")
     err = (out.float() - ref.float()).abs().max().item()
     case = {"B": B, "S": S, "T": T, "H": H, "KV": KV, "D": D,
+            **({"Dv": Dv} if Dv else {}),
             "dtype": str(dtype).split(".")[-1], "causal": causal,
             "strided": strided, "max_err": err, "tol": ATTN_TOL[dtype]}
     if err > ATTN_TOL[dtype]:
@@ -645,9 +675,11 @@ def check_repeat(name, fn) -> dict:
 def attention_cases(cfg, lcfg, zcfg, pcfg) -> tuple:
     """B5 and B6 against their plain versions at the shapes the main paths
     give them (``cfg`` the served VLA, ``lcfg`` Llama-3.2-3B, ``zcfg``
-    Zamba2-1.2B, ``pcfg`` phi3-mini-3.8b's head dim 96) and at awkward
-    ones, and repeated calls held bit-equal.  Returns (B5 cases, B6
-    cases)."""
+    Zamba2-1.2B, ``pcfg`` phi3-mini-3.8b's head dim 96, and the MoE models:
+    granite-moe-3b-a800m's GQA 24/8 x 64 and deepseek-v2-lite-16b's MLA
+    prefill at head dims (192, 128)) and at awkward ones, and repeated
+    calls held bit-equal.  Returns (B5 cases, B6 cases)."""
+    gcfg, dcfg = get_config(GRANITE), get_config(DEEPSEEK)
     S_main = cfg.n_patches + 17
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     H_l, KV_l, hd_l = lcfg.n_heads, lcfg.n_kv_heads, lcfg.resolved_head_dim
@@ -696,6 +728,40 @@ def attention_cases(cfg, lcfg, zcfg, pcfg) -> tuple:
         check_attn(1, 65, 65, 2, 1, 96, f32, True, 65),
         check_attn(1, S_main, S_main, 4, 4, 96, bf, True, 66, strided=True),
     ]
+    # granite-moe-3b-a800m's prefill (24/8 heads of 64) and serve_moe's
+    # blocks; deepseek-v2-lite-16b's MLA prefill at head dims (192, 128):
+    # causal, S of 17, 512 and a ragged 300, batch 1 and 4, bf16 and f32
+    H_g, KV_g, hd_g = gcfg.n_heads, gcfg.n_kv_heads, gcfg.resolved_head_dim
+    for i, B in enumerate(LM_BATCHES):
+        attn_cases.append(check_attn(B, LM_PROMPT, LM_PROMPT, H_g, KV_g, hd_g,
+                                     bf, True, 70 + i))
+    attn_cases.append(check_attn(LM_MICRO_BATCH, LM_SEQ, LM_SEQ, H_g, KV_g,
+                                 hd_g, bf, True, 72))
+    H_d, Dqk, Dv = dcfg.n_heads, dcfg.qk_nope_dim + dcfg.qk_rope_dim, \
+        dcfg.v_head_dim
+    seed = 80
+    for S in (LM_SEQ, LM_PROMPT, 300):
+        for B in LM_BATCHES:
+            for dt in (bf, f32):
+                seed += 1
+                attn_cases.append(check_attn(B, S, S, H_d, H_d, Dqk, dt, True,
+                                             seed, Dv=Dv))
+    attn_cases += [                      # not causal, S != T, GQA, S < 64
+        check_attn(1, 100, 333, 4, 4, Dqk, f32, False, 90, Dv=Dv),
+        check_attn(2, 130, 130, 4, 2, Dqk, bf, False, 91, Dv=Dv),
+        check_attn(2, 5, 5, 2, 1, Dqk, bf, True, 92, Dv=Dv),
+    ]
+    # the reduced MLA of launch/serve.py --arch deepseek-v2-lite-16b: q/k
+    # 24 (carried zero-padded to 32 in bf16), v 16; its 4 x 17 requests
+    rd = dcfg.reduced()
+    Dqk_r, Dv_r = rd.qk_nope_dim + rd.qk_rope_dim, rd.v_head_dim
+    for i, (B, S, dt) in enumerate(((4, LM_SEQ, bf), (4, LM_SEQ, f32),
+                                    (2, 130, bf), (1, 300, f32),
+                                    (1, 65, bf))):
+        attn_cases.append(check_attn(B, S, S, rd.n_heads, rd.n_heads, Dqk_r,
+                                     dt, True, 94 + i, Dv=Dv_r))
+    attn_cases.append(check_attn(2, 40, 100, 4, 2, Dqk_r, bf, False, 99,
+                                 Dv=Dv_r))
     q, k, v = _attn_inputs(1, S_main, S_main, H, KV, hd, bf, 10)
     attn_cases.append(check_repeat(
         "flash_attention (1, 273, 32 x 128) causal, twice",
@@ -705,6 +771,11 @@ def attention_cases(cfg, lcfg, zcfg, pcfg) -> tuple:
     attn_cases.append(check_repeat(
         f"flash_attention (1, {LM_PROMPT}, {H_p} x {hd_p}) causal, twice",
         lambda: fa_ops.flash_attention(qp, kp, vp, causal=True)))
+    qd, kd, vd = _attn_inputs(1, LM_PROMPT, LM_PROMPT, H_d, H_d, Dqk, bf, 93,
+                              Dv=Dv)
+    attn_cases.append(check_repeat(
+        f"flash_attention (1, {LM_PROMPT}, {H_d} x ({Dqk}, {Dv})) causal, "
+        "twice", lambda: fa_ops.flash_attention(qd, kd, vd, causal=True)))
 
     dec_cases = decode_cases(lcfg)
     for i, B in enumerate(LM_BATCHES):    # Zamba2's 7 sites, MHA 32 x 64
@@ -715,6 +786,13 @@ def attention_cases(cfg, lcfg, zcfg, pcfg) -> tuple:
     for kv_len in (1, 300, LM_PROMPT + 1, T_p):
         dec_cases.append(check_decode(1, H_p, KV_p, T_p, hd_p, kv_len, bf,
                                       340 + kv_len, flat=True))
+    T_g = LM_PROMPT + MOE_STEPS           # granite's decode, GQA 3x
+    for B in LM_BATCHES:
+        for kv_len in (1, LM_PROMPT + 1, T_g):
+            dec_cases.append(check_decode(B, H_g, KV_g, T_g, hd_g, kv_len, bf,
+                                          350 + B + kv_len, flat=True))
+    dec_cases.append(check_decode(1, H_g, KV_g, T_g, hd_g, T_g - 2, f32, 351,
+                                  flat=True))
     dec_cases += [
         check_decode(1, H_p, KV_p, T_p, hd_p, T_p - 5, f32, 341, flat=True),
         check_decode(1, H_p, KV_p, T_p, hd_p, LM_PROMPT + 3, bf, 342,
@@ -736,27 +814,31 @@ def attention_cases(cfg, lcfg, zcfg, pcfg) -> tuple:
     return attn_cases, dec_cases
 
 
-def attn_bound(B, S, T, H, KV, D, causal) -> tuple:
+def attn_bound(B, S, T, H, KV, D, causal, Dv=None) -> tuple:
     """The card's least time for one bf16 prefill attention: q, k, v read
     and the output written once; the two products over the (query, key)
-    pairs the mask keeps."""
+    pairs the mask keeps (q k^T at D, p v at Dv)."""
+    Dv = Dv or D
     pairs = S * (S + 1) / 2 if causal and S == T else S * T
-    return bound(2 * B * (2 * H * S + 2 * KV * T) * D, 4.0 * B * H * D * pairs,
-                 torch.bfloat16)
+    return bound(2 * B * (H * S * (D + Dv) + KV * T * (D + Dv)),
+                 2.0 * B * H * (D + Dv) * pairs, torch.bfloat16)
 
 
-def time_attn(B, S, H, KV, D, max_err) -> dict:
+def time_attn(B, S, H, KV, D, max_err, Dv=None) -> dict:
     """Times of the flash attention kernel at a served bf16 causal shape:
     the kernel, its host time, the plain version, and as the yardstick
     ``F.scaled_dot_product_attention`` on (B, H, S, D) views of the same
-    tensors (grouped heads by ``enable_gqa``; the port calls it nowhere)."""
-    q, k, v = _attn_inputs(B, S, S, H, KV, D, torch.bfloat16, 10 + B + S + D)
+    tensors (grouped heads by ``enable_gqa``, a backend that takes Dv != D
+    at the MLA shapes; the port calls it nowhere)."""
+    q, k, v = _attn_inputs(B, S, S, H, KV, D, torch.bfloat16, 10 + B + S + D,
+                           Dv=Dv)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    b_ms, b_by = attn_bound(B, S, S, H, KV, D, True)
+    b_ms, b_by = attn_bound(B, S, S, H, KV, D, True, Dv)
     return {"route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
-            "shape": [B, S, H, KV, D], "dtype": "bfloat16", "causal": True,
+            "shape": [B, S, H, KV, D] + ([Dv] if Dv else []),
+            "dtype": "bfloat16", "causal": True,
             "max_abs_err": max_err,
             "ms": time_ms(lambda: fa_ops.flash_attention(q, k, v,
                                                          causal=True)),
@@ -824,9 +906,20 @@ def attention_times(cfg, lcfg, zcfg, pcfg, attn_cases, dec_cases) -> dict:
                for B in LM_BATCHES]
     H_p, KV_p, hd_p = pcfg.n_heads, pcfg.n_kv_heads, pcfg.resolved_head_dim
     served.append(time_attn(1, LM_PROMPT, H_p, KV_p, hd_p, attn_err))
+    gcfg, dcfg = get_config(GRANITE), get_config(DEEPSEEK)
+    H_g, KV_g, hd_g = gcfg.n_heads, gcfg.n_kv_heads, gcfg.resolved_head_dim
+    served += [time_attn(B, LM_PROMPT, H_g, KV_g, hd_g, attn_err)
+               for B in LM_BATCHES]
+    served += [time_attn(B, LM_PROMPT, dcfg.n_heads, dcfg.n_heads,
+                         dcfg.qk_nope_dim + dcfg.qk_rope_dim, attn_err,
+                         Dv=dcfg.v_head_dim) for B in LM_BATCHES]
     rec = {"flash_attention": dict(served[0])}
     rec["flash_attention"]["served"] = [
         {k: r[k] for k in SERVED_KEYS if k in r} for r in served]
+    # blocks of the bf16 kernel one SM holds, by (D, Dv), from
+    # cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    rec["flash_attention"]["blocks_per_sm"] = {
+        f"{d},{dv}": fa_ops.occupancy(d, dv) for d, dv in fa_ops.HEAD_DIM_PAIRS}
     dec_err = max(c["max_err"] for c in dec_cases
                   if c.get("dtype") == "bfloat16")
     served = [time_decode(B, h, kv, T_l, d, T_l, dec_err)
@@ -835,6 +928,9 @@ def attention_times(cfg, lcfg, zcfg, pcfg, attn_cases, dec_cases) -> dict:
     served.append(time_decode(1, H_l, KV_l, 8192, hd_l, 8192, dec_err))
     T_p = LM_PROMPT + PHI3_STEPS
     served.append(time_decode(1, H_p, KV_p, T_p, hd_p, T_p, dec_err))
+    T_g = LM_PROMPT + MOE_STEPS
+    served += [time_decode(B, H_g, KV_g, T_g, hd_g, T_g, dec_err)
+               for B in LM_BATCHES]
     rec["decode_attention"] = dict(served[0])
     rec["decode_attention"]["served"] = [
         {k: r[k] for k in SERVED_KEYS if k in r} for r in served]
@@ -1394,8 +1490,8 @@ def _check_action(cfg, action) -> None:
         raise AssertionError(f"action shape {tuple(action.shape)}")
     if not torch.isfinite(action).all():
         raise AssertionError("action is not finite")
-    if cfg.vla_action_head != "dit" and (action.min().item() < -1.0
-                                         or action.max().item() > 1.0):
+    if cfg.vla_action_head == "detok" and (action.min().item() < -1.0
+                                           or action.max().item() > 1.0):
         raise AssertionError("detokenised action outside [-1, 1]")
 
 
@@ -2491,7 +2587,9 @@ def setup_lm(name: str, seed: int) -> dict:
     dense, one flash attention per block and one flash-decode per block and
     step; ssm, one SSD scan per Mamba layer and nothing per step; hybrid,
     the shared block's flash attention at each site and the scans, and one
-    flash-decode per site and step."""
+    flash-decode per site and step; moe, one flash attention per block
+    and one flash-decode per block and step (MLA: none, its decode is the
+    absorbed form in plain products)."""
     cfg = get_config(name)
     model = build(cfg)
     held_before = torch.cuda.memory_allocated()
@@ -2502,6 +2600,9 @@ def setup_lm(name: str, seed: int) -> dict:
     L = cfg.n_layers
     if cfg.family == "dense":
         per_prefill, per_step = _want(L), _want(0, decode=L)
+    elif cfg.family == "moe":       # MLA decodes in the absorbed form: plain
+        per_prefill = _want(L)
+        per_step = _want(0, decode=0 if cfg.use_mla else L)
     elif cfg.family == "ssm":
         per_prefill, per_step = _want(0, ssd=L), _want(0)
     else:
@@ -2703,8 +2804,11 @@ def phase_generate(st: dict, name: str = "generate", prompt: int = LM_PROMPT,
             "held_before_init_bytes": st["held_before_bytes"],
             "param_bytes": st["param_bytes"], "runs": runs,
             "launches": launches}
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in ("dense", "hybrid") or (cfg.family == "moe"
+                                             and not cfg.use_mla):
         info["heads"] = [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim]
+    if cfg.family == "moe":
+        info["moe"] = moe_layer_profiles(st)
     if cfg.family in ("ssm", "hybrid"):
         info["ssm"] = {"d_inner": cfg.d_inner, "heads": cfg.ssm_nheads,
                        "head_dim": cfg.ssm_headdim, "state": cfg.ssm_state,
@@ -2726,6 +2830,7 @@ def phase_generate(st: dict, name: str = "generate", prompt: int = LM_PROMPT,
 # flash-decode at head dim 96), stated before its first run there
 FULL_F32_REL = 5e-5
 F32_GATE_STEPS = 8
+F32_MOE_CAPACITY = 8.0
 
 
 def full_width_f32_check(st: dict, steps: int = LM_STEPS) -> dict:
@@ -2744,6 +2849,11 @@ def full_width_f32_check(st: dict, steps: int = LM_STEPS) -> dict:
     block) and drift apart with depth and steps; in float32 they must
     agree."""
     cfg = st["cfg"].replace(dtype="float32")
+    if cfg.family == "moe":
+        # GShard drops depend on the token count, so a prefill and a full
+        # forward over more tokens drop other choices; a capacity that binds
+        # nowhere makes them comparable (tests/test_decode_equivalence.py)
+        cfg = cfg.replace(moe_capacity_factor=F32_MOE_CAPACITY)
     model = build(cfg)
     params, V = st["params"], cfg.vocab_size
     # the gate's tokens are drawn first, as they always were; the later
@@ -2980,15 +3090,241 @@ def phase_serve_lm(st: dict, n_batches: int = 8, seq: int = LM_SEQ) -> dict:
     return info
 
 
+# ================================================================== MoE
+def moe_layer_profiles(st: dict) -> dict:
+    """One MoE layer's FFN, profiled by kernel family at a decode step's
+    shape (batch 1, one token) and at the prefill's (batch 1, 512 tokens),
+    and for an MLA model one absorbed decode step of one layer over a
+    ``LM_PROMPT + 32``-position latent cache: what the dispatch and the
+    absorbed decode cost in launches and device time (no hand-written
+    kernel on either)."""
+    cfg, params = st["cfg"], st["params"]
+    pl = _layer_slice(params["moe_blocks"], 0)
+    g = gen(SEED + 500)
+    out = {"n_experts": cfg.n_experts, "table": int(pl["moe"]["wg"].shape[0]),
+           "top_k": cfg.moe_top_k, "shared": cfg.n_shared_experts,
+           "capacity_factor": cfg.moe_capacity_factor,
+           "first_dense_layers": cfg.first_dense_layers}
+    for name, S in (("decode", 1), ("prefill", LM_PROMPT)):
+        h = torch.randn((1, S, cfg.d_model), generator=g, device=DEV,
+                        dtype=torch.float32).to(torch.bfloat16)
+        moe_ffn(cfg, pl["moe"], h)                          # warm-up
+        prof = profile_request(lambda: moe_ffn(cfg, pl["moe"], h))
+        out[f"ffn_{name}"] = {
+            "tokens": S, "capacity": capacity(S, cfg.n_experts,
+                                              cfg.moe_top_k,
+                                              cfg.moe_capacity_factor),
+            "n_kernel_launches": prof.get("n_kernel_launches"),
+            "device_busy_ms": prof.get("device_busy_ms"),
+            "wall_ms": _wall_ms(lambda: moe_ffn(cfg, pl["moe"], h))[0],
+            "by_group": prof.get("by_group")}
+    if cfg.use_mla:
+        T = LM_PROMPT + 32
+        cache = {k: torch.randn(s.shape, generator=g, device=DEV,
+                                dtype=torch.float32).to(s.dtype)
+                 for k, s in mla_cache_specs(cfg, 1, T).items()}
+        x = torch.randn((1, 1, cfg.d_model), generator=g, device=DEV,
+                        dtype=torch.float32).to(torch.bfloat16)
+        mla_decode(cfg, pl["attn"], x, LM_PROMPT, cache)    # warm-up
+        prof = profile_request(
+            lambda: mla_decode(cfg, pl["attn"], x, LM_PROMPT, cache))
+        out["mla_decode_one_layer"] = {
+            "cache_positions": T, "kv_len": LM_PROMPT + 1,
+            "n_kernel_launches": prof.get("n_kernel_launches"),
+            "device_busy_ms": prof.get("device_busy_ms"),
+            "by_group": prof.get("by_group")}
+    return out
+
+
+# limit of the head-alone check of vla_heads, stated before its first run:
+# the head on the card against the same head on the CPU, both in bf16, fed
+# the same cognition feature (and noise), within this share of
+# max(1, max|action|): the two round products summed in other orders
+HEAD_REL = 5e-2
+VLA_HEAD_HORIZON = 16          # the action chunk of the three heads
+
+
+def phase_vla_heads(st: dict) -> dict:
+    """OpenVLA-7B's backbone (the parameters of ``serve``) with each of the
+    ``mlp``, ``lstm`` and ``diffusion`` action heads at full width
+    (d_model 4096), a chunk of ``VLA_HEAD_HORIZON`` actions, the head's
+    parameters drawn from a seed: one split request each through
+    ``VLASplitExecutor`` with the int8 codec on the cut, exact launches,
+    then the head alone on the card against the same head on the CPU."""
+    cfg0, params0 = st["cfg"], st["params"]
+    Lv, L = cfg0.vit_layers, cfg0.n_layers
+    lo, hi = Lv + min(14, L - 1), Lv + min(18, L)
+    S = cfg0.n_patches + 17
+    g = gen(SEED + 600)
+    heads, launches = {}, dict.fromkeys(WRAPPERS, 0)
+    for i, head in enumerate(("mlp", "lstm", "diffusion")):
+        cfg = cfg0.replace(vla_action_head=head,
+                           action_horizon=VLA_HEAD_HORIZON)
+        t0 = time.perf_counter()
+        hp = init_params(action_head_specs(cfg), gen(SEED + 610 + i), DEV)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        params = dict(params0, action=hp)
+        ex = VLASplitExecutor(cfg, SplitPlan(lo, hi, codec="int8"))
+        patches = torch.randn((1, cfg.n_patches, cfg.vit_dim), generator=g,
+                              device=DEV)
+        tokens = torch.randint(0, cfg.vocab_size, (1, 17), generator=g,
+                               device=DEV)
+        noise = draw_noise(cfg, 1, DEV, g) if head == "diffusion" else None
+        cut = lo + i % (hi - lo + 1)
+        ex.run(params, patches, tokens, cut, noise)          # warm-up
+        torch.cuda.synchronize()
+        # ---- the main path: counts set to 0 just before, read just after
+        _reset_counts()
+        wall, (action, payload) = _wall_ms(
+            lambda: ex.run(params, patches, tokens, cut, noise))
+        moved = _counts()
+        if moved != _want(L, "int8"):
+            raise AssertionError(f"{head} head request launched {moved}, "
+                                 f"expected {_want(L, 'int8')}")
+        _check_action(cfg, action)
+        want_bytes = codec_ref.wire_bytes((1, S, cfg.d_model))
+        if payload_bytes(payload) != want_bytes:
+            raise AssertionError(f"{head}: payload {payload_bytes(payload)} "
+                                 f"bytes, expected {want_bytes}")
+        for k in WRAPPERS:
+            launches[k] += moved[k]
+        # ---- the head alone: card against CPU on one cognition feature
+        cog = vla_backbone(cfg, params, patches, tokens)[:, -1]
+        ms_head, a_card = _wall_ms(lambda: decode_action(cfg, hp, cog, noise))
+        hp_cpu = tree_map(lambda t: t.cpu(), hp)
+        a_cpu = decode_action(cfg, hp_cpu, cog.cpu(),
+                              None if noise is None else noise.cpu())
+        top = max(1.0, a_cpu.float().abs().max().item())
+        err = (a_card.cpu().float() - a_cpu.float()).abs().max().item()
+        if not err <= HEAD_REL * top:
+            raise AssertionError(f"{head} head on the card is {err} from the "
+                                 f"CPU (limit {HEAD_REL * top})")
+        heads[head] = {
+            "action_shape": list(action.shape),
+            "action_max_abs": action.float().abs().max().item(),
+            "n_params": sum(t.numel() for t in tree_leaves(hp)),
+            "init_s": init_s, "cut": cut, "request_wall_ms": wall,
+            "head_alone_wall_ms": ms_head, "payload_bytes": want_bytes,
+            "launches": moved, "head_vs_cpu_max_err": err,
+            "head_vs_cpu_limit": HEAD_REL * top}
+        del hp, hp_cpu, params
+    info = {"phase": "vla_heads", "model": cfg0.name,
+            "d_model": cfg0.d_model, "n_layers": L, "vit_layers": Lv,
+            "horizon": VLA_HEAD_HORIZON, "executor_pool": [lo, hi],
+            "heads": heads, "launches": launches}
+    emit(info)
+    return info
+
+
+def phase_serve_moe(st: dict, n_batches: int = 4, seq: int = LM_SEQ) -> dict:
+    """``LMSplitExecutor`` on an MoE model at full width and depth: batches
+    of 4 requests of 17 tokens, the cut walking a pool inside the MoE group,
+    the int8 and then the packed-int4 codec on the cut.  Exact launches and
+    payload bytes; the decoded cut activation within the codec's half step
+    (and its bf16 rounding) of the unsplit hidden state at the cut; codec
+    off, every cut equal to the monolithic forward."""
+    cfg, model, params = st["cfg"], st["model"], st["params"]
+    n, nd = cfg.n_layers, cfg.first_dense_layers
+    lo = max(n // 2 - 1, nd)
+    hi = min(lo + 3, n)
+    mb, d = LM_MICRO_BATCH, cfg.d_model
+    g = st["gen"]
+    batches = [torch.randint(0, cfg.vocab_size, (mb, seq), generator=g,
+                             device=DEV) for _ in range(n_batches)]
+    cuts = [lo + i % (hi - lo + 1) for i in range(n_batches)]
+    legs, launches = {}, dict.fromkeys(WRAPPERS, 0)
+    for codec, qmax in (("int8", 127), ("int4", 7)):
+        ex = LMSplitExecutor(cfg, SplitPlan(lo, hi, codec=codec))
+        ex.run(params, batches[0], cuts[0])                 # warm-up
+        torch.cuda.synchronize()
+        want_bytes = (codec_ref.wire_bytes if codec == "int8"
+                      else codec_ref.wire_bytes_int4)((mb, seq, d))
+        if want_bytes != mb * seq * d * (8 if codec == "int8" else 4) // 8 \
+                + mb * seq * (d // 128) * 4:
+            raise AssertionError(f"{codec} wire bytes {want_bytes}")
+        walls, sent = [], []
+        _reset_counts()
+        for tokens, cut in zip(batches, cuts):
+            before = _counts()
+            ms, (logits, payload) = _wall_ms(
+                lambda: ex.run(params, tokens, cut))
+            walls.append(ms)
+            if _moved(before) != _want(n, codec):
+                raise AssertionError(f"{cfg.name} {codec} request launched "
+                                     f"{_moved(before)}")
+            if tuple(logits.shape[:2]) != (mb, seq) \
+                    or not torch.isfinite(logits.float()).all():
+                raise AssertionError(f"{cfg.name} logits "
+                                     f"{tuple(logits.shape)}")
+            if payload_bytes(payload) != want_bytes:
+                raise AssertionError(f"{cfg.name} {codec} payload "
+                                     f"{payload_bytes(payload)} bytes, "
+                                     f"expected {want_bytes}")
+            sent.append((tokens, cut, payload))
+        moved = _counts()
+        half_steps = []
+        for tokens, cut, payload in sent:
+            # the decoded cut against the unsplit hidden state at the cut:
+            # within half a quantisation step of its 128-column block (the
+            # step abs-max / qmax, 1e-3 of it for the scale's own rounding)
+            # plus the bf16 rounding of the decoded value (2^-8 of it)
+            blk = (mb, seq, d // 128, 128)
+            h = ex._edge_hidden(params, tokens, cut).float().reshape(blk)
+            got = decode_activation(payload, cfg.dtype).float().reshape(blk)
+            limit = 0.5 * (1 + 1e-3) * h.abs().amax(-1, keepdim=True) / qmax \
+                + got.abs() * 2.0 ** -8
+            ratio = ((got - h).abs() / limit.clamp_min(1e-30)).max().item()
+            half_steps.append(ratio)
+            if not ratio <= 1.0:
+                raise AssertionError(f"{cfg.name} {codec}: the decoded cut is "
+                                     f"{ratio} of its limit from the unsplit "
+                                     "one")
+        for k in WRAPPERS:
+            launches[k] += moved[k]
+        V = cfg.vocab_size             # the pad slots past it hold -1e30
+        mono = model.forward(params, {"tokens": batches[0]})[..., :V]
+        l_run = ex.run(params, batches[0], cuts[0])[0][..., :V]
+        legs[codec] = {
+            "payload_bytes": want_bytes, "request_wall_ms": walls,
+            "request_wall_ms_median": statistics.median(walls),
+            "cut_err_over_limit_max": max(half_steps),
+            "logits_rel_err_vs_unsplit": (
+                (l_run.float() - mono.float()).abs().max()
+                / mono.float().abs().max()).item(),
+            "argmax_agreement_vs_unsplit": (
+                l_run.argmax(-1) == mono.argmax(-1)).float().mean().item(),
+            "launches": moved}
+    # ---- codec off equals the monolithic forward exactly, at every cut
+    ex_raw = LMSplitExecutor(cfg, SplitPlan(lo, hi))
+    tokens = batches[1]
+    mono = model.forward(params, {"tokens": tokens})
+    raw_err = max((ex_raw.run(params, tokens, c)[0].float()
+                   - mono.float()).abs().max().item()
+                  for c in range(lo, hi + 1))
+    if raw_err != 0.0:
+        raise AssertionError(f"{cfg.name} codec off: split logits are "
+                             f"{raw_err} from the monolithic ones")
+    prof = profile_request(lambda: ex_raw.run(params, tokens, cuts[0]))
+    info = {"phase": "serve_moe", "model": cfg.name, "batch": mb,
+            "seq": seq, "executor_pool": [lo, hi], "cuts": cuts,
+            "codecs": legs, "codec_off_logits_max_err": raw_err,
+            "profile_one_raw_request": prof, "launches": launches}
+    emit(info)
+    return info
+
+
 # =============================================================== serve_cli
-def phase_serve_cli(n_requests: int = 4) -> dict:
-    """``python -m repro_torch.launch.serve --codec --requests 4`` on the
-    card, through its ``main``: the controller plans the full Llama-3.2-3B
-    and the LSTM trains on the card, then the reduced data plane (8 layers,
-    d_model 64) serves the requests with the int8 codec on the cut, one
-    64-column block a row.  Fails unless the int8 kernels launched."""
+def phase_serve_cli(n_requests: int = 4, arch: str = None) -> dict:
+    """``python -m repro_torch.launch.serve [--arch ARCH] --codec
+    --requests 4`` on the card, through its ``main``: the controller plans
+    the full config (Llama-3.2-3B unless ``arch`` names another) and the
+    LSTM trains on the card, then the reduced data plane (8 layers, d_model
+    64) serves the requests with the int8 codec on the cut, one 64-column
+    block a row.  Fails unless the int8 kernels launched."""
     from repro_torch.launch import serve as serve_cli
-    argv = ["--codec", "--requests", str(n_requests)]
+    argv = (["--arch", arch] if arch else []) + [
+        "--codec", "--requests", str(n_requests)]
     buf = io.StringIO()
     _reset_counts()
     with redirect_stdout(buf):
@@ -3008,6 +3344,8 @@ def phase_serve_cli(n_requests: int = 4) -> dict:
                              "once a batch")
     info = {"phase": "serve_cli", "argv": argv, "printed": lines,
             "wall_ms": wall, "launches": launches}
+    if arch:
+        info["phase_part"] = arch
     emit(info)
     return info
 
@@ -3101,6 +3439,7 @@ def main() -> None:
     ost = setup_openvla(cfg)
     runs = {"serve": phase_serve(ost)["launches"]}
     runs["delta"] = phase_delta(ost)["launches"]
+    runs["vla_heads"] = phase_vla_heads(ost)["launches"]
     del ost
     gc.collect()                    # the OpenVLA parameters go before CogACT
     torch.cuda.empty_cache()
@@ -3114,7 +3453,9 @@ def main() -> None:
     runs["generate"] = phase_generate(lst)["launches"]
     runs["serve_lm"] = phase_serve_lm(lst)["launches"]
     del lst                         # the Llama parameters go before Mamba2
-    runs["serve_cli"] = phase_serve_cli()["launches"]
+    cli = [phase_serve_cli(arch=a)["launches"]
+           for a in (None, GRANITE, DEEPSEEK)]
+    runs["serve_cli"] = {k: sum(c[k] for c in cli) for k in WRAPPERS}
     for phase, name, seed in (("generate_ssm", "mamba2-1.3b", SEED + 70),
                               ("generate_hybrid", "zamba2-1.2b", SEED + 80)):
         gc.collect()
@@ -3131,6 +3472,18 @@ def main() -> None:
         st, "generate_phi3", steps=PHI3_STEPS, batches=(1,),
         f32_check=True)["launches"]
     del st
+    serve_moe = []
+    for phase, name, seed, steps in (
+            ("generate_moe", GRANITE, SEED + 100, MOE_STEPS),
+            ("generate_mla", DEEPSEEK, SEED + 110, PHI3_STEPS)):
+        gc.collect()                # the model before goes first
+        torch.cuda.empty_cache()
+        st = setup_lm(name, seed)
+        runs[phase] = phase_generate(st, phase, steps=steps,
+                                     f32_check=True)["launches"]
+        serve_moe.append(phase_serve_moe(st)["launches"])
+        del st
+    runs["serve_moe"] = {k: sum(r[k] for r in serve_moe) for k in WRAPPERS}
     gc.collect()
     torch.cuda.empty_cache()
     phase_examples()

@@ -42,11 +42,13 @@ SIGNATURES: Dict[str, list] = {
     "rt_quantize_int4": [_P, _P, _P, _L, _I, _P],
     # packed, scales, out, n_tiles, dtype code, stream
     "rt_dequantize_int4": [_P, _P, _P, _L, _I, _P],
-    # q, k, v, o, B, S, T, H, KV, D, 4 x (batch, seq, head) strides,
-    # scale, causal, dtype code, stream
-    "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # q, k, v, o, B, S, T, H, KV, D (q and k), Dv (v and o),
+    # 4 x (batch, seq, head) strides, scale, causal, dtype code, stream
+    "rt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                            _F, _I, _I, _P],
+    # D, Dv, out: blocks of the bf16 kernel one SM holds (int *)
+    "rt_flash_attention_occupancy": [_I, _I, _P],
     # q, k, v, o, split scratch (float32), tickets, B, H, KV, T, D, kv_len,
     # device kv_len or NULL, keys per split, n_split, q (batch, head),
     # k and v (batch, head, seq), o (batch, head) strides, scale, dtype code,

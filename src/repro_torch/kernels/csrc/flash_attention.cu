@@ -55,6 +55,17 @@
 //    first design's synchronous tile loop.
 // Rows in shared memory are padded so that strided row reads and ldmatrix are
 // free of bank conflicts.
+//
+// Both kernels are templated on the head dim of q and k (DQK) and that of v
+// and out (DV).  The equal pairs 16/32/64/96/128 serve the GQA models; (192,
+// 128) is DeepSeek-V2's multi-head latent attention prefill (128 no-RoPE plus
+// 64 RoPE dims in q and k, values of 128), (24, 16) the same at the reduced
+// width (the bf16 kernel carries q and k in 32-column tiles, zero-padded).  The TPU kernel takes one head dim
+// only (its V block is (1, bk, D) with D from q), and the JAX package runs
+// that attention through XLA.  At (192, 128) the bf16 kernel's shared memory
+// is Q 25.6 KB + the K ring 51.2 KB + the V ring 34.8 KB, 109 KB, so two
+// blocks still share an SM; a warp keeps 48 registers of Q fragments beside
+// the 64 of its output accumulator.
 #include "common.cuh"
 
 namespace {
@@ -94,9 +105,16 @@ constexpr int kThreads = 128;    // 4 warps x 16 query rows
 constexpr int STAGES = 2;        // ring depth of K and of V
 constexpr int PAD = 8;           // 16 bytes: keeps rows 16-byte aligned
 
-template <int D>
+// q k^T runs over 16-column steps: a q/k head dim of 8 past a multiple of
+// 16 (the reduced MLA's 24) is carried in tiles of the next multiple, the
+// extra 8 columns zero
+template <int DQK>
+__host__ __device__ constexpr int padded_qk() { return (DQK + 15) / 16 * 16; }
+
+template <int DQK, int DV>
 constexpr size_t smem_bytes() {  // Q, then the K stages and the V stages
-    return (size_t)(BQ + 2 * STAGES * BK) * (D + PAD) * sizeof(bf16);
+    return ((size_t)(BQ + STAGES * BK) * (padded_qk<DQK>() + PAD)
+            + (size_t)STAGES * BK * (DV + PAD)) * sizeof(bf16);
 }
 
 // Issue rows [row0, row0 + 64) x D of a strided global array into a padded
@@ -134,7 +152,7 @@ __device__ __forceinline__ void issue_tile(bf16* __restrict__ dst,
     }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_bf16_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
@@ -142,10 +160,15 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
                             bf16* __restrict__ o,
                             int S, int T_len, int H, int KV, Strides st,
                             float scale_log2, int causal) {
-    constexpr int LD = D + PAD;
-    constexpr int KS = D / 16;       // k-steps of q k^T = column pairs of p v
+    constexpr int DP = padded_qk<DQK>();
+    constexpr int LD = DP + PAD;     // rows of Q and K
+    constexpr int LDV = DV + PAD;    // rows of V
+    constexpr int KS = DP / 16;      // k-steps of q k^T
+    static_assert(DP == DQK || DP == DQK + 8, "q/k head dim");
+    static_assert(DV % 16 == 0, "v head dim");
+    constexpr int VS = DV / 16;      // column pairs of p v
     constexpr int NT = BK / 8;       // 8-column score tiles per K tile
-    constexpr int OT = D / 8;        // 8-column output tiles
+    constexpr int OT = DV / 8;       // 8-column output tiles
     extern __shared__ __align__(16) unsigned char smem_raw[];
     bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
     bf16* k_ring = q_s + BQ * LD;    // STAGES K tiles
@@ -174,16 +197,23 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
 
     // Q with K tile 0 (one group), V tile 0 (the next), then the K and V
     // groups of the tiles up to STAGES - 1: all in flight together
-    issue_tile<D, LD>(q_s, q_base, st.q_s, q0, S);
+    if (DP != DQK) {
+        // the pad columns of Q and of every K stage are never copied into:
+        // zero them once, before the first wait, so they add 0 to q k^T
+        for (int r = threadIdx.x; r < BQ + STAGES * BK; r += kThreads)
+            *reinterpret_cast<uint4*>(q_s + r * LD + DQK) =
+                make_uint4(0u, 0u, 0u, 0u);
+    }
+    issue_tile<DQK, LD>(q_s, q_base, st.q_s, q0, S);
 #pragma unroll
     for (int i = 0; i < STAGES - 1; ++i) {
         if (i < n_k)
-            issue_tile<D, LD>(k_ring + i * BK * LD, k_base, st.k_s, i * BK,
-                              T_len);
+            issue_tile<DQK, LD>(k_ring + i * BK * LD, k_base, st.k_s, i * BK,
+                                T_len);
         cp_async_commit();
         if (i < n_k)
-            issue_tile<D, LD>(v_ring + i * BK * LD, v_base, st.v_s, i * BK,
-                              T_len);
+            issue_tile<DV, LDV>(v_ring + i * BK * LDV, v_base, st.v_s, i * BK,
+                                T_len);
         cp_async_commit();
     }
 
@@ -199,7 +229,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
     for (int j = 0; j < n_k; ++j) {
         const int k0 = j * BK;
         const bf16* k_s = k_ring + (j % STAGES) * BK * LD;
-        const bf16* v_s = v_ring + (j % STAGES) * BK * LD;
+        const bf16* v_s = v_ring + (j % STAGES) * BK * LDV;
         cp_async_wait<2 * STAGES - 3>();   // K tile j (and Q) landed
         __syncthreads();             // ... for every thread; tile j-1 consumed
         if (j == 0) {
@@ -214,12 +244,12 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
         // past the end keep the count
         const int nj = j + STAGES - 1;
         if (nj < n_k)
-            issue_tile<D, LD>(k_ring + (nj % STAGES) * BK * LD, k_base,
-                              st.k_s, nj * BK, T_len);
+            issue_tile<DQK, LD>(k_ring + (nj % STAGES) * BK * LD, k_base,
+                                st.k_s, nj * BK, T_len);
         cp_async_commit();
         if (nj < n_k)
-            issue_tile<D, LD>(v_ring + (nj % STAGES) * BK * LD, v_base,
-                              st.v_s, nj * BK, T_len);
+            issue_tile<DV, LDV>(v_ring + (nj % STAGES) * BK * LDV, v_base,
+                                st.v_s, nj * BK, T_len);
         cp_async_commit();
 
         // ---- scores s (16 x 64 per warp) = q k^T
@@ -289,7 +319,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
         cp_async_wait<2 * STAGES - 2>();   // V tile j landed
         __syncthreads();
 
-        // ---- o (16 x D per warp) += p v: two neighbouring score tiles,
+        // ---- o (16 x DV per warp) += p v: two neighbouring score tiles,
         // rounded to bf16, are exactly the A fragment of a 16-key step
 #pragma unroll
         for (int ks = 0; ks < BK / 16; ++ks) {
@@ -299,11 +329,11 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
             pa[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
             pa[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
 #pragma unroll
-            for (int dp = 0; dp < KS; ++dp) {
+            for (int dp = 0; dp < VS; ++dp) {
                 // transposed: matrices (keys 0-7, d 0-7), (keys 8-15, d 0-7),
                 //                      (keys 0-7, d 8-15), (keys 8-15, d 8-15)
                 uint32_t vb[4];
-                ldmatrix_x4_trans(vb, v_s + (ks * 16 + (mi & 1) * 8 + mr) * LD
+                ldmatrix_x4_trans(vb, v_s + (ks * 16 + (mi & 1) * 8 + mr) * LDV
                                           + dp * 16 + (mi >> 1) * 8);
                 mma_bf16(o_acc[2 * dp], pa, vb[0], vb[1]);
                 mma_bf16(o_acc[2 * dp + 1], pa, vb[2], vb[3]);
@@ -328,19 +358,29 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
     }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int T_len, int H, int KV, const Strides& st, float scale,
            int causal, cudaStream_t stream) {
-    auto kern = flash_attention_bf16_kernel<D>;
+    auto kern = flash_attention_bf16_kernel<DQK, DV>;
     static int set[32] = {};
-    const int e = allow_smem(kern, smem_bytes<D>(), set);
+    const int e = allow_smem(kern, smem_bytes<DQK, DV>(), set);
     if (e != 0) return e;
     dim3 grid((unsigned)(B * H), (unsigned)((S + BQ - 1) / BQ));
-    kern<<<grid, kThreads, smem_bytes<D>(), stream>>>(
+    kern<<<grid, kThreads, smem_bytes<DQK, DV>(), stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, S, T_len, H,
         KV, st, scale * LOG2E, causal);
     return (int)cudaGetLastError();
+}
+
+template <int DQK, int DV>
+int occupancy(int* blocks) {
+    auto kern = flash_attention_bf16_kernel<DQK, DV>;
+    static int set[32] = {};
+    const int e = allow_smem(kern, smem_bytes<DQK, DV>(), set);
+    if (e != 0) return e;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kern, kThreads, smem_bytes<DQK, DV>());
 }
 
 }  // namespace tc
@@ -357,20 +397,21 @@ __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
                            int S, int T_len, int H, int KV, Strides st,
                            float scale, int causal) {
-    constexpr int LD = D + PAD;
-    constexpr int CPT = D / 16;                   // output columns per thread
+    constexpr int LD = DQK + PAD;                 // rows of Q and K
+    constexpr int LDV = DV + PAD;                 // rows of V
+    constexpr int CPT = DV / 16;                  // output columns per thread
     extern __shared__ __align__(16) unsigned char smem_raw[];
     float* q_s = reinterpret_cast<float*>(smem_raw);
     float* k_s = q_s + BQ * LD;
     float* v_s = k_s + BK * LD;
-    float* p_s = v_s + BK * LD;
+    float* p_s = v_s + BK * LDV;
 
     const int ty = threadIdx.x >> 4;
     const int tx = threadIdx.x & 15;
@@ -385,7 +426,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     const float* v_base = v + b * st.v_b + kvh * st.v_h;
     float* o_base = o + b * st.o_b + h * st.o_h;
 
-    load_tile<float, D, LD, kThreads>(q_s, q_base, st.q_s, q0, S);
+    load_tile<float, DQK, LD, kThreads>(q_s, q_base, st.q_s, q0, S);
 
     float m_i[4], l_i[4], acc[4][CPT];
 #pragma unroll
@@ -401,8 +442,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 
     for (int k0 = 0; k0 < k_end; k0 += BK) {
         __syncthreads();                          // previous tile fully consumed
-        load_tile<float, D, LD, kThreads>(k_s, k_base, st.k_s, k0, T_len);
-        load_tile<float, D, LD, kThreads>(v_s, v_base, st.v_s, k0, T_len);
+        load_tile<float, DQK, LD, kThreads>(k_s, k_base, st.k_s, k0, T_len);
+        load_tile<float, DV, LDV, kThreads>(v_s, v_base, st.v_s, k0, T_len);
         __syncthreads();
 
         // ---- scores: s[i][j] = q[4*ty+i] . k[tx+16*j]
@@ -412,7 +453,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 #pragma unroll
             for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-        for (int d = 0; d < D; d += 4) {
+        for (int d = 0; d < DQK; d += 4) {
             float qv[4][4], kv[4][4];
 #pragma unroll
             for (int i = 0; i < 4; ++i) load4(q_s + (4 * ty + i) * LD + d, qv[i]);
@@ -473,7 +514,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
             for (int e = 0; e < 4; ++e) {
 #pragma unroll
                 for (int c = 0; c < CPT; ++c) {
-                    const float vv = v_s[(t + e) * LD + tx + 16 * c];
+                    const float vv = v_s[(t + e) * LDV + tx + 16 * c];
 #pragma unroll
                     for (int i = 0; i < 4; ++i)
                         acc[i][c] = fmaf(pv[i][e], vv, acc[i][c]);
@@ -494,13 +535,14 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int T_len, int H, int KV, const Strides& st, float scale,
            int causal, cudaStream_t stream) {
-    const size_t smem = ((size_t)(BQ + 2 * BK) * (D + PAD) + (size_t)BQ * SS)
+    const size_t smem = ((size_t)(BQ + BK) * (DQK + PAD)
+                         + (size_t)BK * (DV + PAD) + (size_t)BQ * SS)
                         * sizeof(float);
-    auto kern = flash_attention_f32_kernel<D>;
+    auto kern = flash_attention_f32_kernel<DQK, DV>;
     static int set[32] = {};
     const int e = allow_smem(kern, smem, set);
     if (e != 0) return e;
@@ -515,14 +557,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 }  // namespace
 
-// q: (B, S, H, D), k/v: (B, T, KV, D), o: (B, S, H, D), innermost stride 1,
-// the others given in elements as (batch, seq, head) per array; every row the
-// kernel reads must start on a 16-byte boundary.
+// The (DQK, DV) head dims built: the equal ones, MLA's (192, 128) and the
+// reduced MLA's (24, 16) (deepseek-v2-lite-16b's config reduced, as the
+// serving driver runs it).
+#define RT_PAIRS(X) X(16, 16) X(32, 32) X(64, 64) X(96, 96) X(128, 128) \
+                    X(192, 128) X(24, 16)
+
+// q: (B, S, H, D), k: (B, T, KV, D), v: (B, T, KV, Dv), o: (B, S, H, Dv),
+// innermost stride 1, the others given in elements as (batch, seq, head) per
+// array; every row the kernel reads must start on a 16-byte boundary.
 // dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t
 // (0 = launched), or a negative code for arguments the kernel does not take.
 extern "C" int rt_flash_attention(
         const void* q, const void* k, const void* v, void* o,
-        int B, int S, int T_len, int H, int KV, int D,
+        int B, int S, int T_len, int H, int KV, int D, int Dv,
         long long q_sb, long long q_ss, long long q_sh,
         long long k_sb, long long k_ss, long long k_sh,
         long long v_sb, long long v_ss, long long v_sh,
@@ -535,16 +583,26 @@ extern "C" int rt_flash_attention(
     const Strides st = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                         v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
     cudaStream_t cs = (cudaStream_t)stream;
-    switch (D) {
-#define RT_CASE(n)                                                            \
-        case n:                                                               \
-            return dtype == 0                                                 \
-                ? fp32::launch<n>(q, k, v, o, B, S, T_len, H, KV, st, scale,  \
-                                  causal, cs)                                 \
-                : tc::launch<n>(q, k, v, o, B, S, T_len, H, KV, st, scale,    \
-                                causal, cs);
-        RT_CASE(16) RT_CASE(32) RT_CASE(64) RT_CASE(96) RT_CASE(128)
+#define RT_CASE(dqk, dv)                                                      \
+    if (D == dqk && Dv == dv)                                                 \
+        return dtype == 0                                                     \
+            ? fp32::launch<dqk, dv>(q, k, v, o, B, S, T_len, H, KV, st,       \
+                                    scale, causal, cs)                        \
+            : tc::launch<dqk, dv>(q, k, v, o, B, S, T_len, H, KV, st, scale,  \
+                                  causal, cs);
+    RT_PAIRS(RT_CASE)
 #undef RT_CASE
-        default: return -1;
-    }
+    return -1;
+}
+
+// Blocks of the bf16 kernel at (D, Dv) that one SM holds at once, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor with the kernel's shared
+// memory, written to *blocks.  Returns the cudaError_t, or -1 for a pair
+// that is not built.
+extern "C" int rt_flash_attention_occupancy(int D, int Dv, int* blocks) {
+#define RT_CASE(dqk, dv)                                                      \
+    if (D == dqk && Dv == dv) return tc::occupancy<dqk, dv>(blocks);
+    RT_PAIRS(RT_CASE)
+#undef RT_CASE
+    return -1;
 }

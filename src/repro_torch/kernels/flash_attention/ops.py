@@ -12,8 +12,11 @@ warps per (batch * head, 64-row query tile), two blocks to an SM, walks
 64-row K/V tiles up to the diagonal while the next tile is already on
 its way (a two-stage ring of asynchronous copies), reads the model's
 layout in place through strides (no transposes, no K/V repeat for grouped
-heads) and masks ragged tails in S and T itself.  Head dims 16, 32, 64, 96
-and 128 are built; another one raises.  bfloat16 inputs run both products on
+heads) and masks ragged tails in S and T itself.  The (q/k, v) head dims built are
+the equal pairs 16, 32, 64, 96 and 128, (192, 128), the multi-head
+latent attention prefill of DeepSeek-V2, and (24, 16), the same at the
+reduced width the serving driver runs (``HEAD_DIM_PAIRS``); another pair
+raises.  bfloat16 inputs run both products on
 the tensor cores (``mma.sync``) with scores and probabilities kept in
 registers and the softmax in exp2; float32 inputs run scalar FMAs, which
 hold the 2e-5 their callers are given.
@@ -25,6 +28,7 @@ raises.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 
 import torch
 
@@ -32,7 +36,9 @@ from .. import _build
 from . import ref
 
 flash_attention_plain = ref.attention
-HEAD_DIMS = (16, 32, 64, 96, 128)  # the instantiations in the CUDA source
+# (q/k head dim, v head dim): the instantiations in the CUDA source
+HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (96, 96), (128, 128),
+                  (192, 128), (24, 16))
 DTYPE_CODE = {torch.float32: _build.DTYPE_CODES["float32"],
               torch.bfloat16: _build.DTYPE_CODES["bfloat16"]}
 
@@ -70,27 +76,29 @@ def _on_device(device: torch.device):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q: (B, S, H, D); k, v: (B, T, KV, D) -> (B, S, H, D)."""
+    """q: (B, S, H, D); k: (B, T, KV, D); v: (B, T, KV, Dv) -> (B, S, H,
+    Dv).  The scale is ``D ** -0.5``."""
     if _device_kind((q, k, v), "flash_attention") == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)} are not (B,S,H,D)/(B,T,KV,D)")
+                         f"{tuple(v.shape)} are not (B,S,H,D)/(B,T,KV,D)/"
+                         "(B,T,KV,Dv)")
     B, S, H, D = q.shape
-    T, KV = k.shape[1], k.shape[2]
+    T, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != D or H % KV != 0:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          "belong together")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D}: the kernel is built for "
-                         f"{HEAD_DIMS}")
+    if (D, Dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head dim {D} (v: {Dv}): the kernel is built for "
+                         f"{HEAD_DIM_PAIRS}")
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16 "
                         f"throughout, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.device != k.device or q.device != v.device:
         raise ValueError("q, k and v lie on different cards")
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     if T == 0:
@@ -99,7 +107,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with _on_device(q.device):
         rc = _build.lib().rt_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, T, H, KV, D,
+            B, S, T, H, KV, D, Dv,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3],
             D ** -0.5, int(bool(causal)), DTYPE_CODE[q.dtype],
@@ -110,3 +118,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def occupancy(D: int, Dv: int) -> int:
+    """Blocks of the bf16 kernel at head dims (D, Dv) that one SM of the
+    current card holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    with the kernel's shared memory)."""
+    blocks = ctypes.c_int(0)
+    rc = _build.lib().rt_flash_attention_occupancy(D, Dv, ctypes.byref(blocks))
+    _build.check_launch("flash_attention occupancy", rc)
+    return blocks.value

@@ -1,6 +1,7 @@
 """Plain PyTorch version of causal attention (grouped-query aware).
 
-Counterpart of ``src/repro/kernels/flash_attention/ref.py``."""
+Counterpart of ``src/repro/kernels/flash_attention/ref.py``; the value head
+dim may differ from the query/key one (multi-head latent attention)."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +9,8 @@ import torch
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True) -> torch.Tensor:
-    """q: (B, S, H, D); k, v: (B, T, KV, D). fp32 softmax, GQA by repeat."""
+    """q: (B, S, H, D); k: (B, T, KV, D); v: (B, T, KV, Dv) -> (B, S, H,
+    Dv).  fp32 softmax, GQA by repeat, scale ``D ** -0.5``."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     if KV != H:
@@ -22,4 +24,4 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = torch.where(idx_s >= idx_t, logits,
                              torch.full_like(logits, -1e30))
     w = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhst,bthd->bshd", w, v)
+    return torch.einsum("bhst,bthe->bshe", w, v)

@@ -1,7 +1,8 @@
-"""Attention: grouped-query / multi-head self attention, prefill and decode.
+"""Attention: grouped-query / multi-head / multi-head latent (MLA) self
+attention, prefill and decode.
 
-Counterpart of the GQA half of ``src/repro/models/attention.py`` (MLA and
-cross attention follow with the paths that need them).
+Counterpart of ``src/repro/models/attention.py`` but for cross attention,
+which follows with the path that needs it.
 
 Routing, as the JAX package routes with ``attn_impl="pallas"``: causal
 attention over more than one position goes to
@@ -19,6 +20,14 @@ package.  :func:`attn_decode` writes the new token's K/V into the cache
 **in place** (the JAX package returns an updated copy, which its serving
 step donates) and hands the kernel a strided ``(B, KV, T, hd)`` view of
 it, so no step copies the cache.
+
+MLA (DeepSeek-V2) keeps the compressed ``(c_kv, k_pe)`` cache.  Its
+prefill decompresses K/V per head and runs causal attention with q/k head
+dim ``qk_nope + qk_rope`` and v head dim ``v_head_dim`` — (192, 128) in
+deepseek-v2-lite-16b — through the flash attention kernel; its decode
+stays in the absorbed form of the JAX package, attention in the latent
+space as plain products (the JAX package has no kernel there either),
+writing the new latent and RoPE key into the cache in place.
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ import torch
 from .. import to_dtype
 from ..kernels.decode_attention import ops as da_ops
 from ..kernels.flash_attention import ops as fa_ops
-from .layers import apply_rope, dense, linear_spec
+from .layers import _common, apply_rope, dense, linear_spec, rmsnorm
 from .sharding import spec
 
 
@@ -54,6 +63,23 @@ def _bias(n, axis, layers):
     if layers is None:
         return spec((n,), (axis,), init="zeros")
     return spec((layers, n), ("layers", axis), init="zeros")
+
+
+def mla_specs(cfg, layers: Optional[int] = None) -> Dict:
+    d, H = cfg.d_model, cfg.n_heads
+    r, qk_n, qk_r, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                         cfg.v_head_dim)
+    return {
+        "wq": linear_spec(d, H * (qk_n + qk_r), ("d_model", "q_heads"),
+                          layers),
+        "wkv_a": linear_spec(d, r + qk_r, ("d_model", "lora"), layers),
+        "kv_norm": spec((r,) if layers is None else (layers, r),
+                        ("lora",) if layers is None else ("layers", "lora"),
+                        init="ones"),
+        "wk_b": linear_spec(r, H * qk_n, ("lora", "q_heads"), layers),
+        "wv_b": linear_spec(r, H * vd, ("lora", "q_heads"), layers),
+        "wo": linear_spec(H * vd, d, ("q_heads", "d_model"), layers),
+    }
 
 
 # ============================================================== core attention
@@ -222,4 +248,97 @@ def kv_cache_specs(cfg, batch: int, max_len: int) -> Dict:
     return {
         "k": spec((batch, max_len, KV * hd), ax, dtype=dt, init="zeros"),
         "v": spec((batch, max_len, KV * hd), ax, dtype=dt, init="zeros"),
+    }
+
+
+# ============================================================== MLA (deepseek)
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A product of two operands in the wider of their types, as JAX
+    promotes them."""
+    a, b = _common(a, b)
+    return torch.einsum(eq, a, b)
+
+
+def _mla_q(cfg, p, x, positions):
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    qn, qr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = dense(x, p["wq"]).reshape(B, S, H, qn + qr)
+    q_nope, q_pe = q[..., :qn], q[..., qn:]
+    q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
+    return q_nope, q_pe
+
+
+def _mla_latent(cfg, p, x, positions):
+    r = cfg.kv_lora_rank
+    kv_a = dense(x, p["wkv_a"])                    # (B,S,r+qr)
+    c_kv = rmsnorm(kv_a[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope(kv_a[..., r:], positions, cfg.rope_theta)  # (B,S,qr)
+    return c_kv, k_pe
+
+
+def mla_forward(cfg, p, x, positions, *, causal=True, return_kv=False):
+    """Prefill MLA: decompress K/V per head (naive form).  Causal
+    attention over more than one position goes to the flash attention
+    kernel at head dims (qk_nope + qk_rope, v_head_dim), the RoPE key
+    broadcast over the heads; the rest to :func:`_sdpa`."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    qn, vd = cfg.qk_nope_dim, cfg.v_head_dim
+    q_nope, q_pe = _mla_q(cfg, p, x, positions)
+    c_kv, k_pe = _mla_latent(cfg, p, x, positions)
+    k_nope = dense(c_kv, p["wk_b"]).reshape(B, S, H, qn)
+    v = dense(c_kv, p["wv_b"]).reshape(B, S, H, vd)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
+        B, S, H, cfg.qk_rope_dim)], dim=-1)
+    if causal and S > 1:
+        out = fa_ops.flash_attention(q, k, v, causal=True)
+    else:
+        out = _sdpa(q, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                    causal=causal,
+                    q_pos=positions[0] if positions.dim() == 2 else positions)
+    y = dense(out.reshape(B, S, -1), p["wo"])
+    if return_kv:
+        return y, {"c_kv": c_kv, "k_pe": k_pe}
+    return y
+
+
+def mla_decode(cfg, p, x, pos, cache: Dict):
+    """Absorbed-form MLA decode: attention in the compressed latent space.
+    The new latent and RoPE key are written into ``cache`` in place and
+    the same tensors are returned."""
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"mla_decode takes one token, got {S}")
+    H = cfg.n_heads
+    qn, qr, vd, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                     cfg.kv_lora_rank)
+    positions = _position(pos, x.device)
+    q_nope, q_pe = _mla_q(cfg, p, x, positions)          # (B,1,H,qn),(B,1,H,qr)
+    c_new, kpe_new = _mla_latent(cfg, p, x, positions)   # (B,1,r),(B,1,qr)
+    ckv, kpe = cache["c_kv"], cache["k_pe"]
+    ckv.index_copy_(1, positions, c_new.to(ckv.dtype))
+    kpe.index_copy_(1, positions, kpe_new.to(kpe.dtype))
+    # absorb W_kb into q: q_lat (B,1,H,r)
+    q_lat = _einsum("bshn,rhn->bshr", q_nope, p["wk_b"].reshape(r, H, qn))
+    logits = (torch.einsum("bshr,btr->bhst", q_lat.float(), ckv.float())
+              + torch.einsum("bshr,btr->bhst", q_pe.float(), kpe.float()))
+    logits = logits * ((qn + qr) ** -0.5)
+    mask = torch.arange(ckv.shape[1], device=x.device) < positions + 1
+    logits = torch.where(mask, logits, torch.full_like(logits, _NEG))
+    w = torch.softmax(logits, dim=-1).to(x.dtype)
+    ctx = _einsum("bhst,btr->bshr", w, ckv)               # (B,1,H,r)
+    out = _einsum("bshr,rhv->bshv", ctx, p["wv_b"].reshape(r, H, vd))
+    y = dense(out.reshape(B, 1, -1), p["wo"])
+    return y, {"c_kv": ckv, "k_pe": kpe}
+
+
+def mla_cache_specs(cfg, batch: int, max_len: int) -> Dict:
+    dt = to_dtype(cfg.dtype)
+    return {
+        "c_kv": spec((batch, max_len, cfg.kv_lora_rank),
+                     ("batch", None, None), dtype=dt, init="zeros"),
+        "k_pe": spec((batch, max_len, cfg.qk_rope_dim),
+                     ("batch", None, None), dtype=dt, init="zeros"),
     }

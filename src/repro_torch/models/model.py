@@ -4,7 +4,7 @@ Counterpart of ``src/repro/models/model.py`` for the families ported so
 far: ``build(cfg)`` returns a :class:`Model` exposing ``param_specs`` (the
 ParamSpec tree), ``init(generator, device)`` (random parameters),
 ``forward(params, batch, ...)`` — the action for a VLA, the logits of the
-whole sequence for a dense, SSM or hybrid LM — and the serving triple
+whole sequence for a dense, MoE, SSM or hybrid LM — and the serving triple
 ``prefill(params, batch)``, ``decode(params, cache, tokens, pos)`` and
 ``cache_specs(batch, max_len)``.  A VLA re-prefills every request: its ``prefill`` and
 ``decode`` raise and its cache is empty, as in the JAX package.
@@ -44,7 +44,7 @@ class Model:
 def build(cfg: ModelConfig) -> Model:
     fam = cfg.family
 
-    if fam == "dense":
+    if fam in ("dense", "moe"):
         def forward(params, batch):
             h, _ = T.lm_hidden(cfg, params, batch["tokens"])
             return T.lm_logits(cfg, params, h)
@@ -112,6 +112,6 @@ def build(cfg: ModelConfig) -> Model:
         return Model(cfg, Hy.hybrid_specs(cfg), forward, prefill, decode,
                      cache_specs)
 
-    if fam in ("moe", "audio", "vlm"):
+    if fam in ("audio", "vlm"):
         raise NotImplementedError(f"family {fam!r} is not ported yet")
     raise ValueError(f"unknown family {fam!r}")

@@ -1,17 +1,22 @@
-"""Decoder-only LM assembly for the dense family.
+"""Decoder-only LM assembly for the dense and MoE families.
 
-Counterpart of the dense path of ``src/repro/models/transformer.py``:
-full-sequence forward, prefill and one-token decode.  Layer parameters are
+Counterpart of ``src/repro/models/transformer.py``: full-sequence forward,
+prefill and one-token decode.  Layer parameters are
 **stacked** along a leading ``layers`` dim, as in the JAX package, and a
 layer's weights are views into the stack — nothing is copied to run a
 layer.  The stack runs as a Python loop; ``cfg.scan_layers`` and ``remat``
 are accepted and have no meaning in eager inference.
 
+An MoE model runs its layers in groups (:func:`_groups`): the
+``dense_blocks`` first (deepseek-v2-lite-16b has one), then the
+``moe_blocks``, each group a stack of its own; attention is MLA where the
+config says so (``use_mla``).
+
 Caches follow the same convention: stacked ``(L, B, S_max, KV*hd)``
-tensors.  Decode writes each layer's new K/V in place into its view of the
-stack, so a step never re-stacks (copies) the cache, and
-:func:`lm_decode` returns the same tensors it was given.  MoE blocks
-follow with the path that needs them.
+tensors per group (MLA: ``c_kv`` and ``k_pe``).  Decode writes each
+layer's new entries in place into its view of the stack, so a step never
+re-stacks (copies) the cache, and :func:`lm_decode` returns the same
+tensors it was given.
 """
 from __future__ import annotations
 
@@ -23,21 +28,25 @@ from .. import to_dtype
 from . import attention as A
 from .layers import (embed, embed_spec, mlp, mlp_specs, rmsnorm, rmsnorm_spec,
                      unembed)
+from .moe import moe_ffn, moe_specs
 from .sharding import spec, tree_leaves, tree_map
 
 Tree = Any
 
 
 # ================================================================= specs
+def _attn_specs(cfg, layers):
+    return A.mla_specs(cfg, layers) if cfg.use_mla \
+        else A.attn_specs(cfg, layers)
+
+
 def dense_block_specs(cfg, layers: Optional[int] = None,
                       d_ff: Optional[int] = None):
-    if cfg.use_mla:
-        raise NotImplementedError("MLA attention is not ported yet")
     d = cfg.d_model
     ff = d_ff if d_ff is not None else cfg.d_ff
     out = {
         "ln1": rmsnorm_spec(d, layers),
-        "attn": A.attn_specs(cfg, layers),
+        "attn": _attn_specs(cfg, layers),
         "mlp": mlp_specs(d, ff, layers),
     }
     if not cfg.parallel_block:
@@ -45,43 +54,73 @@ def dense_block_specs(cfg, layers: Optional[int] = None,
     return out
 
 
+def moe_block_specs(cfg, layers: Optional[int] = None):
+    d = cfg.d_model
+    return {
+        "ln1": rmsnorm_spec(d, layers),
+        "attn": _attn_specs(cfg, layers),
+        "ln2": rmsnorm_spec(d, layers),
+        "moe": moe_specs(cfg, layers),
+    }
+
+
 def lm_specs(cfg) -> Dict:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     V, d = cfg.vocab_size, cfg.d_model
-    specs: Dict = {"embed": embed_spec(V, d), "final_norm": rmsnorm_spec(d),
-                   "blocks": dense_block_specs(cfg, cfg.n_layers)}
+    specs: Dict = {"embed": embed_spec(V, d), "final_norm": rmsnorm_spec(d)}
+    if cfg.family == "moe":
+        nd = cfg.first_dense_layers
+        if nd:
+            specs["dense_blocks"] = dense_block_specs(cfg, nd)
+        specs["moe_blocks"] = moe_block_specs(cfg, cfg.n_layers - nd)
+    else:
+        specs["blocks"] = dense_block_specs(cfg, cfg.n_layers)
     if not cfg.tie_embeddings:
         specs["head"] = embed_spec(V, d)
     return specs
 
 
 # ================================================================ block fwd
+def _self_attn(cfg, p, x, positions, *, return_kv=False):
+    if cfg.use_mla:
+        return A.mla_forward(cfg, p, x, positions, causal=cfg.causal,
+                             return_kv=return_kv)
+    return A.attn_forward(cfg, p, x, positions, causal=cfg.causal,
+                          return_kv=return_kv)
+
+
 def block_forward(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
                   *, is_moe: bool = False, return_kv: bool = False):
     """Returns (x, kv_cache_or_None, aux_loss)."""
-    if is_moe:
-        raise NotImplementedError("MoE blocks are not ported yet")
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    a = A.attn_forward(cfg, p["attn"], h, positions, causal=cfg.causal,
-                       return_kv=return_kv)
+    a = _self_attn(cfg, p["attn"], h, positions, return_kv=return_kv)
     a, kv = a if return_kv else (a, None)
-    if cfg.parallel_block:
+    if cfg.parallel_block and not is_moe:
         # command-r: shared-norm parallel residual
         return x + a + mlp(p["mlp"], h), kv, 0.0
     x = x + a
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(p["mlp"], h), kv, 0.0
+    if is_moe:
+        m, aux = moe_ffn(cfg, p["moe"], h)
+    else:
+        m, aux = mlp(p["mlp"], h), 0.0
+    return x + m, kv, aux
 
 
-def block_decode(cfg, p: Dict, x: torch.Tensor, pos, cache: Dict):
+def block_decode(cfg, p: Dict, x: torch.Tensor, pos, cache: Dict, *,
+                 is_moe: bool = False):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    a, cache = A.attn_decode(cfg, p["attn"], h, pos, cache)
-    if cfg.parallel_block:
+    if cfg.use_mla:
+        a, cache = A.mla_decode(cfg, p["attn"], h, pos, cache)
+    else:
+        a, cache = A.attn_decode(cfg, p["attn"], h, pos, cache)
+    if cfg.parallel_block and not is_moe:
         return x + a + mlp(p["mlp"], h), cache
     x = x + a
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(p["mlp"], h), cache
+    m = moe_ffn(cfg, p["moe"], h)[0] if is_moe else mlp(p["mlp"], h)
+    return x + m, cache
 
 
 # ================================================================ stack run
@@ -117,6 +156,17 @@ def run_stack_decode(cfg, blocks_p: Tree, caches: Tree, x: torch.Tensor,
 
 
 # ================================================================ LM api
+def _groups(cfg):
+    """[(name, n_layers, is_moe)] in execution order."""
+    if cfg.family == "moe":
+        g = []
+        if cfg.first_dense_layers:
+            g.append(("dense_blocks", cfg.first_dense_layers, False))
+        g.append(("moe_blocks", cfg.n_layers - cfg.first_dense_layers, True))
+        return g
+    return [("blocks", cfg.n_layers, False)]
+
+
 @torch.no_grad()
 def lm_hidden(cfg, params: Dict, tokens: torch.Tensor, *,
               remat: Optional[bool] = None):
@@ -124,13 +174,15 @@ def lm_hidden(cfg, params: Dict, tokens: torch.Tensor, *,
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
     x = embed(params["embed"], tokens).to(to_dtype(cfg.dtype))
+    aux = 0.0
+    for name, _, is_moe in _groups(cfg):
+        def one(pl, h, _moe=is_moe):
+            h, _, a = block_forward(cfg, pl, h, positions, is_moe=_moe)
+            return h, None, a
 
-    def one(pl, h):
-        h, _, a = block_forward(cfg, pl, h, positions)
-        return h, None, a
-
-    n = tree_leaves(params["blocks"])[0].shape[0]
-    x, _, aux = run_stack(cfg, params["blocks"], x, one, n)
+        n = tree_leaves(params[name])[0].shape[0]
+        x, _, a = run_stack(cfg, params[name], x, one, n)
+        aux = aux + a
     return x, aux
 
 
@@ -143,18 +195,20 @@ def lm_logits(cfg, params: Dict, h: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def lm_prefill(cfg, params: Dict, tokens: torch.Tensor):
-    """Prefill: returns (last-position logits, {"blocks": stacked KV})."""
+    """Prefill: returns (last-position logits, stacked caches per group)."""
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
     x = embed(params["embed"], tokens).to(to_dtype(cfg.dtype))
+    caches: Dict = {}
+    for name, n, is_moe in _groups(cfg):
+        def one(pl, h, _moe=is_moe):
+            return block_forward(cfg, pl, h, positions, is_moe=_moe,
+                                 return_kv=True)
 
-    def one(pl, h):
-        return block_forward(cfg, pl, h, positions, return_kv=True)
-
-    x, kv, _ = run_stack(cfg, params["blocks"], x, one, cfg.n_layers,
-                         collect=True)
+        x, caches[name], _ = run_stack(cfg, params[name], x, one, n,
+                                       collect=True)
     logits = lm_logits(cfg, params, x[:, -1:])
-    return logits, {"blocks": kv}
+    return logits, caches
 
 
 @torch.no_grad()
@@ -162,19 +216,18 @@ def lm_decode(cfg, params: Dict, caches: Dict, tokens: torch.Tensor, pos):
     """One decode step. tokens: (B,1); pos: the current position (int or
     0-dim tensor).  ``caches`` are updated in place and returned."""
     x = embed(params["embed"], tokens).to(to_dtype(cfg.dtype))
+    for name, n, is_moe in _groups(cfg):
+        def dec(pl, h, c, _moe=is_moe):
+            return block_decode(cfg, pl, h, pos, c, is_moe=_moe)
 
-    def dec(pl, h, c):
-        return block_decode(cfg, pl, h, pos, c)
-
-    x, _ = run_stack_decode(cfg, params["blocks"], caches["blocks"], x, dec,
-                            cfg.n_layers)
+        x, _ = run_stack_decode(cfg, params[name], caches[name], x, dec, n)
     return lm_logits(cfg, params, x), caches
 
 
 def lm_cache_specs(cfg, batch: int, max_len: int) -> Dict:
-    if cfg.use_mla:
-        raise NotImplementedError("MLA caches are not ported yet")
-    per = A.kv_cache_specs(cfg, batch, max_len)
-    return {"blocks": tree_map(
-        lambda s: spec((cfg.n_layers,) + s.shape, ("layers",) + s.axes,
-                       dtype=s.dtype, init="zeros"), per)}
+    per = (A.mla_cache_specs if cfg.use_mla else A.kv_cache_specs)(
+        cfg, batch, max_len)
+    return {name: tree_map(
+        lambda s, n=n: spec((n,) + s.shape, ("layers",) + s.axes,
+                            dtype=s.dtype, init="zeros"), per)
+        for name, n, _ in _groups(cfg)}

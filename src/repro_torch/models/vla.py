@@ -1,14 +1,16 @@
 """VLA models — the paper's own evaluation targets (OpenVLA, CogACT).
 
 Counterpart of ``src/repro/models/vla.py``: ViT encoder (patch embeddings
--> vit blocks -> project to LLM width) + LLM backbone + action decoder.
-Ported here are the two heads the paper's models use: ``detok`` (OpenVLA)
-and ``dit`` (CogACT, DDIM sampling).  The ``mlp``, ``lstm`` and
-``diffusion`` heads and the training loss are not ported yet and raise.
+-> vit blocks -> project to LLM width) + LLM backbone + action decoder
+S_dec in {detok, MLP, LSTM, diffusion, DiT} (paper §IV-A).  ``detok``
+(OpenVLA) reads the LM head; the other four read the cognition feature,
+the final hidden state of the last position (:func:`decode_action`).  The
+training loss is not ported yet and raises.
 
-Where the JAX package draws the DiT's initial noise from a key,
-:func:`dit_sample` takes the noise as an argument, so that a test can feed
-both packages the same draw.
+Where the JAX package draws the initial noise of the ``diffusion`` and
+``dit`` heads from a key, the port takes the noise as an argument (drawn
+by :func:`draw_noise` from an explicit ``torch.Generator`` when left out),
+so that a test can feed both packages the same draw.
 """
 from __future__ import annotations
 
@@ -24,12 +26,8 @@ from .layers import (dense, embed, embed_spec, linear_spec, mlp, mlp_specs,
 from .sharding import spec
 from .transformer import block_forward, dense_block_specs, run_stack
 
-_PORTED_HEADS = ("detok", "", "dit")
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"action head {kind!r} is not ported yet; have 'detok' and 'dit'")
+HEADS = ("detok", "", "mlp", "lstm", "diffusion", "dit")
+NOISY_HEADS = ("diffusion", "dit")      # heads that start from a draw
 
 
 # ------------------------------------------------------------------ ViT
@@ -80,10 +78,29 @@ def vit_encode(cfg, p, patches: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------- action heads
 def action_head_specs(cfg) -> Dict:
-    d, a = cfg.d_model, cfg.action_dim
+    d, a, h = cfg.d_model, cfg.action_dim, cfg.action_horizon
     kind = cfg.vla_action_head
     if kind in ("detok", ""):
         return {}
+    if kind == "mlp":
+        return {
+            "w1": linear_spec(d, 4 * d, ("d_model", "ff")),
+            "w2": linear_spec(4 * d, d, ("ff", "d_model")),
+            "out": linear_spec(d, a * h, ("d_model", None)),
+        }
+    if kind == "lstm":
+        return {
+            "wx": linear_spec(d, 4 * d, ("d_model", "ff")),
+            "wh": linear_spec(d, 4 * d, ("d_model", "ff")),
+            "b": spec((4 * d,), ("ff",), init="zeros"),
+            "out": linear_spec(d, a, ("d_model", None)),
+        }
+    if kind == "diffusion":  # small conditional denoising MLP
+        return {
+            "in": linear_spec(a * h + d + 64, d, (None, "d_model")),
+            "mid": linear_spec(d, d, ("d_model", None)),
+            "out": linear_spec(d, a * h, ("d_model", None)),
+        }
     if kind == "dit":
         dd = cfg.dit_dim
         return {
@@ -103,8 +120,6 @@ def action_head_specs(cfg) -> Dict:
             "final_mod": linear_spec(dd, 2 * dd, (None, None), init="zeros"),
             "out": linear_spec(dd, a, (None, None), init="zeros"),
         }
-    if kind in ("mlp", "lstm", "diffusion"):
-        raise _not_ported(kind)
     raise ValueError(f"unknown action head {kind!r}")
 
 
@@ -188,6 +203,83 @@ def dit_sample(cfg, p, cognition: torch.Tensor, noise: torch.Tensor
     return x
 
 
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")        # jax.nn.gelu's default
+
+
+@torch.no_grad()
+def mlp_head(cfg, p, cog: torch.Tensor) -> torch.Tensor:
+    """cognition (B, d_model) -> action chunk (B, horizon, action_dim)."""
+    z = _gelu(dense(cog, p["w1"]))
+    z = _gelu(dense(z, p["w2"]))
+    return dense(z, p["out"]).reshape(-1, cfg.action_horizon, cfg.action_dim)
+
+
+@torch.no_grad()
+def lstm_head(cfg, p, cog: torch.Tensor) -> torch.Tensor:
+    """An LSTM unrolled over the horizon on the constant cognition input;
+    the cell state stays float32, the hidden state in the cognition's
+    dtype, as in the JAX package."""
+    B, d = cog.shape
+    hs = torch.zeros((B, d), dtype=cog.dtype, device=cog.device)
+    cs = torch.zeros((B, d), dtype=torch.float32, device=cog.device)
+    acts = []
+    for _ in range(cfg.action_horizon):
+        g = dense(cog, p["wx"]) + dense(hs, p["wh"]) + p["b"]
+        i, f, o, c = g.float().chunk(4, dim=-1)
+        cs = torch.sigmoid(f) * cs + torch.sigmoid(i) * torch.tanh(c)
+        hs = (torch.sigmoid(o) * torch.tanh(cs)).to(cog.dtype)
+        acts.append(dense(hs, p["out"]))
+    return torch.stack(acts, dim=1)
+
+
+@torch.no_grad()
+def diffusion_head(cfg, p, cog: torch.Tensor, noise: torch.Tensor
+                   ) -> torch.Tensor:
+    """cfg.diffusion_steps of a conditional denoising MLP, starting from
+    ``noise`` of shape (B, horizon * action_dim), float32."""
+    B = cog.shape[0]
+    if tuple(noise.shape) != noise_shape(cfg, B):
+        raise ValueError(f"noise {tuple(noise.shape)} != "
+                         f"{noise_shape(cfg, B)}")
+    n = cfg.diffusion_steps
+    x = noise.to(device=cog.device, dtype=torch.float32)
+    for t in range(n - 1, -1, -1):
+        te = _timestep_embed(torch.full((B,), t, device=cog.device))
+        inp = torch.cat([x.to(cog.dtype), cog, te.to(cog.dtype)], dim=-1)
+        eps = dense(_gelu(dense(_gelu(dense(inp, p["in"])), p["mid"])),
+                    p["out"])
+        x = x - eps.float() / n
+    return x.reshape(B, cfg.action_horizon, cfg.action_dim)
+
+
+def noise_shape(cfg, batch: int) -> tuple:
+    """The initial draw of a head in ``NOISY_HEADS``."""
+    h, a = cfg.action_horizon, cfg.action_dim
+    if cfg.vla_action_head == "diffusion":
+        return (batch, h * a)
+    return (batch, h, a)
+
+
+@torch.no_grad()
+def decode_action(cfg, p, cog: torch.Tensor, noise=None) -> torch.Tensor:
+    """A head that reads the cognition feature (every head but ``detok``):
+    (B, d_model) -> (B, horizon, action_dim).  ``noise`` is the initial
+    draw of the ``diffusion`` and ``dit`` heads."""
+    kind = cfg.vla_action_head
+    if kind == "mlp":
+        return mlp_head(cfg, p, cog)
+    if kind == "lstm":
+        return lstm_head(cfg, p, cog)
+    if kind not in NOISY_HEADS:
+        raise ValueError(f"action head {kind!r} does not read the "
+                         "cognition feature")
+    if noise is None:
+        raise ValueError(f"the {kind!r} head needs its initial noise")
+    head = diffusion_head if kind == "diffusion" else dit_sample
+    return head(cfg, p, cog, noise)
+
+
 # ------------------------------------------------------------------ VLA model
 def vla_specs(cfg) -> Dict:
     return {
@@ -226,29 +318,29 @@ def detokenize(logits: torch.Tensor) -> torch.Tensor:
 
 def draw_noise(cfg, batch: int, device, generator: Optional[torch.Generator]
                ) -> torch.Tensor:
-    """The DiT's initial noise from an explicit generator (seed 0 when none
-    is given, as the JAX package defaults its key)."""
+    """The initial noise of the ``diffusion`` or ``dit`` head from an
+    explicit generator (seed 0 when none is given, as the JAX package
+    defaults its key)."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    return torch.randn((batch, cfg.action_horizon, cfg.action_dim),
-                       generator=generator, device=device,
-                       dtype=torch.float32)
+    return torch.randn(noise_shape(cfg, batch), generator=generator,
+                       device=device, dtype=torch.float32)
 
 
 @torch.no_grad()
 def vla_forward(cfg, params, patches, tokens, noise=None, generator=None):
     """Inference: returns action (B, horizon, action_dim)."""
     kind = cfg.vla_action_head
-    if kind not in _PORTED_HEADS:
-        raise _not_ported(kind)
+    if kind not in HEADS:
+        raise ValueError(f"unknown action head {kind!r}")
     h = vla_backbone(cfg, params, patches, tokens)
     if kind in ("detok", ""):
         return detokenize(unembed(params["head"], h[:, -cfg.action_dim:],
                                   cfg.vocab_size))
     cog = h[:, -1]                                        # cognition feature
-    if noise is None:
+    if kind in NOISY_HEADS and noise is None:
         noise = draw_noise(cfg, cog.shape[0], cog.device, generator)
-    return dit_sample(cfg, params["action"], cog, noise)
+    return decode_action(cfg, params["action"], cog, noise)
 
 
 def vla_loss(cfg, params, patches, tokens, action_labels, key=None):

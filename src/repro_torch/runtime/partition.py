@@ -26,7 +26,8 @@ parameter tree, as in the JAX package.  On the card both codecs launch
 their hand-written kernels (int8: ``quantize`` / ``dequantize``; packed
 int4: ``quantize_int4`` / ``dequantize_int4``); int4 at a width that is no
 multiple of 256 raises here, before any kernel.  ``LMSplitExecutor``
-serves the dense family (MoE raises until its blocks are ported).
+serves the dense and MoE families; an MoE model's pool may not straddle
+its dense/MoE group boundary.
 
 Temporal-delta transport (``core/codec.DeltaCodec``): ``delta_encode``
 ships only the token rows whose activation changed since the previous
@@ -151,7 +152,7 @@ class SplitPlan:
 
 # ------------------------------------------------------------------ helpers
 def _masked_stack(cfg, pool_params: Tree, x: torch.Tensor, positions,
-                  split: int, offset: int, side: str):
+                  split: int, offset: int, side: str, *, is_moe: bool = False):
     """Run the pool layers that are active on this side of the cut.
 
     ``side`` names the *predicate*, not the physical tier: ``"edge"`` runs
@@ -163,7 +164,7 @@ def _masked_stack(cfg, pool_params: Tree, x: torch.Tensor, positions,
         i = offset + j
         if (i < split) if side == "edge" else (i >= split):
             x, _, _ = block_forward(cfg, _layer_slice(pool_params, j), x,
-                                    positions)
+                                    positions, is_moe=is_moe)
     return x
 
 
@@ -372,9 +373,10 @@ def _check_device(device: torch.device, **tensors) -> None:
 
 # ================================================================ LM executor
 class LMSplitExecutor:
-    """Dense decoder-only LM split at a block boundary.
+    """Dense or MoE decoder-only LM split at a block boundary.
 
-    Layer indexing: 0..L-1 are transformer blocks; embed always on edge.
+    Layer indexing: 0..L-1 are transformer blocks (an MoE model's dense
+    blocks first, then its MoE blocks); embed always on edge.
     Single-pool plans keep final-norm + unembed cloud-side; a two-pool plan
     returns the tail — pool-2 layers with ``i >= split2``, the blocks after
     ``pool2_end`` and the LM head — to the edge, shipping a second
@@ -385,36 +387,60 @@ class LMSplitExecutor:
     that ask for the plain versions (the tests)."""
 
     def __init__(self, cfg, plan: SplitPlan, device="cuda"):
-        if cfg.family == "moe":
-            raise NotImplementedError("MoE blocks are not ported yet")
-        if cfg.family != "dense":
-            raise ValueError(f"LMSplitExecutor serves the dense family, "
-                             f"got {cfg.family!r}")
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"LMSplitExecutor serves the dense and moe "
+                             f"families, got {cfg.family!r}")
         if not 0 <= plan.pool_start <= plan.pool_end <= cfg.n_layers:
             raise ValueError(f"pool [{plan.pool_start}, {plan.pool_end}) "
                              f"must lie in [0, {cfg.n_layers}]")
         if plan.two_pool and not plan.pool2_end <= cfg.n_layers:
             raise ValueError(f"second pool [{plan.pool2_start}, "
                              f"{plan.pool2_end}) must end by {cfg.n_layers}")
+        nd = cfg.first_dense_layers if cfg.family == "moe" else 0
+        for lo, hi in ((plan.pool_start, plan.pool_end),
+                       (plan.pool2_start, plan.pool2_end)):
+            if lo < nd < hi:
+                raise ValueError(f"pool [{lo}, {hi}) straddles the dense/MoE "
+                                 f"group boundary at block {nd}")
         self.cfg = cfg
         self.plan = plan
         self.device = require_device(device)
 
-    def _blocks(self, params, start: int, end: int) -> Tree:
-        """Stacked block params [start, end) (one pool's weights, views)."""
-        return tree_map(lambda w: w[start:end], params["blocks"])
+    # -- groups bookkeeping (dense vs moe layer groups)
+    def _block_at(self, params, i: int) -> Tuple[Tree, bool]:
+        """Block ``i``'s params (views) and whether it is an MoE block."""
+        cfg = self.cfg
+        if cfg.family == "moe" and i >= cfg.first_dense_layers:
+            return _layer_slice(params["moe_blocks"],
+                                i - cfg.first_dense_layers), True
+        name = "dense_blocks" if cfg.family == "moe" else "blocks"
+        return _layer_slice(params[name], i), False
+
+    def _group_params(self, params, start: int, end: int
+                      ) -> Tuple[Tree, bool]:
+        """Stacked params of blocks [start, end) (one pool's weights,
+        views), which lie in one group."""
+        cfg = self.cfg
+        if cfg.family != "moe":
+            return tree_map(lambda w: w[start:end], params["blocks"]), False
+        nd = cfg.first_dense_layers
+        if start >= nd:
+            return tree_map(lambda w: w[start - nd:end - nd],
+                            params["moe_blocks"]), True
+        return tree_map(lambda w: w[start:end], params["dense_blocks"]), False
 
     def _run_blocks(self, params, x, positions, start: int, end: int):
         for i in range(start, end):
-            x, _, _ = block_forward(self.cfg, _layer_slice(params["blocks"], i),
-                                    x, positions)
+            pl, is_moe = self._block_at(params, i)
+            x, _, _ = block_forward(self.cfg, pl, x, positions, is_moe=is_moe)
         return x
 
     def _pool(self, params, x, positions, split: int, start: int, end: int,
               side: str):
         if end > start:
-            x = _masked_stack(self.cfg, self._blocks(params, start, end), x,
-                              positions, split, start, side)
+            pool, is_moe = self._group_params(params, start, end)
+            x = _masked_stack(self.cfg, pool, x, positions, split, start,
+                              side, is_moe=is_moe)
         return x
 
     # -- edge side: embed + [0, pool_start) + masked pool
@@ -541,9 +567,8 @@ class VLASplitExecutor:
         if cfg.family != "vla":
             raise ValueError(f"VLASplitExecutor serves the vla family, "
                              f"got {cfg.family!r}")
-        if cfg.vla_action_head not in ("detok", "", "dit"):
-            raise NotImplementedError(
-                f"action head {cfg.vla_action_head!r} is not ported yet")
+        if cfg.vla_action_head not in V.HEADS:
+            raise ValueError(f"unknown action head {cfg.vla_action_head!r}")
         self.cfg = cfg
         self.plan = plan
         self.device = require_device(device)
@@ -572,7 +597,7 @@ class VLASplitExecutor:
         """Static downlink sequence length.  When pool 2 is degenerate at
         the graph end the tail is exactly the action stage, which reads
         only its semantic conditioning slice (detok: the last
-        ``action_dim`` positions; DiT: the cognition token).  A pool 2
+        ``action_dim`` positions; every other head: the cognition token).  A pool 2
         with movable blocks needs the full sequence.  0 means "ship
         everything"."""
         cfg, plan = self.cfg, self.plan
@@ -590,7 +615,7 @@ class VLASplitExecutor:
         if cfg.vla_action_head in ("detok", ""):
             return V.detokenize(unembed(params["head"],
                                         h[:, -cfg.action_dim:]))
-        return V.dit_sample(cfg, params["action"], h[:, -1], noise)
+        return V.decode_action(cfg, params["action"], h[:, -1], noise)
 
     # -- edge: ViT + embed + [0, pool_start) + the pool below the cut
     def _edge_hidden(self, params, patches, tokens, split: int):
@@ -670,7 +695,7 @@ class VLASplitExecutor:
     # -- public API
     def _prepare(self, patches, tokens, noise, generator):
         _check_device(self.device, patches=patches, tokens=tokens)
-        if self.cfg.vla_action_head == "dit" and noise is None:
+        if self.cfg.vla_action_head in V.NOISY_HEADS and noise is None:
             noise = V.draw_noise(self.cfg, patches.shape[0], patches.device,
                                  generator)
         return noise
@@ -694,8 +719,9 @@ class VLASplitExecutor:
         """One co-inference.  Single-pool plans return
         ``(action, uplink_payload)``; two-pool plans take the second cut
         ``split2`` and return ``(action, {"up": ..., "down": ...})`` with
-        the action decoded on the edge tail.  ``noise`` is the DiT's
-        initial draw (made from ``generator`` when left out).
+        the action decoded on the edge tail.  ``noise`` is the initial
+        draw of a ``diffusion`` or ``dit`` head (made from ``generator``
+        when left out).
         ``recorder`` as in ``LMSplitExecutor.run``."""
         noise = self._prepare(patches, tokens, noise, generator)
         split = self.plan.clamp(split)

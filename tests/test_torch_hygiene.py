@@ -82,6 +82,7 @@ def test_the_package_lists_every_module_of_the_slice():
     for want in ("configs.base", "configs.openvla_7b", "configs.cogact_7b",
                  "configs.llama3_2_3b", "convert", "models.sharding",
                  "models.layers", "models.attention", "models.transformer",
+                 "models.moe",
                  "models.vla", "models.model", "runtime.partition",
                  "kernels._build", "kernels.activation_codec.ops",
                  "kernels.activation_codec.ref",
@@ -110,7 +111,11 @@ def test_the_package_lists_every_module_of_the_slice():
     assert {p.name for p in _build.CSRC.glob("*.cuh")} == {"common.cuh"}
     assert {"rt_quantize_int8", "rt_dequantize_int8", "rt_quantize_int4",
             "rt_dequantize_int4", "rt_flash_attention",
-            "rt_decode_attention", "rt_ssd_scan"} == set(_build.SIGNATURES)
+            "rt_flash_attention_occupancy", "rt_decode_attention",
+            "rt_ssd_scan"} == set(_build.SIGNATURES)
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    for name in ("rt_flash_attention", "rt_flash_attention_occupancy"):
+        assert f'extern "C" int {name}(' in src
     src = (_build.CSRC / "activation_codec.cu").read_text()
     for name in _build.SIGNATURES:
         if "quantize" in name:
@@ -474,9 +479,9 @@ def test_flash_attention_launches_its_kernel_on_a_cuda_tensor(monkeypatch):
     assert out.shape == (B, S, H, hd) and out.dtype == torch.bfloat16
     ((name, a),) = fake.calls
     assert name == "rt_flash_attention"
-    assert a[4:10] == (B, S, S, H, KV, hd)
-    assert a[10:13] == (S * H * hd, H * hd, hd)                 # q
-    assert a[13:16] == a[16:19] == (S * KV * hd, KV * hd, hd)   # k, v
-    assert a[19:22] == (S * H * hd, H * hd, hd)                 # out
-    assert a[22] == hd ** -0.5 and a[23:] == (1, 1, 7)
+    assert a[4:11] == (B, S, S, H, KV, hd, hd)
+    assert a[11:14] == (S * H * hd, H * hd, hd)                 # q
+    assert a[14:17] == a[17:20] == (S * KV * hd, KV * hd, hd)   # k, v
+    assert a[20:23] == (S * H * hd, H * hd, hd)                 # out
+    assert a[23] == hd ** -0.5 and a[24:] == (1, 1, 7)
     assert entered == [] and fa.flash_attention.launches == 1

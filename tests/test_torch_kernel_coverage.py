@@ -1,10 +1,13 @@
 """What the port's kernels are built for covers what its ``build`` serves:
 every config's attention geometry (head dim, GQA group) lies in the flash
-attention and flash-decode instantiations, every SSM geometry (state dim,
-head dim) in the SSD scan's, and the families ``build`` refuses raise
+attention and flash-decode instantiations — MLA's prefill head dims
+(q/k 192, v 128 in deepseek-v2-lite-16b) in the flash attention's built
+pairs, its absorbed decode having no kernel — every SSM geometry (state
+dim, head dim) in the SSD scan's, and the families ``build`` refuses raise
 there, so that a family added later turns this red unless the kernels
 take its geometry.  Head dim 96 (phi3-mini-3.8b) reaches both attention
-entry points on a card and agrees with the JAX package on the CPU."""
+entry points on a card and agrees with the JAX package on the CPU, and
+deepseek-v2-lite-16b's (192, 128) reaches the flash attention entry."""
 import contextlib
 import types
 
@@ -24,9 +27,9 @@ from repro_torch.models import build
 
 from _torch_port_util import t2np, to_np
 
-ATTENTION = ("dense", "vla", "hybrid")        # causal prefill + decode
+ATTENTION = ("dense", "vla", "hybrid", "moe")  # causal prefill + decode
 SSM = ("ssm", "hybrid")
-REFUSED = ("moe", "vlm", "audio")
+REFUSED = ("vlm", "audio")
 
 
 def test_the_walk_covers_every_config_and_family():
@@ -43,15 +46,39 @@ def test_what_build_serves_lies_in_what_the_kernels_build(name):
             build(cfg)
         return
     build(cfg)
-    if cfg.family in ATTENTION:
+    if cfg.family in ATTENTION and cfg.use_mla:
+        # MLA: the prefill's decompressed heads; decode is absorbed (plain)
+        pair = (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
+        assert pair in fa.HEAD_DIM_PAIRS, (name, pair)
+    elif cfg.family in ATTENTION:
         hd, group = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
         assert cfg.n_heads % cfg.n_kv_heads == 0
-        assert hd in fa.HEAD_DIMS and hd in da.HEAD_DIMS, (name, hd)
+        assert (hd, hd) in fa.HEAD_DIM_PAIRS and hd in da.HEAD_DIMS, (name,
+                                                                      hd)
         assert group <= da.MAX_GROUP, (name, group)
     if cfg.family in SSM:
         assert cfg.ssm_state in ssd.STATE_DIMS, (name, cfg.ssm_state)
         assert cfg.ssm_headdim in ssd.HEAD_DIMS, (name, cfg.ssm_headdim)
         assert 1 <= cfg.ssm_chunk <= ssd.MAX_CHUNK
+
+
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_what_the_reduced_configs_serve_lies_in_what_the_kernels_build(name):
+    """The reduced configs (the serving driver's data plane and the CPU
+    tests) too: their attention geometry lies in what B5/B6 are built for
+    — deepseek-v2-lite-16b's reduced MLA prefill at (24, 16)."""
+    cfg = get_config(name).reduced()
+    if cfg.family in REFUSED:
+        return
+    build(cfg)
+    if cfg.family in ATTENTION and cfg.use_mla:
+        pair = (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
+        assert pair in fa.HEAD_DIM_PAIRS, (name, pair)
+    elif cfg.family in ATTENTION:
+        hd = cfg.resolved_head_dim
+        assert (hd, hd) in fa.HEAD_DIM_PAIRS and hd in da.HEAD_DIMS, (name,
+                                                                      hd)
+        assert cfg.n_heads // cfg.n_kv_heads <= da.MAX_GROUP, name
 
 
 def test_the_limits_the_walk_meets():
@@ -61,6 +88,10 @@ def test_the_limits_the_walk_meets():
     assert get_config("phi3-mini-3.8b").resolved_head_dim == 96
     glm = get_config("glm4-9b")
     assert glm.n_heads // glm.n_kv_heads == da.MAX_GROUP == 16
+    ds = get_config("deepseek-v2-lite-16b")
+    assert (ds.qk_nope_dim + ds.qk_rope_dim, ds.v_head_dim) == (192, 128)
+    gr = get_config("granite-moe-3b-a800m")
+    assert (gr.resolved_head_dim, gr.n_heads // gr.n_kv_heads) == (64, 3)
 
 
 # ------------------------------------------------- head dim 96 on a card
@@ -103,10 +134,47 @@ def test_phi3_prefill_reaches_the_flash_attention_entry(fake_card, dtype):
     assert out.shape == q.shape and out.dtype == dtype
     ((name, a),) = fake_card.calls
     assert name == "rt_flash_attention"
-    assert a[4:10] == (1, 512, 512, H, KV, 96)
-    assert a[22] == 96 ** -0.5 and a[23] == 1
-    assert a[24] == fa.DTYPE_CODE[dtype]
+    assert a[4:11] == (1, 512, 512, H, KV, 96, 96)
+    assert a[23] == 96 ** -0.5 and a[24] == 1
+    assert a[25] == fa.DTYPE_CODE[dtype]
     assert fa.flash_attention.launches == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_deepseek_prefill_reaches_the_flash_attention_entry(fake_card, dtype):
+    """deepseek-v2-lite-16b's MLA prefill, one layer at (1, 512): one C
+    call with q/k head dim 192 and v head dim 128, the scale of the q/k
+    head dim, and an output of v's head dim."""
+    from repro_torch.models import attention as t_attn
+    cfg = get_config("deepseek-v2-lite-16b").replace(
+        dtype=str(dtype).split(".")[-1])
+    specs = t_attn.mla_specs(cfg)
+    p = {k: torch.zeros(s.shape, dtype=s.dtype) for k, s in specs.items()}
+    x = torch.zeros((1, 512, cfg.d_model), dtype=dtype)
+    y = t_attn.mla_forward(cfg, p, x, torch.arange(512))
+    assert tuple(y.shape) == (1, 512, cfg.d_model)
+    ((name, a),) = fake_card.calls
+    assert name == "rt_flash_attention"
+    H = cfg.n_heads
+    assert a[4:11] == (1, 512, 512, H, H, 192, 128)
+    assert a[20:23] == (512 * H * 128, H * 128, 128)            # out
+    assert a[23] == 192 ** -0.5 and a[24] == 1
+    assert a[25] == fa.DTYPE_CODE[dtype]
+    assert fa.flash_attention.launches == 1
+    # the serving driver's reduced deepseek: (24, 16)
+    red = get_config("deepseek-v2-lite-16b").reduced().replace(
+        dtype=str(dtype).split(".")[-1])
+    p = {k: torch.zeros(s.shape, dtype=s.dtype)
+         for k, s in t_attn.mla_specs(red).items()}
+    t_attn.mla_forward(red, p, torch.zeros((2, 17, red.d_model), dtype=dtype),
+                       torch.arange(17))
+    (_, a) = fake_card.calls[1]
+    assert a[4:11] == (2, 17, 17, red.n_heads, red.n_heads, 24, 16)
+    assert a[23] == 24 ** -0.5
+    with pytest.raises(ValueError, match="head dim 192"):
+        fa.flash_attention(torch.zeros((1, 8, 2, 192), dtype=dtype),
+                           torch.zeros((1, 8, 2, 192), dtype=dtype),
+                           torch.zeros((1, 8, 2, 192), dtype=dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -207,9 +207,19 @@ def test_the_reduced_serve_codec_ships_the_reference_payload(dtype):
 
 # ----------------------------------------------------------- what raises
 def test_the_executor_refuses_what_it_does_not_serve():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        LMSplitExecutor(get_config("granite-moe-3b-a800m").reduced(),
-                        SplitPlan(0, 1), device="cpu")
+    """An MoE model is served, but a pool may not straddle its dense/MoE
+    group boundary (deepseek-v2-lite-16b reduced: one dense block first);
+    the VLA family goes to its own executor."""
+    ds = get_config("deepseek-v2-lite-16b").reduced().replace(n_layers=4)
+    LMSplitExecutor(get_config("granite-moe-3b-a800m").reduced(),
+                    SplitPlan(0, 1), device="cpu")
+    LMSplitExecutor(ds, SplitPlan(0, 1), device="cpu")
+    LMSplitExecutor(ds, SplitPlan(1, 3), device="cpu")
+    with pytest.raises(ValueError, match="straddles"):
+        LMSplitExecutor(ds, SplitPlan(0, 2), device="cpu")
+    with pytest.raises(ValueError, match="straddles"):
+        LMSplitExecutor(ds, SplitPlan(0, 0, pool2_start=0, pool2_end=3),
+                        device="cpu")
     with pytest.raises(ValueError, match="dense"):
         LMSplitExecutor(get_config("openvla-7b").reduced(), SplitPlan(0, 1),
                         device="cpu")
@@ -331,3 +341,89 @@ def test_serve_entry_point_on_the_cpu():
     assert lines[2].startswith("modeled total latency: mean ")
     assert re.fullmatch(r"cut payload: [0-9.]+ KB/request \(codec=on\)",
                         lines[3])
+
+
+# ------------------------------------------------------------ MoE family
+def _moe_setup(arch, **kw):
+    kw = dict(n_layers=4, dtype="float32", **kw)
+    cj = j_get_config(arch).reduced().replace(**kw)
+    ct = get_config(arch).reduced().replace(**kw)
+    mj, mt = j_build(cj), build(ct)
+    pj, pt = both_params(mj, mt, seed=0)
+    tokens = np.random.default_rng(1).integers(0, cj.vocab_size, (2, 10))
+    return cj, ct, pj, pt, tokens
+
+
+MOE_PLANS = [("granite-moe-3b-a800m", (1, 3), 2),
+             ("deepseek-v2-lite-16b", (1, 3), 2),
+             ("deepseek-v2-lite-16b", (0, 1), 1)]
+
+
+@pytest.mark.parametrize("arch,pool,split", MOE_PLANS)
+def test_moe_split_equivalence(arch, pool, split):
+    """tests/test_runtime.py::test_moe_split_equivalence in the port: the
+    split run's logits against the JAX package's full forward within its
+    2e-4, and against the JAX executor's; every cut of the pool equals the
+    port's own monolithic forward."""
+    from repro.models.transformer import lm_hidden as j_lm_hidden
+    from repro.models.transformer import lm_logits as j_lm_logits
+    cj, ct, pj, pt, tokens = _moe_setup(arch)
+    hj, _ = j_lm_hidden(cj, pj, jnp.asarray(tokens), remat=False)
+    ref = j_lm_logits(cj, pj, hj)
+    ex = LMSplitExecutor(ct, SplitPlan(*pool), device="cpu")
+    tt = torch.from_numpy(tokens)
+    logits, _ = ex.run(pt, tt, split)
+    np.testing.assert_allclose(t2np(logits), to_np(ref), rtol=2e-4,
+                               atol=2e-4)
+    lj, _ = j_part.LMSplitExecutor(cj, j_part.SplitPlan(*pool)).run(
+        pj, jnp.asarray(tokens), split)
+    np.testing.assert_allclose(t2np(logits), to_np(lj), rtol=2e-4, atol=2e-4)
+    h, _ = lm_hidden(ct, pt, tt)
+    mono = lm_logits(ct, pt, h)
+    for s in range(pool[0], pool[1] + 1):
+        np.testing.assert_allclose(t2np(ex.run(pt, tt, s)[0]), t2np(mono),
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
+def test_moe_two_pool_and_int8_against_jax(arch):
+    """A two-pool plan with both pools in the MoE group equals the
+    monolithic forward; the int8 uplink payload of the port and of the
+    JAX executor agree (codes within one step, scales within 1e-5)."""
+    cj, ct, pj, pt, tokens = _moe_setup(arch)
+    tt = torch.from_numpy(tokens)
+    h, _ = lm_hidden(ct, pt, tt)
+    mono = lm_logits(ct, pt, h)
+    ex = LMSplitExecutor(ct, SplitPlan(1, 2, pool2_start=3, pool2_end=4),
+                         device="cpu")
+    logits, legs = ex.run(pt, tt, 2, 3)
+    np.testing.assert_allclose(t2np(logits), t2np(mono), atol=1e-5)
+    assert set(legs) == {"up", "down"}
+    _, pay_j = j_part.LMSplitExecutor(
+        cj, j_part.SplitPlan(1, 3, codec="int8")).run(pj, jnp.asarray(tokens),
+                                                      2)
+    _, pay_t = LMSplitExecutor(ct, SplitPlan(1, 3, codec="int8"),
+                               device="cpu").run(pt, tt, 2)
+    assert payload_bytes(pay_t) == j_part.payload_bytes(pay_j)
+    dq = t2np(pay_t["q"]).astype(np.int32) - to_np(pay_j["q"])
+    assert np.abs(dq).max() <= 1
+    np.testing.assert_allclose(t2np(pay_t["s"]), to_np(pay_j["s"]),
+                               atol=0, rtol=1e-5)
+
+
+def test_moe_int4_cut():
+    """granite reduced at a width the int4 codec takes (d_model 256): the
+    packed payload is a quarter of the float32 bytes plus the scales, and
+    the logits stay within the codec's error of the monolithic forward."""
+    cj, ct, pj, pt, tokens = _moe_setup("granite-moe-3b-a800m", d_model=256,
+                                        n_heads=4, n_kv_heads=2, head_dim=64)
+    tt = torch.from_numpy(tokens)
+    h, _ = lm_hidden(ct, pt, tt)
+    mono = lm_logits(ct, pt, h)
+    logits, pay = LMSplitExecutor(ct, SplitPlan(1, 3, codec="int4"),
+                                  device="cpu").run(pt, tt, 2)
+    assert set(pay) == {"q4", "s"}
+    assert payload_bytes(pay) == 2 * 10 * 256 // 2 + 2 * 10 * 2 * 4
+    assert torch.isfinite(logits).all()
+    assert float((logits - mono).abs().max()) < 0.1 * float(mono.abs().max())
