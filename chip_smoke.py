@@ -12,12 +12,13 @@ codec of every CogACT request, Llama-3.2-3B prefill and greedy decode
 (``repro_torch.runtime.serving.greedy_generate``), Llama-3.2-3B requests
 served by split co-inference (``LMSplitExecutor``), prefill and greedy
 decode of Mamba2-1.3B (SSM), Zamba2-1.2B (hybrid) and phi3-mini-3.8b (head
-dim 96), granite-moe-3b-a800m and deepseek-v2-lite-16b (MoE; MLA), the
-port's serving entry point with the int8 codec at the reduced width of 64
-columns, and the paper's example scripts — and holds every
-hand-written kernel on those paths against its plain PyTorch version on the
-card.  Needs one card,
-``nvcc`` and no network; the kernels are built from
+dim 96), granite-moe-3b-a800m and deepseek-v2-lite-16b (MoE; MLA),
+llama-3.2-vision-11b (VLM, cross attention over vision embeddings) and
+seamless-m4t-large-v2 (encoder-decoder), the port's serving entry point
+with the int8 codec at the reduced width of 64 columns, and the paper's
+example scripts — and holds every hand-written kernel on those paths
+against its plain PyTorch version on the card.  Needs one card, ``nvcc``
+and no network; the kernels are built from
 ``src/repro_torch/kernels/csrc`` into ``build/`` at first use.  Any phase
 that fails raises, and the process then exits non-zero.
 
@@ -79,6 +80,20 @@ Phases, one JSON line each:
                 experts top-6 and 2 shared; MLA): 16 steps at batch 1 and
                 4, flash attention at head dims (192, 128) in every layer
                 of the prefill, the absorbed decode in plain products
+  generate_vlm  llama-3.2-vision-11b (40 dense blocks of 32/8 heads of 128,
+                a tanh-gated cross block after every fifth, its gates drawn
+                from [0.5, 1.0]): 1600 vision embeddings from the seed, a
+                512-token prompt and 16 greedy steps at batch 1 and 4, flash
+                attention 40 a prefill and flash-decode 40 a step, cross
+                attention in plain products; the float32 gate with the
+                vision passed through; a second vision draw moves the
+                logits
+  generate_encdec  seamless-m4t-large-v2 (24 encoder and 24 decoder layers,
+                16 x 64 MHA): 512 frames from the seed, a 16-token
+                teacher-forced decoder prefix and 64 greedy steps at batch
+                1 and 4, flash attention 24 a prefill (the decoder; the
+                encoder is plain) and flash-decode 24 a step; the float32
+                gate; a second frames draw moves the logits
   serve_cli     ``python -m repro_torch.launch.serve --codec --requests 4``
                 for Llama-3.2-3B, then with ``--arch`` granite-moe-3b-a800m
                 and deepseek-v2-lite-16b
@@ -195,6 +210,14 @@ PHI3_STEPS = 16
 # each generate_* phase's greedy steps
 GRANITE, DEEPSEEK = "granite-moe-3b-a800m", "deepseek-v2-lite-16b"
 MOE_STEPS = 32
+# the cross-attention paths: llama-3.2-vision-11b (VLM: a 512-token prompt
+# over 1600 vision embeddings, 16 greedy steps) and seamless-m4t-large-v2
+# (encoder-decoder: 512 source frames, a 16-token teacher-forced decoder
+# prefix, 64 greedy steps); the cross gates are drawn from [0.5, 1.0]
+VLM, ENCDEC = "llama-3.2-vision-11b", "seamless-m4t-large-v2"
+VLM_STEPS = 16
+ENCDEC_SRC, ENCDEC_PREFIX, ENCDEC_STEPS = 512, 16, 64
+CROSS_GATES = (0.5, 1.0)
 
 
 def emit(obj) -> None:
@@ -675,10 +698,12 @@ def check_repeat(name, fn) -> dict:
 def attention_cases(cfg, lcfg, zcfg, pcfg) -> tuple:
     """B5 and B6 against their plain versions at the shapes the main paths
     give them (``cfg`` the served VLA, ``lcfg`` Llama-3.2-3B, ``zcfg``
-    Zamba2-1.2B, ``pcfg`` phi3-mini-3.8b's head dim 96, and the MoE models:
+    Zamba2-1.2B, ``pcfg`` phi3-mini-3.8b's head dim 96, the MoE models:
     granite-moe-3b-a800m's GQA 24/8 x 64 and deepseek-v2-lite-16b's MLA
-    prefill at head dims (192, 128)) and at awkward ones, and repeated
-    calls held bit-equal.  Returns (B5 cases, B6 cases)."""
+    prefill at head dims (192, 128), and the cross-attention families'
+    causal self attention: llama-3.2-vision-11b's 32/8 x 128 and
+    seamless-m4t-large-v2's decoder, 16/16 x 64) and at awkward ones, and
+    repeated calls held bit-equal.  Returns (B5 cases, B6 cases)."""
     gcfg, dcfg = get_config(GRANITE), get_config(DEEPSEEK)
     S_main = cfg.n_patches + 17
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -762,6 +787,21 @@ def attention_cases(cfg, lcfg, zcfg, pcfg) -> tuple:
                                      dt, True, 94 + i, Dv=Dv_r))
     attn_cases.append(check_attn(2, 40, 100, 4, 2, Dqk_r, bf, False, 99,
                                  Dv=Dv_r))
+    # the cross-attention families' causal self attention: the VLM's
+    # prefill (32/8 heads of 128) and the encoder-decoder's teacher-forced
+    # decoder prefix (16/16 of 64) at batch 1 and 4, and in float32 at the
+    # lengths of the float32 gate's full forward
+    vcfg, ecfg = get_config(VLM), get_config(ENCDEC)
+    H_v, KV_v, hd_v = vcfg.n_heads, vcfg.n_kv_heads, vcfg.resolved_head_dim
+    H_e, KV_e, hd_e = ecfg.n_heads, ecfg.n_kv_heads, ecfg.resolved_head_dim
+    for i, B in enumerate(LM_BATCHES):
+        attn_cases.append(check_attn(B, LM_PROMPT, LM_PROMPT, H_v, KV_v, hd_v,
+                                     bf, True, 110 + i))
+        attn_cases.append(check_attn(B, ENCDEC_PREFIX, ENCDEC_PREFIX, H_e,
+                                     KV_e, hd_e, bf, True, 112 + i))
+    S_v, S_e = LM_PROMPT + F32_GATE_STEPS, ENCDEC_PREFIX + F32_GATE_STEPS
+    attn_cases += [check_attn(1, S_v, S_v, H_v, KV_v, hd_v, f32, True, 114),
+                   check_attn(1, S_e, S_e, H_e, KV_e, hd_e, f32, True, 115)]
     q, k, v = _attn_inputs(1, S_main, S_main, H, KV, hd, bf, 10)
     attn_cases.append(check_repeat(
         "flash_attention (1, 273, 32 x 128) causal, twice",
@@ -793,6 +833,18 @@ def attention_cases(cfg, lcfg, zcfg, pcfg) -> tuple:
                                           350 + B + kv_len, flat=True))
     dec_cases.append(check_decode(1, H_g, KV_g, T_g, hd_g, T_g - 2, f32, 351,
                                   flat=True))
+    # the VLM's decode (GQA 4x over 528 positions) and the encoder-decoder's
+    # (MHA 16 x 64 over 80)
+    for (h, kv, d, t, p0, seed) in (
+            (H_v, KV_v, hd_v, LM_PROMPT + VLM_STEPS, LM_PROMPT, 360),
+            (H_e, KV_e, hd_e, ENCDEC_PREFIX + ENCDEC_STEPS, ENCDEC_PREFIX,
+             370)):
+        for B in LM_BATCHES:
+            for kv_len in (1, p0 + 1, t):
+                dec_cases.append(check_decode(B, h, kv, t, d, kv_len, bf,
+                                              seed + B + kv_len, flat=True))
+        dec_cases.append(check_decode(1, h, kv, t, d, t - 2, f32, seed + 1,
+                                      flat=True))
     dec_cases += [
         check_decode(1, H_p, KV_p, T_p, hd_p, T_p - 5, f32, 341, flat=True),
         check_decode(1, H_p, KV_p, T_p, hd_p, LM_PROMPT + 3, bf, 342,
@@ -888,11 +940,13 @@ def attention_times(cfg, lcfg, zcfg, pcfg, attn_cases, dec_cases) -> dict:
     its bound and its library time: B5 at the VLA's 273 tokens (``serve``,
     ``serve_cogact``, ``control``), ``serve_lm``'s 4 x 17, and the
     512-token prefills of Llama-3.2-3B and Zamba2-1.2B at batch 1 and 4 and
-    of phi3-mini-3.8b at batch 1; B6 at ``generate``'s and
-    ``generate_hybrid``'s 576-position buffers at batch 1 and 4, Llama-3.2-
-    3B's heads at 8192 positions, and phi3's 528-position buffer.  The first
-    shape of each heads its record; all of them are in its ``served``
-    list."""
+    of phi3-mini-3.8b at batch 1, the MoE models' and llama-3.2-vision-11b's
+    512-token prefills and seamless-m4t-large-v2's 16-token decoder prefix
+    at batch 1 and 4; B6 at ``generate``'s and ``generate_hybrid``'s
+    576-position buffers at batch 1 and 4, Llama-3.2-3B's heads at 8192
+    positions, phi3's 528-position buffer, granite's 544, the VLM's 528
+    and seamless's 80 at batch 1 and 4.  The first shape of each heads its
+    record; all of them are in its ``served`` list."""
     H_l, KV_l, hd_l = lcfg.n_heads, lcfg.n_kv_heads, lcfg.resolved_head_dim
     H_z, KV_z, hd_z = zcfg.n_heads, zcfg.n_kv_heads, zcfg.resolved_head_dim
     T_l = LM_PROMPT + LM_STEPS
@@ -913,6 +967,13 @@ def attention_times(cfg, lcfg, zcfg, pcfg, attn_cases, dec_cases) -> dict:
     served += [time_attn(B, LM_PROMPT, dcfg.n_heads, dcfg.n_heads,
                          dcfg.qk_nope_dim + dcfg.qk_rope_dim, attn_err,
                          Dv=dcfg.v_head_dim) for B in LM_BATCHES]
+    vcfg, ecfg = get_config(VLM), get_config(ENCDEC)
+    H_v, KV_v, hd_v = vcfg.n_heads, vcfg.n_kv_heads, vcfg.resolved_head_dim
+    H_e, KV_e, hd_e = ecfg.n_heads, ecfg.n_kv_heads, ecfg.resolved_head_dim
+    served += [time_attn(B, LM_PROMPT, H_v, KV_v, hd_v, attn_err)
+               for B in LM_BATCHES]
+    served += [time_attn(B, ENCDEC_PREFIX, H_e, KV_e, hd_e, attn_err)
+               for B in LM_BATCHES]
     rec = {"flash_attention": dict(served[0])}
     rec["flash_attention"]["served"] = [
         {k: r[k] for k in SERVED_KEYS if k in r} for r in served]
@@ -930,6 +991,11 @@ def attention_times(cfg, lcfg, zcfg, pcfg, attn_cases, dec_cases) -> dict:
     served.append(time_decode(1, H_p, KV_p, T_p, hd_p, T_p, dec_err))
     T_g = LM_PROMPT + MOE_STEPS
     served += [time_decode(B, H_g, KV_g, T_g, hd_g, T_g, dec_err)
+               for B in LM_BATCHES]
+    T_v, T_e = LM_PROMPT + VLM_STEPS, ENCDEC_PREFIX + ENCDEC_STEPS
+    served += [time_decode(B, H_v, KV_v, T_v, hd_v, T_v, dec_err)
+               for B in LM_BATCHES]
+    served += [time_decode(B, H_e, KV_e, T_e, hd_e, T_e, dec_err)
                for B in LM_BATCHES]
     rec["decode_attention"] = dict(served[0])
     rec["decode_attention"]["served"] = [
@@ -2584,12 +2650,18 @@ def phase_control(st: dict, n_ticks: int = 60) -> dict:
 def setup_lm(name: str, seed: int) -> dict:
     """An LM at full width and depth, bf16, weights from a seed, with the
     launches its prefill (and its full forward) and one decode step make:
-    dense, one flash attention per block and one flash-decode per block and
-    step; ssm, one SSD scan per Mamba layer and nothing per step; hybrid,
-    the shared block's flash attention at each site and the scans, and one
+    dense and vlm, one flash attention per (dense) block and one
+    flash-decode per block and step, the VLM's cross blocks plain; ssm, one
+    SSD scan per Mamba layer and nothing per step; hybrid, the shared
+    block's flash attention at each site and the scans, and one
     flash-decode per site and step; moe, one flash attention per block
     and one flash-decode per block and step (MLA: none, its decode is the
-    absorbed form in plain products)."""
+    absorbed form in plain products); audio, one flash attention per
+    decoder layer (the encoder is plain) and one flash-decode per decoder
+    layer and step.  The VLM's cross gates, zero at init, are drawn from
+    ``CROSS_GATES`` (a trained checkpoint's are not zero, and at zero the
+    cross path would add nothing); the VLM's vision embeddings and the
+    encoder-decoder's frames come from the seed too (``_batch``)."""
     cfg = get_config(name)
     model = build(cfg)
     held_before = torch.cuda.memory_allocated()
@@ -2598,23 +2670,54 @@ def setup_lm(name: str, seed: int) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     L = cfg.n_layers
-    if cfg.family == "dense":
+    side, cache_kw, prompt = None, {}, LM_PROMPT
+    if cfg.family in ("dense", "vlm"):
         per_prefill, per_step = _want(L), _want(0, decode=L)
     elif cfg.family == "moe":       # MLA decodes in the absorbed form: plain
         per_prefill = _want(L)
         per_step = _want(0, decode=0 if cfg.use_mla else L)
     elif cfg.family == "ssm":
         per_prefill, per_step = _want(0, ssd=L), _want(0)
+    elif cfg.family == "audio":
+        Ld = cfg.n_dec_layers
+        per_prefill, per_step = _want(Ld), _want(0, decode=Ld)
     else:
         ns = n_sites(cfg)
         per_prefill, per_step = _want(ns, ssd=L), _want(0, decode=ns)
+    if cfg.family == "vlm":
+        side = ("vision", (cfg.n_vision_tokens, cfg.d_model))
+        g = gen(seed + 2)
+        for k in ("gate_attn", "gate_mlp"):
+            w = params["cross_blocks"][k]
+            w.copy_(torch.empty(w.shape, device=DEV).uniform_(
+                *CROSS_GATES, generator=g))
+    elif cfg.family == "audio":
+        side = ("frames", (ENCDEC_SRC, cfg.d_model))
+        cache_kw, prompt = {"src_len": ENCDEC_SRC}, ENCDEC_PREFIX
     return {"cfg": cfg, "model": model, "params": params, "init_s": init_s,
             "held_before_bytes": held_before,
             "n_params": sum(t.numel() for t in tree_leaves(params)),
             "param_bytes": sum(t.numel() * t.element_size()
                                for t in tree_leaves(params)),
             "per_prefill": per_prefill, "per_step": per_step,
-            "gen": gen(seed + 1)}
+            "gen": gen(seed + 1), "side": side, "side_seed": seed + 3,
+            "side_inputs": {}, "cache_kw": cache_kw, "prompt": prompt}
+
+
+def _batch(st: dict, tokens: torch.Tensor, draw: int = 0) -> dict:
+    """The batch of ``tokens``: with the VLM's vision embeddings
+    ``(B, 1600, 4096)`` or the encoder-decoder's frames ``(B, 512, 1024)``,
+    bf16 draws from the seed, one per batch size and ``draw`` (a second
+    draw checks that the cross path moves the logits)."""
+    if st["side"] is None:
+        return {"tokens": tokens}
+    key, shape = st["side"]
+    B = tokens.shape[0]
+    if (B, draw) not in st["side_inputs"]:
+        st["side_inputs"][(B, draw)] = torch.randn(
+            (B,) + shape, generator=gen(st["side_seed"] + 100 * draw + B),
+            device=DEV, dtype=torch.float32).to(torch.bfloat16)
+    return {"tokens": tokens, key: st["side_inputs"][(B, draw)]}
 
 
 def _family_launches(prof: dict, prefix: str) -> int:
@@ -2675,10 +2778,12 @@ def phase_attention(cfg, lcfg, zcfg, pcfg) -> dict:
 def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
     cfg, model, params = st["cfg"], st["model"], st["params"]
     per_prefill, per_step = st["per_prefill"], st["per_step"]
+    kw = st["cache_kw"]
     max_len = prompt + steps
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
                            generator=st["gen"], device=DEV)
-    greedy_generate(model, params, {"tokens": tokens[:, :64]}, 2)  # warm-up
+    greedy_generate(model, params, _batch(st, tokens[:, :64]), 2,
+                    **kw)                                         # warm-up
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2686,7 +2791,7 @@ def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
     # ---- the main path: counts set to 0 just before, read just after
     _reset_counts()
     wall, out = _wall_ms(lambda: greedy_generate(
-        model, params, {"tokens": tokens}, steps, max_len=max_len))
+        model, params, _batch(st, tokens), steps, max_len=max_len, **kw))
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     want = {k: per_prefill[k] + steps * per_step[k] for k in WRAPPERS}
@@ -2702,7 +2807,7 @@ def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
     step = make_serve_step(model)
     before = _counts()
     ms_prefill, (logits, cache) = _wall_ms(lambda: prefill_and_pad(
-        model, params, {"tokens": tokens}, max_len))
+        model, params, _batch(st, tokens), max_len, **kw))
     if _moved(before) != per_prefill:
         raise AssertionError(f"prefill launched {_moved(before)}")
     cur = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
@@ -2726,13 +2831,13 @@ def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
 
     # ---- each step's logits against one full forward over prompt + tokens
     before = _counts()
-    full = model.forward(params, {"tokens": torch.cat([tokens, toks], 1)}
+    full = model.forward(params, _batch(st, torch.cat([tokens, toks], 1))
                          )[:, prompt:]
     if _moved(before) != per_prefill:
         raise AssertionError(f"full forward launched {_moved(before)}")
     # ---- one prefill by kernel family, from torch.profiler
     prof_pre = profile_request(lambda: prefill_and_pad(
-        model, params, {"tokens": tokens}, max_len))
+        model, params, _batch(st, tokens), max_len, **kw))
     busy_pre = prof_pre.get("device_busy_ms")
     if isinstance(busy_pre, float):
         n_ssd = {k: _family_launches(prof_pre, "ssd_" + k)
@@ -2786,14 +2891,17 @@ def _generate_at(st: dict, batch: int, prompt: int, steps: int) -> dict:
             "argmax_agreement": agree}
 
 
-def phase_generate(st: dict, name: str = "generate", prompt: int = LM_PROMPT,
+def phase_generate(st: dict, name: str = "generate",
                    steps: int = LM_STEPS, small: dict = None,
                    batches=LM_BATCHES, f32_check: bool = False) -> dict:
     """``runtime/serving.py::greedy_generate`` on an LM at full width and
-    depth: a 512-token prompt (two SSD chunks) and 64 greedy steps, at
-    batch 1 and 4 (or ``steps`` at ``batches``); with ``f32_check``, the
-    same model in float32 against its full forward
-    (``full_width_f32_check``, over ``steps``)."""
+    depth: a 512-token prompt (two SSD chunks; the encoder-decoder's
+    16-token prefix after 512 frames) and 64 greedy steps, at batch 1 and
+    4 (or ``steps`` at ``batches``); with ``f32_check``, the same model in
+    float32 against its full forward (``full_width_f32_check``, over
+    ``steps``); for the VLM and the encoder-decoder, a second vision or
+    frames draw against the first (``second_input_check``)."""
+    prompt = st["prompt"]
     runs = [_generate_at(st, b, prompt, steps) for b in batches]
     launches = {k: sum(r["launches"][k] for r in runs) for k in WRAPPERS}
     cfg = st["cfg"]
@@ -2804,9 +2912,18 @@ def phase_generate(st: dict, name: str = "generate", prompt: int = LM_PROMPT,
             "held_before_init_bytes": st["held_before_bytes"],
             "param_bytes": st["param_bytes"], "runs": runs,
             "launches": launches}
-    if cfg.family in ("dense", "hybrid") or (cfg.family == "moe"
-                                             and not cfg.use_mla):
+    if cfg.family in ("dense", "hybrid", "vlm", "audio") or (
+            cfg.family == "moe" and not cfg.use_mla):
         info["heads"] = [cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim]
+    if cfg.family == "vlm":
+        info["cross"] = {"every": cfg.cross_attn_every,
+                         "blocks": cfg.n_layers // cfg.cross_attn_every,
+                         "vision_tokens": cfg.n_vision_tokens,
+                         "gates_drawn_from": list(CROSS_GATES)}
+    if cfg.family == "audio":
+        info["encdec"] = {"enc_layers": cfg.n_enc_layers,
+                          "dec_layers": cfg.n_dec_layers,
+                          "src_len": ENCDEC_SRC, "prefix": prompt}
     if cfg.family == "moe":
         info["moe"] = moe_layer_profiles(st)
     if cfg.family in ("ssm", "hybrid"):
@@ -2817,6 +2934,8 @@ def phase_generate(st: dict, name: str = "generate", prompt: int = LM_PROMPT,
         info["shared_block_sites"] = n_sites(cfg)
     if f32_check:
         info["full_width_float32"] = full_width_f32_check(st, steps)
+    if st["side"] is not None:
+        info["second_input"] = second_input_check(st)
     if small is not None:
         info["small_reference"] = small
     emit(info)
@@ -2836,7 +2955,9 @@ F32_MOE_CAPACITY = 8.0
 def full_width_f32_check(st: dict, steps: int = LM_STEPS) -> dict:
     """The served model at full width and depth with float32 activations
     (the parameters stay bf16, as the specs store them): prefill of the
-    512-token prompt plus ``steps`` decode steps at batch 1.  The gate, as
+    512-token prompt (the encoder-decoder: its 512 frames and 16-token
+    prefix; the VLM's vision embeddings and the frames passed through)
+    plus ``steps`` decode steps at batch 1.  The gate, as
     it always ran: the prefill and the first ``F32_GATE_STEPS`` steps
     against one full forward over prompt + ``F32_GATE_STEPS`` tokens,
     within ``FULL_F32_REL`` of its largest logit.  Recorded, not gated:
@@ -2855,10 +2976,10 @@ def full_width_f32_check(st: dict, steps: int = LM_STEPS) -> dict:
         # nowhere makes them comparable (tests/test_decode_equivalence.py)
         cfg = cfg.replace(moe_capacity_factor=F32_MOE_CAPACITY)
     model = build(cfg)
-    params, V = st["params"], cfg.vocab_size
+    params, V, P = st["params"], cfg.vocab_size, st["prompt"]
     # the gate's tokens are drawn first, as they always were; the later
     # steps' after them
-    tokens = torch.randint(0, V, (1, LM_PROMPT + F32_GATE_STEPS),
+    tokens = torch.randint(0, V, (1, P + F32_GATE_STEPS),
                            generator=st["gen"], device=DEV)
     if steps > F32_GATE_STEPS:
         tokens = torch.cat([tokens, torch.randint(
@@ -2866,15 +2987,14 @@ def full_width_f32_check(st: dict, steps: int = LM_STEPS) -> dict:
             device=DEV)], 1)
     before = _counts()
     gate_full = model.forward(
-        params, {"tokens": tokens[:, :LM_PROMPT + F32_GATE_STEPS]})[
-        :, LM_PROMPT - 1:, :V].float()
-    full = model.forward(params, {"tokens": tokens})[
-        :, LM_PROMPT - 1:, :V].float()
+        params, _batch(st, tokens[:, :P + F32_GATE_STEPS]))[
+        :, P - 1:, :V].float()
+    full = model.forward(params, _batch(st, tokens))[:, P - 1:, :V].float()
     logits, cache = prefill_and_pad(model, params,
-                                    {"tokens": tokens[:, :LM_PROMPT]},
-                                    LM_PROMPT + steps)
+                                    _batch(st, tokens[:, :P]), P + steps,
+                                    **st["cache_kw"])
     outs = [logits[:, 0]]
-    for i in range(LM_PROMPT, LM_PROMPT + steps):
+    for i in range(P, P + steps):
         logits, cache = model.decode(params, cache, tokens[:, i:i + 1], i)
         outs.append(logits[:, 0])
     moved = _moved(before)
@@ -2893,7 +3013,7 @@ def full_width_f32_check(st: dict, steps: int = LM_STEPS) -> dict:
     per_step = (dec - full).abs().amax(dim=(0, 2)).tolist()
     top_step = full.abs().amax(dim=(0, 2)).tolist()
     rel = [e / t for e, t in zip(per_step, top_step)]
-    return {"dtype": "float32", "batch": 1, "prompt": LM_PROMPT,
+    return {"dtype": "float32", "batch": 1, "prompt": P,
             "steps": steps, "gate_steps": F32_GATE_STEPS, "max_err": err,
             "limit": FULL_F32_REL * top, "logits_max_abs": top,
             "max_err_per_step": per_step,
@@ -2902,6 +3022,44 @@ def full_width_f32_check(st: dict, steps: int = LM_STEPS) -> dict:
                                                 per_step[-1]],
             "rel_err_prefill_first_last_step": [rel[0], rel[1], rel[-1]],
             "rel_err_max_all_steps": max(rel)}
+
+
+# limit of the check below, stated before its first run: a second draw of
+# the vision embeddings (frames) moves the prefill's last logits and the
+# first step's each by at least this share of the largest logit
+SECOND_DRAW_REL = 1e-2
+
+
+def second_input_check(st: dict) -> dict:
+    """The cross path is live at full width: one prompt with a second draw
+    of the VLM's vision embeddings (the encoder-decoder's frames) against
+    the first, at batch 1 in bf16: the prefill's last logits and one
+    decode step's, each moved by at least ``SECOND_DRAW_REL`` of the
+    largest logit.  Recorded: the same draw run twice (the run-to-run
+    difference the move stands against)."""
+    cfg, model, params = st["cfg"], st["model"], st["params"]
+    P, V = st["prompt"], cfg.vocab_size
+    tokens = torch.randint(0, V, (1, P + 1), generator=st["gen"], device=DEV)
+
+    def run(draw):
+        logits, cache = prefill_and_pad(model, params,
+                                        _batch(st, tokens[:, :P], draw),
+                                        P + 1, **st["cache_kw"])
+        step, _ = model.decode(params, cache, tokens[:, P:], P)
+        return torch.cat([logits[:, 0], step[:, 0]])[:, :V].float()
+
+    a, again, b = run(0), run(0), run(1)
+    top = a.abs().max().item()
+    moved = (a - b).abs().amax(-1).tolist()            # [prefill, step]
+    if not min(moved) >= SECOND_DRAW_REL * top:
+        raise AssertionError(f"{cfg.name}: a second "
+                             f"{st['side'][0]} draw moved the logits by "
+                             f"{moved}, under {SECOND_DRAW_REL} of {top}")
+    return {"input": st["side"][0], "moved_prefill_step": moved,
+            "limit": SECOND_DRAW_REL * top, "logits_max_abs": top,
+            "same_draw_twice_max_diff": (a - again).abs().max().item(),
+            "argmax_changed_prefill_step":
+                (a.argmax(-1) != b.argmax(-1)).tolist()}
 
 
 def _plain_ssd_scan(x, dt, A, Bm, Cm, *, chunk):
@@ -3484,6 +3642,15 @@ def main() -> None:
         serve_moe.append(phase_serve_moe(st)["launches"])
         del st
     runs["serve_moe"] = {k: sum(r[k] for r in serve_moe) for k in WRAPPERS}
+    for phase, name, seed, steps in (
+            ("generate_vlm", VLM, SEED + 120, VLM_STEPS),
+            ("generate_encdec", ENCDEC, SEED + 130, ENCDEC_STEPS)):
+        gc.collect()                # deepseek's 31.4 GB go before the VLM
+        torch.cuda.empty_cache()
+        st = setup_lm(name, seed)
+        runs[phase] = phase_generate(st, phase, steps=steps,
+                                     f32_check=True)["launches"]
+        del st
     gc.collect()
     torch.cuda.empty_cache()
     phase_examples()

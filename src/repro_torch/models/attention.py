@@ -1,8 +1,8 @@
 """Attention: grouped-query / multi-head / multi-head latent (MLA) self
 attention, prefill and decode.
 
-Counterpart of ``src/repro/models/attention.py`` but for cross attention,
-which follows with the path that needs it.
+Counterpart of ``src/repro/models/attention.py``, cross attention
+included (the VLM's gated cross blocks and the encoder-decoder's decoder).
 
 Routing, as the JAX package routes with ``attn_impl="pallas"``: causal
 attention over more than one position goes to
@@ -13,7 +13,10 @@ CPU tensor — with K/V *not* expanded (the kernels map query heads to their
 K/V head by index).  Everything else (the ViT's and the DiT's non-causal
 attention) goes through :func:`_sdpa`, written out as two matrix products
 around a float32 softmax; those products are the ones the JAX package
-leaves to XLA.  ``cfg.attn_impl`` is kept as a field and not consulted.
+leaves to XLA.  Cross attention (no RoPE, no mask) and the encoder's
+non-causal self attention take that path too, as in the JAX package,
+which sends only causal attention over more than one position to its
+kernel.  ``cfg.attn_impl`` is kept as a field and not consulted.
 
 Decode caches are stored flat as ``(B, S_max, KV*hd)``, as in the JAX
 package.  :func:`attn_decode` writes the new token's K/V into the cache
@@ -249,6 +252,23 @@ def kv_cache_specs(cfg, batch: int, max_len: int) -> Dict:
         "k": spec((batch, max_len, KV * hd), ax, dtype=dt, init="zeros"),
         "v": spec((batch, max_len, KV * hd), ax, dtype=dt, init="zeros"),
     }
+
+
+# ============================================================== cross attention
+def cross_attn_forward(cfg, p, x, kv_x=None, kv_cache: Optional[Dict] = None):
+    """Cross attention; pass ``kv_x`` once (prefill) or a precomputed
+    ``kv_cache`` stored flat as (B, T, KV*hd).  Returns (y, kv_cache): the
+    cache it was given, or the one made from ``kv_x``."""
+    B, S, _ = x.shape
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = dense(x, p["wq"]).reshape(B, S, H, hd)
+    if kv_cache is None:
+        kv_cache = {"k": dense(kv_x, p["wk"]), "v": dense(kv_x, p["wv"])}
+    T = kv_cache["k"].shape[1]
+    k4 = kv_cache["k"].reshape(B, T, KV, hd).permute(0, 2, 1, 3)
+    v4 = kv_cache["v"].reshape(B, T, KV, hd).permute(0, 2, 1, 3)
+    out = _sdpa(q, _expand_kv(k4, H), _expand_kv(v4, H), causal=False)
+    return dense(out.reshape(B, S, -1), p["wo"]), kv_cache
 
 
 # ============================================================== MLA (deepseek)

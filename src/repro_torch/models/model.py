@@ -1,13 +1,18 @@
 """Uniform model API of the port.
 
-Counterpart of ``src/repro/models/model.py`` for the families ported so
-far: ``build(cfg)`` returns a :class:`Model` exposing ``param_specs`` (the
-ParamSpec tree), ``init(generator, device)`` (random parameters),
+Counterpart of ``src/repro/models/model.py`` for inference, all six
+families: ``build(cfg)`` returns a :class:`Model` exposing ``param_specs``
+(the ParamSpec tree), ``init(generator, device)`` (random parameters),
 ``forward(params, batch, ...)`` — the action for a VLA, the logits of the
-whole sequence for a dense, MoE, SSM or hybrid LM — and the serving triple
+whole sequence for a dense, MoE, SSM, hybrid or VLM LM, the teacher-forced
+decoder logits for the encoder-decoder — and the serving triple
 ``prefill(params, batch)``, ``decode(params, cache, tokens, pos)`` and
-``cache_specs(batch, max_len)``.  A VLA re-prefills every request: its ``prefill`` and
-``decode`` raise and its cache is empty, as in the JAX package.
+``cache_specs(batch, max_len, src_len=...)``.  The batch is
+``{"tokens"}``, with ``"vision"`` (``(B, n_vision_tokens, d_model)``) for
+a VLM and ``"frames"`` (``(B, S_src, d_model)``) for the encoder-decoder,
+whose ``cache_specs`` takes ``src_len``.  A VLA re-prefills every request:
+its ``prefill`` and ``decode`` raise and its cache is empty, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -17,10 +22,12 @@ from typing import Any, Callable
 import torch
 
 from ..configs.base import ModelConfig
+from . import encdec as E
 from . import hybrid as Hy
 from . import ssm as S
 from . import transformer as T
 from . import vla as V
+from . import vlm as VL
 from .sharding import init_params
 
 Tree = Any
@@ -112,6 +119,41 @@ def build(cfg: ModelConfig) -> Model:
         return Model(cfg, Hy.hybrid_specs(cfg), forward, prefill, decode,
                      cache_specs)
 
-    if fam in ("audio", "vlm"):
-        raise NotImplementedError(f"family {fam!r} is not ported yet")
+    if fam == "audio":
+        def forward(params, batch):
+            return E.encdec_logits(cfg, params, batch["frames"],
+                                   batch["tokens"])
+
+        def prefill(params, batch):
+            return E.encdec_prefill(cfg, params, batch["frames"],
+                                    batch["tokens"])
+
+        def decode(params, cache, tokens, pos):
+            return E.encdec_decode(cfg, params, cache, tokens, pos)
+
+        def cache_specs(batch, max_len, src_len=None, **_):
+            return E.encdec_cache_specs(cfg, batch, max_len,
+                                        src_len or max_len)
+
+        return Model(cfg, E.encdec_specs(cfg), forward, prefill, decode,
+                     cache_specs)
+
+    if fam == "vlm":
+        def forward(params, batch):
+            return VL.vlm_logits(cfg, params, batch["tokens"],
+                                 batch["vision"])
+
+        def prefill(params, batch):
+            return VL.vlm_prefill(cfg, params, batch["tokens"],
+                                  batch["vision"])
+
+        def decode(params, cache, tokens, pos):
+            return VL.vlm_decode(cfg, params, cache, tokens, pos)
+
+        def cache_specs(batch, max_len, **_):
+            return VL.vlm_cache_specs(cfg, batch, max_len)
+
+        return Model(cfg, VL.vlm_specs(cfg), forward, prefill, decode,
+                     cache_specs)
+
     raise ValueError(f"unknown family {fam!r}")

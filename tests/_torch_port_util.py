@@ -39,13 +39,42 @@ def fill_zero_leaves(np_tree, seed: int = 0, scale: float = 0.05):
     return jax.tree_util.tree_map(fill, np_tree)
 
 
-def both_params(model_jax, model_torch, seed: int = 0, fill_zeros=False):
+def draw_cross_gates(np_tree, seed: int = 0, lo: float = 0.5,
+                     hi: float = 1.0):
+    """The VLM's cross-block gates (``gate_attn``, ``gate_mlp``) start at
+    zero, so that tanh(0) = 0 and a freshly initialised cross block adds
+    nothing: a parity test would pass with cross attention wrong or
+    missing.  Give them seeded draws in [lo, hi] that bf16 holds exactly,
+    as a trained checkpoint would have."""
+    rng = np.random.default_rng(seed)
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif k.startswith("gate_"):
+                g = rng.uniform(lo, hi, np.shape(v)).astype(np.float32)
+                out[k] = np.asarray(jnp.asarray(g).astype(jnp.bfloat16)
+                                    .astype(jnp.float32))
+            else:
+                out[k] = v
+        return out
+    return walk(np_tree)
+
+
+def both_params(model_jax, model_torch, seed: int = 0, fill_zeros=False,
+                gates=False):
     """Initialise on the JAX side; return (jax params, torch params) holding
-    identical values."""
+    identical values (with ``gates``, the cross gates drawn nonzero by
+    :func:`draw_cross_gates`)."""
     params = model_jax.init(jax.random.PRNGKey(seed))
     np_tree = jax_tree_to_np(params)
-    if fill_zeros:
-        np_tree = fill_zero_leaves(np_tree, seed)
+    if fill_zeros or gates:
+        if fill_zeros:
+            np_tree = fill_zero_leaves(np_tree, seed)
+        if gates:
+            np_tree = draw_cross_gates(np_tree, seed)
         params = jax.tree_util.tree_map(
             lambda a, p: jnp.asarray(a).astype(p.dtype), np_tree, params)
     tparams = from_numpy_tree(np_tree, "cpu", specs=model_torch.param_specs)

@@ -25,7 +25,9 @@ def _flat(tree, prefix=""):
     return {prefix: tree}
 
 
-@pytest.mark.parametrize("name", ["openvla-7b", "cogact-7b", "llama3.2-3b"])
+@pytest.mark.parametrize("name", ["openvla-7b", "cogact-7b", "llama3.2-3b",
+                                  "llama-3.2-vision-11b",
+                                  "seamless-m4t-large-v2"])
 def test_nesting_shapes_dtypes_equal_param_specs(name):
     mj = j_build(j_get_config(name).reduced())
     mt = build(get_config(name).reduced())

@@ -82,7 +82,7 @@ def test_the_package_lists_every_module_of_the_slice():
     for want in ("configs.base", "configs.openvla_7b", "configs.cogact_7b",
                  "configs.llama3_2_3b", "convert", "models.sharding",
                  "models.layers", "models.attention", "models.transformer",
-                 "models.moe",
+                 "models.moe", "models.vlm", "models.encdec",
                  "models.vla", "models.model", "runtime.partition",
                  "kernels._build", "kernels.activation_codec.ops",
                  "kernels.activation_codec.ref",

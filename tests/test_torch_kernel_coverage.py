@@ -2,12 +2,15 @@
 every config's attention geometry (head dim, GQA group) lies in the flash
 attention and flash-decode instantiations — MLA's prefill head dims
 (q/k 192, v 128 in deepseek-v2-lite-16b) in the flash attention's built
-pairs, its absorbed decode having no kernel — every SSM geometry (state
-dim, head dim) in the SSD scan's, and the families ``build`` refuses raise
-there, so that a family added later turns this red unless the kernels
-take its geometry.  Head dim 96 (phi3-mini-3.8b) reaches both attention
-entry points on a card and agrees with the JAX package on the CPU, and
-deepseek-v2-lite-16b's (192, 128) reaches the flash attention entry."""
+pairs, its absorbed decode having no kernel; the VLM's (D 128, group 4)
+and the encoder-decoder's (D 64, group 1) causal self attention, their
+cross attention and the encoder being plain products — and every SSM
+geometry (state dim, head dim) in the SSD scan's.  ``build`` serves all
+six families and refuses none (``REFUSED`` is empty), so that a family
+added later turns this red unless the kernels take its geometry.  Head
+dim 96 (phi3-mini-3.8b) reaches both attention entry points on a card and
+agrees with the JAX package on the CPU, and deepseek-v2-lite-16b's
+(192, 128) reaches the flash attention entry."""
 import contextlib
 import types
 
@@ -27,9 +30,10 @@ from repro_torch.models import build
 
 from _torch_port_util import t2np, to_np
 
-ATTENTION = ("dense", "vla", "hybrid", "moe")  # causal prefill + decode
+# causal prefill + decode
+ATTENTION = ("dense", "vla", "hybrid", "moe", "vlm", "audio")
 SSM = ("ssm", "hybrid")
-REFUSED = ("vlm", "audio")
+REFUSED = ()
 
 
 def test_the_walk_covers_every_config_and_family():
@@ -56,6 +60,10 @@ def test_what_build_serves_lies_in_what_the_kernels_build(name):
         assert (hd, hd) in fa.HEAD_DIM_PAIRS and hd in da.HEAD_DIMS, (name,
                                                                       hd)
         assert group <= da.MAX_GROUP, (name, group)
+    if cfg.family in ("vlm", "audio"):
+        # llama-3.2-vision-11b: 32 x 128 over 8 KV heads; seamless: 16 x 64
+        want = {"vlm": (128, 4), "audio": (64, 1)}[cfg.family]
+        _cross_family_geometry(cfg, want)
     if cfg.family in SSM:
         assert cfg.ssm_state in ssd.STATE_DIMS, (name, cfg.ssm_state)
         assert cfg.ssm_headdim in ssd.HEAD_DIMS, (name, cfg.ssm_headdim)
@@ -79,6 +87,18 @@ def test_what_the_reduced_configs_serve_lies_in_what_the_kernels_build(name):
         assert (hd, hd) in fa.HEAD_DIM_PAIRS and hd in da.HEAD_DIMS, (name,
                                                                       hd)
         assert cfg.n_heads // cfg.n_kv_heads <= da.MAX_GROUP, name
+    if cfg.family in ("vlm", "audio"):
+        _cross_family_geometry(cfg, (16, 1))     # reduced: 4 x 16, MHA
+
+
+def _cross_family_geometry(cfg, want):
+    """The VLM's and the encoder-decoder's causal self attention: its
+    (head dim, group) is ``want`` and lies in B5's pairs, B6's head dims
+    and B6's largest group."""
+    hd, group = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+    assert (hd, group) == want, (cfg.name, hd, group)
+    assert (hd, hd) in fa.HEAD_DIM_PAIRS, (cfg.name, hd)
+    assert hd in da.HEAD_DIMS and group <= da.MAX_GROUP, (cfg.name, hd, group)
 
 
 def test_the_limits_the_walk_meets():
