@@ -24,6 +24,13 @@ hold the 2e-5 their callers are given.
 Dispatch is by where the tensors lie: CPU tensors take the plain version
 (``flash_attention_plain``), CUDA tensors launch the kernel or the call
 raises.
+
+Training differentiates through the kernel: where autograd records (grad
+mode on and q, k or v requiring a gradient) the call goes through
+``FlashAttentionFn``, whose forward is the kernel and whose backward
+recomputes the plain version on the saved inputs and differentiates it
+(``flash_attention_vjp_plain``), as the JAX package trains through the
+plain attention.  There is no backward kernel.
 """
 from __future__ import annotations
 
@@ -80,12 +87,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Dv).  The scale is ``D ** -0.5``."""
     if _device_kind((q, k, v), "flash_attention") == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
+    _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal)
+    return _launch(q, k, v, causal)
+
+
+def _check(q, k, v) -> None:
+    """Raise for what the kernel does not take."""
     if q.dim() != 4 or k.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)} are not (B,S,H,D)/(B,T,KV,D)/"
                          "(B,T,KV,Dv)")
     B, S, H, D = q.shape
-    T, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
+    KV, Dv = k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != D or H % KV != 0:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          "belong together")
@@ -98,6 +113,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"throughout, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.device != k.device or q.device != v.device:
         raise ValueError("q, k and v lie on different cards")
+
+
+def _launch(q, k, v, causal: bool) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA tensors."""
+    B, S, H, D = q.shape
+    T, KV, Dv = k.shape[1], k.shape[2], v.shape[3]
     out = torch.empty((B, S, H, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -115,6 +136,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check_launch("flash_attention", rc)
     flash_attention.launches += 1
     return out
+
+
+def flash_attention_vjp_plain(q, k, v, do, *, causal: bool = True):
+    """(dq, dk, dv): the plain version's gradients at (q, k, v) against the
+    output gradient ``do``, each in its input's dtype."""
+    with torch.enable_grad():
+        ins = tuple(t.detach().requires_grad_(True) for t in (q, k, v))
+        out = flash_attention_plain(*ins, causal=causal)
+        return torch.autograd.grad(out, ins, do)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel forward, the plain version's gradients backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_vjp_plain(q, k, v, do, causal=ctx.causal),
+                None)
 
 
 flash_attention.launches = 0

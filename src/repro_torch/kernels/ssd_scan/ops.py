@@ -25,6 +25,12 @@ Dispatch is by where the tensors lie: CPU tensors take the plain version
 kernels or the call raises.  State dims ``STATE_DIMS`` and head dims
 ``HEAD_DIMS`` are built, chunks of 1 to ``MAX_CHUNK`` positions; anything
 else raises.
+
+Training differentiates through the kernels: where autograd records, the
+call goes through ``SSDScanFn``, whose forward is the kernels and whose
+backward recomputes the plain version (with its float64 cumsum) on the
+saved inputs and differentiates it (``ssd_scan_vjp_plain``), as the JAX
+package trains through ``ssd_chunked``.  There is no backward kernel.
 """
 from __future__ import annotations
 
@@ -126,6 +132,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dev = x.device
     if any(t.device != dev for t in (dt, A, Bm, Cm)):
         raise ValueError("x, dt, A, B and C lie on different cards")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bm, Cm)):
+        return SSDScanFn.apply(x, dt, A, Bm, Cm, chunk)
+    return _launch(x, dt, A, Bm, Cm, chunk)
+
+
+def _launch(x, dt, A, Bm, Cm, chunk: int):
+    """One call of the C entry on checked CUDA tensors."""
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    dev = x.device
     y = torch.empty((B, T, H, P), dtype=x.dtype, device=dev)
     state = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
     if B == 0 or H == 0:
@@ -156,3 +173,36 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_vjp_plain(x, dt, A, Bm, Cm, chunk: int, dy, dstate=None):
+    """(dx, ddt, dA, dB, dC): the plain version's gradients at the inputs
+    against ``dy`` and, unless it is None, the final state's gradient
+    ``dstate``; each in its input's dtype."""
+    with torch.enable_grad():
+        ins = tuple(t.detach().requires_grad_(True)
+                    for t in (x, dt, A, Bm, Cm))
+        y, state = ssd_scan_plain(*ins, chunk)
+        outs, grads = (y,), (dy,)
+        if dstate is not None:
+            outs, grads = (y, state), (dy, dstate)
+        return torch.autograd.grad(outs, ins, grads)
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The kernels forward, the plain version's gradients backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        return _launch(x, dt, A, Bm, Cm, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        return (*ssd_scan_vjp_plain(x, dt, A, Bm, Cm, ctx.chunk, dy, dstate),
+                None)

@@ -1,7 +1,7 @@
 """Encoder-decoder backbone (seamless-m4t-large-v2).
 
-Counterpart of ``src/repro/models/encdec.py`` without the loss
-(``encdec_loss`` waits for training).  The audio frontend is a stub, as in
+Counterpart of ``src/repro/models/encdec.py``, the training loss
+:func:`encdec_loss` included.  The audio frontend is a stub, as in
 the JAX package: the encoder takes precomputed frame embeddings
 ``(B, S_src, d_model)`` through one learned projection, then non-causal
 self attention with RoPE over ``arange(S_src)``.  Decoder = causal self
@@ -23,7 +23,7 @@ import torch
 from .. import to_dtype
 from . import attention as A
 from .layers import (dense, embed, embed_spec, linear_spec, mlp, mlp_specs,
-                     rmsnorm, rmsnorm_spec)
+                     rmsnorm, rmsnorm_spec, softmax_xent)
 from .sharding import spec, tree_map
 from .transformer import lm_logits, run_stack, run_stack_decode
 
@@ -63,8 +63,8 @@ def encdec_specs(cfg) -> Dict:
     return s
 
 
-@torch.no_grad()
-def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
+def encode(cfg, params, frames: torch.Tensor, *, remat: bool = False
+           ) -> torch.Tensor:
     """frames: (B, S_src, d_model) stub embeddings -> encoder output."""
     x = dense(frames.to(to_dtype(cfg.dtype)), params["frontend_proj"])
     positions = torch.arange(x.shape[1], device=x.device)
@@ -76,7 +76,8 @@ def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
         h = h + mlp(pl["mlp"], rmsnorm(h, pl["ln2"], cfg.norm_eps))
         return h, None, 0.0
 
-    x, _, _ = run_stack(cfg, params["enc_blocks"], x, one, cfg.n_enc_layers)
+    x, _, _ = run_stack(cfg, params["enc_blocks"], x, one, cfg.n_enc_layers,
+                        remat=remat)
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -95,10 +96,9 @@ def _dec_block(cfg, pl, h, positions, enc_out=None, cross_kv=None,
     return h, kv, ckv
 
 
-@torch.no_grad()
-def encdec_logits(cfg, params, frames, tokens):
+def encdec_logits(cfg, params, frames, tokens, *, remat: bool = False):
     """Teacher-forced logits of every decoder position."""
-    enc_out = encode(cfg, params, frames)
+    enc_out = encode(cfg, params, frames, remat=remat)
     x = embed(params["embed"], tokens).to(to_dtype(cfg.dtype))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
 
@@ -106,8 +106,14 @@ def encdec_logits(cfg, params, frames, tokens):
         h, _, _ = _dec_block(cfg, pl, h, positions, enc_out=enc_out)
         return h, None, 0.0
 
-    x, _, _ = run_stack(cfg, params["dec_blocks"], x, one, cfg.n_dec_layers)
+    x, _, _ = run_stack(cfg, params["dec_blocks"], x, one, cfg.n_dec_layers,
+                        remat=remat)
     return lm_logits(cfg, params, x)
+
+
+def encdec_loss(cfg, params, frames, tokens, labels) -> torch.Tensor:
+    return softmax_xent(encdec_logits(cfg, params, frames, tokens,
+                                      remat=cfg.remat), labels)
 
 
 @torch.no_grad()

@@ -1,7 +1,7 @@
 """Hybrid SSM + shared-attention backbone (zamba2-1.2b).
 
-Counterpart of ``src/repro/models/hybrid.py`` without the loss
-(``hybrid_loss`` waits for training).  Mamba2 blocks, and ONE shared
+Counterpart of ``src/repro/models/hybrid.py``, the training loss
+:func:`hybrid_loss` included.  Mamba2 blocks, and ONE shared
 transformer block (attention + MLP, weights shared) invoked before every
 ``cfg.shared_attn_every``-th Mamba block.  Each invocation *site* keeps its
 own KV cache (same weights, different activations).
@@ -21,7 +21,8 @@ import torch
 
 from .. import to_dtype
 from . import attention as A
-from .layers import embed, embed_spec, mlp, mlp_specs, rmsnorm, rmsnorm_spec
+from .layers import (embed, embed_spec, mlp, mlp_specs, rmsnorm, rmsnorm_spec,
+                     softmax_xent)
 from .sharding import spec, tree_map
 from .ssm import (mamba_decode, mamba_forward, mamba_prefill, mamba_specs,
                   ssm_logits, ssm_state_specs)
@@ -71,9 +72,10 @@ def _group(tree, lo: int, hi: int):
     return tree_map(lambda w: w[lo:hi], tree)
 
 
-@torch.no_grad()
-def hybrid_hidden(cfg, params, tokens):
-    """Token ids -> final hidden states (pre final-norm), every position."""
+def hybrid_hidden(cfg, params, tokens, *, remat: bool = False):
+    """Token ids -> final hidden states (pre final-norm), every position;
+    ``remat`` checkpoints the Mamba2 layers (not the shared block), as the
+    JAX package does."""
     x = embed(params["embed"], tokens).to(to_dtype(cfg.dtype))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
 
@@ -83,8 +85,13 @@ def hybrid_hidden(cfg, params, tokens):
     for g, lo, hi in _groups(cfg):
         x = _shared_fwd(cfg, params["shared"], x, positions)
         x, _, _ = run_stack(cfg, _group(params["mamba"], lo, hi), x, one,
-                            hi - lo)
+                            hi - lo, remat=remat)
     return x
+
+
+def hybrid_loss(cfg, params, tokens, labels) -> torch.Tensor:
+    h = hybrid_hidden(cfg, params, tokens, remat=cfg.remat)
+    return softmax_xent(ssm_logits(cfg, params, h), labels)
 
 
 @torch.no_grad()

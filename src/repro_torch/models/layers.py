@@ -1,6 +1,7 @@
 """Shared building blocks: RMSNorm, RoPE, SwiGLU MLP, embeddings.
 
-Counterpart of ``src/repro/models/layers.py``.  Parameters may be stored in
+Counterpart of ``src/repro/models/layers.py``, with the training loss
+(:func:`softmax_xent`).  Parameters may be stored in
 another dtype than the activations (the specs default to bfloat16 whatever
 ``cfg.dtype`` says); a product then runs in the wider of the two types, as
 JAX's promotion has it.
@@ -121,3 +122,14 @@ def unembed(w: torch.Tensor, x: torch.Tensor, vocab: Optional[int] = None
         logits = torch.where(ids < vocab, logits,
                              torch.full_like(logits, -1e30))
     return logits
+
+
+# ---------------------------------------------------------------- softmax xent
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross entropy, float32 accumulation: the log-sum-exp of
+    each row minus its label's logit, picked with ``gather`` (the JAX
+    package's iota mask picks the same element; both are exact)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (lse - ll).mean()

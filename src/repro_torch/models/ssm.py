@@ -2,7 +2,7 @@
 decode, and the SSM language model.
 
 Counterpart of ``src/repro/models/ssm.py`` without the mesh annotations
-(``shard``) and without the loss (``ssm_lm_loss`` waits for training).
+(``shard``); the training loss is :func:`ssm_lm_loss`.
 
 ``ssd_chunked`` is the plain version of the SSD scan, in the JAX package's
 own precision: ``xdt``, the masked scores and the incoming chunk states are
@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from .. import to_dtype
 from ..kernels.ssd_scan import ops as ssd_ops
 from .layers import dense, embed, embed_spec, linear_spec, rmsnorm, \
-    rmsnorm_spec, unembed
+    rmsnorm_spec, softmax_xent, unembed
 from .sharding import spec, tree_map
 from .transformer import run_stack, run_stack_decode
 
@@ -140,8 +140,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     seg = dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :]  # (B,nc,Q,K,H)
     ii = torch.arange(Q, device=x.device)
     causal = ii[:, None] >= ii[None, :]
-    L = torch.where(causal[None, None, :, :, None], torch.exp(seg),
-                    torch.zeros((), device=x.device))
+    # masked before the exp, not after: above the diagonal seg is the decay
+    # run backwards (up to +177 over a 256-chunk of Mamba2 at init), whose
+    # exp overflows, and a where after the exp would pass the backward
+    # 0 * inf = NaN there (the JAX package's gradient is NaN at a full
+    # chunk); the values are the same either way
+    L = torch.exp(torch.where(causal[None, None, :, :, None], seg,
+                              torch.full((), -torch.inf, device=x.device)))
     CB = torch.einsum("bcqn,bckn->bcqk", Cc.float(), Bc.float())
     scores = (CB[..., None] * L).to(xc.dtype)              # (B,nc,Q,K,H)
     y_intra = torch.einsum("bcqkh,bckhp->bcqhp", scores, xdt)
@@ -284,16 +289,23 @@ def ssm_logits(cfg, params: Dict, h: torch.Tensor) -> torch.Tensor:
     return unembed(w, h, cfg.vocab_size)
 
 
-@torch.no_grad()
-def ssm_lm_hidden(cfg, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+def ssm_lm_hidden(cfg, params: Dict, tokens: torch.Tensor, *,
+                  remat: bool = False) -> torch.Tensor:
     """Token ids -> final hidden states (pre final-norm), every position."""
     x = embed(params["embed"], tokens).to(to_dtype(cfg.dtype))
 
     def one(pl, h):
         return h + mamba_forward(cfg, pl, h), None, 0.0
 
-    x, _, _ = run_stack(cfg, params["mamba"], x, one, cfg.n_layers)
+    x, _, _ = run_stack(cfg, params["mamba"], x, one, cfg.n_layers,
+                        remat=remat)
     return x
+
+
+def ssm_lm_loss(cfg, params: Dict, tokens: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+    h = ssm_lm_hidden(cfg, params, tokens, remat=cfg.remat)
+    return softmax_xent(ssm_logits(cfg, params, h), labels)
 
 
 @torch.no_grad()

@@ -4,8 +4,12 @@ Counterpart of ``src/repro/models/transformer.py``: full-sequence forward,
 prefill and one-token decode.  Layer parameters are
 **stacked** along a leading ``layers`` dim, as in the JAX package, and a
 layer's weights are views into the stack — nothing is copied to run a
-layer.  The stack runs as a Python loop; ``cfg.scan_layers`` and ``remat``
-are accepted and have no meaning in eager inference.
+layer.  The stack runs as a Python loop (``cfg.scan_layers`` has no
+meaning here); with ``remat`` each layer is checkpointed while autograd
+records (``torch.utils.checkpoint``, as ``jax.checkpoint`` in the JAX
+package), so its activations are recomputed in the backward.  The
+training loss is :func:`lm_loss`; serving (:func:`lm_prefill`,
+:func:`lm_decode`) runs without autograd.
 
 An MoE model runs its layers in groups (:func:`_groups`): the
 ``dense_blocks`` first (deepseek-v2-lite-16b has one), then the
@@ -23,11 +27,12 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import to_dtype
 from . import attention as A
 from .layers import (embed, embed_spec, mlp, mlp_specs, rmsnorm, rmsnorm_spec,
-                     unembed)
+                     softmax_xent, unembed)
 from .moe import moe_ffn, moe_specs
 from .sharding import spec, tree_leaves, tree_map
 
@@ -131,10 +136,18 @@ def _layer_slice(tree: Tree, i: int) -> Tree:
 
 def run_stack(cfg, blocks_p: Tree, x: torch.Tensor, fwd_one, n_layers: int,
               *, remat: bool = False, collect: bool = False):
-    """fwd_one(layer_params, x) -> (x, ys, aux).  Loops over the stack."""
+    """fwd_one(layer_params, x) -> (x, ys, aux).  Loops over the stack;
+    with ``remat``, each layer is recomputed in the backward."""
     ys_list, aux = [], 0.0
+    fn = fwd_one
+    if remat and torch.is_grad_enabled():
+        def fn(pl, h):
+            return checkpoint(fwd_one, pl, h, use_reentrant=False)
+    # one unbind per leaf: its backward stacks the layers' gradients once,
+    # where a view per layer would write a stack-sized gradient per layer
+    layers = tree_map(lambda w: w.unbind(0), blocks_p)
     for i in range(n_layers):
-        x, ys, a = fwd_one(_layer_slice(blocks_p, i), x)
+        x, ys, a = fn(tree_map(lambda u: u[i], layers), x)
         aux = aux + a
         if collect:
             ys_list.append(ys)
@@ -167,7 +180,6 @@ def _groups(cfg):
     return [("blocks", cfg.n_layers, False)]
 
 
-@torch.no_grad()
 def lm_hidden(cfg, params: Dict, tokens: torch.Tensor, *,
               remat: Optional[bool] = None):
     """Token ids -> final hidden states (pre final-norm). Returns (h, aux)."""
@@ -181,16 +193,24 @@ def lm_hidden(cfg, params: Dict, tokens: torch.Tensor, *,
             return h, None, a
 
         n = tree_leaves(params[name])[0].shape[0]
-        x, _, a = run_stack(cfg, params[name], x, one, n)
+        x, _, a = run_stack(cfg, params[name], x, one, n,
+                            remat=cfg.remat if remat is None else remat)
         aux = aux + a
     return x, aux
 
 
-@torch.no_grad()
 def lm_logits(cfg, params: Dict, h: torch.Tensor) -> torch.Tensor:
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     w = params["embed"] if cfg.tie_embeddings else params["head"]
     return unembed(w, h, cfg.vocab_size)
+
+
+def lm_loss(cfg, params: Dict, tokens: torch.Tensor, labels: torch.Tensor,
+            *, aux_coef: float = 0.01) -> torch.Tensor:
+    """Token-mean cross entropy plus ``aux_coef`` times the MoE layers'
+    load-balancing loss (0 for a dense model)."""
+    h, aux = lm_hidden(cfg, params, tokens)
+    return softmax_xent(lm_logits(cfg, params, h), labels) + aux_coef * aux
 
 
 @torch.no_grad()

@@ -5,12 +5,13 @@ Counterpart of ``src/repro/models/vla.py``: ViT encoder (patch embeddings
 S_dec in {detok, MLP, LSTM, diffusion, DiT} (paper §IV-A).  ``detok``
 (OpenVLA) reads the LM head; the other four read the cognition feature,
 the final hidden state of the last position (:func:`decode_action`).  The
-training loss is not ported yet and raises.
+training loss is :func:`vla_loss`.
 
 Where the JAX package draws the initial noise of the ``diffusion`` and
 ``dit`` heads from a key, the port takes the noise as an argument (drawn
 by :func:`draw_noise` from an explicit ``torch.Generator`` when left out),
-so that a test can feed both packages the same draw.
+so that a test can feed both packages the same draw; :func:`vla_loss`
+takes the DiT's timesteps and noise the same way.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch.nn.functional as F
 from .. import to_dtype
 from . import attention as A
 from .layers import (dense, embed, embed_spec, linear_spec, mlp, mlp_specs,
-                     rmsnorm, rmsnorm_spec, unembed)
+                     rmsnorm, rmsnorm_spec, softmax_xent, unembed)
 from .sharding import spec
 from .transformer import block_forward, dense_block_specs, run_stack
 
@@ -55,7 +56,6 @@ def vit_specs(cfg) -> Dict:
     }
 
 
-@torch.no_grad()
 def vit_encode(cfg, p, patches: torch.Tensor) -> torch.Tensor:
     """patches: (B, n_patches, vit_dim) -> (B, n_patches, d_model)."""
     vit_cfg = _vit_cfg(cfg)
@@ -159,7 +159,6 @@ def _dit_block(cfg, pl, x, cond):
     return x
 
 
-@torch.no_grad()
 def dit_denoise(cfg, p, noisy: torch.Tensor, t: torch.Tensor,
                 cognition: torch.Tensor):
     """noisy: (B, horizon, action_dim); t: (B,); cognition: (B, d_model)."""
@@ -177,7 +176,6 @@ def dit_denoise(cfg, p, noisy: torch.Tensor, t: torch.Tensor,
     return dense(_ln(x) * (1 + sc) + sh, p["out"])     # predicted noise
 
 
-@torch.no_grad()
 def dit_sample(cfg, p, cognition: torch.Tensor, noise: torch.Tensor
                ) -> torch.Tensor:
     """DDIM sampling over cfg.diffusion_steps, starting from ``noise`` of
@@ -207,7 +205,6 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")        # jax.nn.gelu's default
 
 
-@torch.no_grad()
 def mlp_head(cfg, p, cog: torch.Tensor) -> torch.Tensor:
     """cognition (B, d_model) -> action chunk (B, horizon, action_dim)."""
     z = _gelu(dense(cog, p["w1"]))
@@ -215,7 +212,6 @@ def mlp_head(cfg, p, cog: torch.Tensor) -> torch.Tensor:
     return dense(z, p["out"]).reshape(-1, cfg.action_horizon, cfg.action_dim)
 
 
-@torch.no_grad()
 def lstm_head(cfg, p, cog: torch.Tensor) -> torch.Tensor:
     """An LSTM unrolled over the horizon on the constant cognition input;
     the cell state stays float32, the hidden state in the cognition's
@@ -233,7 +229,6 @@ def lstm_head(cfg, p, cog: torch.Tensor) -> torch.Tensor:
     return torch.stack(acts, dim=1)
 
 
-@torch.no_grad()
 def diffusion_head(cfg, p, cog: torch.Tensor, noise: torch.Tensor
                    ) -> torch.Tensor:
     """cfg.diffusion_steps of a conditional denoising MLP, starting from
@@ -261,7 +256,6 @@ def noise_shape(cfg, batch: int) -> tuple:
     return (batch, h, a)
 
 
-@torch.no_grad()
 def decode_action(cfg, p, cog: torch.Tensor, noise=None) -> torch.Tensor:
     """A head that reads the cognition feature (every head but ``detok``):
     (B, d_model) -> (B, horizon, action_dim).  ``noise`` is the initial
@@ -292,7 +286,6 @@ def vla_specs(cfg) -> Dict:
     }
 
 
-@torch.no_grad()
 def vla_backbone(cfg, params, patches, tokens, *, remat=False):
     """ViT + LLM over [img ; text] -> hidden states (B, P+S, d)."""
     img = vit_encode(cfg, params["vit"], patches)
@@ -304,7 +297,8 @@ def vla_backbone(cfg, params, patches, tokens, *, remat=False):
         h, _, a = block_forward(cfg, pl, h, positions)
         return h, None, a
 
-    x, _, _ = run_stack(cfg, params["blocks"], x, one, cfg.n_layers)
+    x, _, _ = run_stack(cfg, params["blocks"], x, one, cfg.n_layers,
+                        remat=remat)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -327,7 +321,6 @@ def draw_noise(cfg, batch: int, device, generator: Optional[torch.Generator]
                        device=device, dtype=torch.float32)
 
 
-@torch.no_grad()
 def vla_forward(cfg, params, patches, tokens, noise=None, generator=None):
     """Inference: returns action (B, horizon, action_dim)."""
     kind = cfg.vla_action_head
@@ -343,5 +336,46 @@ def vla_forward(cfg, params, patches, tokens, noise=None, generator=None):
     return decode_action(cfg, params["action"], cog, noise)
 
 
-def vla_loss(cfg, params, patches, tokens, action_labels, key=None):
-    raise NotImplementedError("training is not ported yet (inference only)")
+def vla_loss(cfg, params, patches, tokens, action_labels,
+             generator: Optional[torch.Generator] = None, *, t=None,
+             noise=None) -> torch.Tensor:
+    """Training loss: ``detok`` -> cross entropy on the binned first action
+    of the chunk; ``dit`` -> the noise-prediction MSE at timesteps ``t``
+    (B,) and ``noise`` (the actions' shape); ``mlp``, ``lstm`` and
+    ``diffusion`` -> the MSE of the predicted chunk (``noise``: the
+    diffusion head's initial draw).  What is not given is drawn from
+    ``generator`` (seed 0 when none is given)."""
+    h = vla_backbone(cfg, params, patches, tokens, remat=cfg.remat)
+    kind = cfg.vla_action_head
+    if kind in ("detok", ""):
+        logits = unembed(params["head"], h[:, -cfg.action_dim:],
+                         cfg.vocab_size)
+        bins = torch.clamp((action_labels[:, 0].float() + 1) * 127.5, 0, 255)
+        return softmax_xent(logits, bins.to(torch.int32))
+    cog = h[:, -1]
+    dev, B = cog.device, cog.shape[0]
+    if generator is None and ((kind == "dit" and (t is None or noise is None))
+                              or (kind == "diffusion" and noise is None)):
+        generator = torch.Generator(device=dev).manual_seed(0)
+    labels = action_labels.to(device=dev, dtype=torch.float32)
+    if kind == "dit":
+        n = cfg.diffusion_steps
+        if t is None:
+            t = torch.randint(0, n, (B,), generator=generator, device=dev)
+        if noise is None:
+            noise = torch.randn(labels.shape, generator=generator,
+                                device=dev, dtype=torch.float32)
+        t = t.to(device=dev, dtype=torch.int64)
+        noise = noise.to(device=dev, dtype=torch.float32)
+        betas = torch.linspace(1e-4, 0.02, n, dtype=torch.float32,
+                               device=dev)
+        ab = torch.cumprod(1.0 - betas, dim=0)[t][:, None, None]
+        noisy = torch.sqrt(ab) * labels + torch.sqrt(1 - ab) * noise
+        eps = dit_denoise(cfg, params["action"], noisy, t, cog)
+        return ((eps.float() - noise) ** 2).mean()
+    if kind == "diffusion" and noise is None:
+        noise = draw_noise(cfg, B, dev, generator)
+    if noise is not None:
+        noise = noise.to(device=dev, dtype=torch.float32)
+    pred = decode_action(cfg, params["action"], cog, noise)
+    return ((pred.float() - labels) ** 2).mean()

@@ -1,7 +1,7 @@
 """VLM backbone (llama-3.2-vision-11b): decoder LM + gated cross-attn layers.
 
-Counterpart of ``src/repro/models/vlm.py`` without the loss (``vlm_loss``
-waits for training).  Every ``cfg.cross_attn_every``-th layer is followed
+Counterpart of ``src/repro/models/vlm.py``, the training loss
+:func:`vlm_loss` included.  Every ``cfg.cross_attn_every``-th layer is followed
 by a gated cross-attention sublayer (tanh-gated attention + tanh-gated
 MLP, the tanh in float32) over precomputed vision-patch embeddings
 ``(B, n_vision_tokens, d_model)`` (the modality frontend is a stub, as in
@@ -24,7 +24,8 @@ import torch
 
 from .. import to_dtype
 from . import attention as A
-from .layers import embed, embed_spec, mlp, mlp_specs, rmsnorm, rmsnorm_spec
+from .layers import (embed, embed_spec, mlp, mlp_specs, rmsnorm, rmsnorm_spec,
+                     softmax_xent)
 from .sharding import spec, tree_map
 from .transformer import (_layer_slice, block_decode, block_forward,
                           dense_block_specs, lm_cache_specs, lm_logits,
@@ -78,8 +79,8 @@ def _group(tree, g: int, k: int):
     return tree_map(lambda w: w[g * k:(g + 1) * k], tree)
 
 
-@torch.no_grad()
-def _hidden(cfg, params, tokens, vision, *, collect_caches=False):
+def _hidden(cfg, params, tokens, vision, *, remat=False,
+            collect_caches=False):
     x = embed(params["embed"], tokens).to(to_dtype(cfg.dtype))
     vision = vision.to(x.dtype)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -92,7 +93,7 @@ def _hidden(cfg, params, tokens, vision, *, collect_caches=False):
 
     for g in range(_n_cross(cfg)):
         x, kv, _ = run_stack(cfg, _group(params["blocks"], g, k), x, one, k,
-                             collect=collect_caches)
+                             remat=remat, collect=collect_caches)
         pl_cross = _layer_slice(params["cross_blocks"], g)
         if collect_caches:
             self_caches.append(kv)
@@ -108,10 +109,14 @@ def _hidden(cfg, params, tokens, vision, *, collect_caches=False):
     return x
 
 
-@torch.no_grad()
 def vlm_logits(cfg, params, tokens, vision):
     """Logits of every position (the full forward)."""
     return lm_logits(cfg, params, _hidden(cfg, params, tokens, vision))
+
+
+def vlm_loss(cfg, params, tokens, vision, labels) -> torch.Tensor:
+    h = _hidden(cfg, params, tokens, vision, remat=cfg.remat)
+    return softmax_xent(lm_logits(cfg, params, h), labels)
 
 
 @torch.no_grad()

@@ -114,3 +114,61 @@ def plain(value):
     if isinstance(value, dict):
         return {k: plain(v) for k, v in value.items()}
     return value
+
+
+def both_params_f32(model_jax, model_torch, seed: int = 0, gates=False,
+                    fill_zeros=False):
+    """:func:`both_params` with every leaf in float32 on both sides, for
+    gradient parity (a bf16 gradient rounds at 2^-8 of its element); the
+    JAX package's ``init`` runs jitted, which is faster than leaf by
+    leaf."""
+    np_tree = jax_tree_to_np(jax.jit(model_jax.init)(
+        jax.random.PRNGKey(seed)))
+    if fill_zeros:
+        np_tree = fill_zero_leaves(np_tree, seed)
+    if gates:
+        np_tree = draw_cross_gates(np_tree, seed)
+    tparams = from_numpy_tree(np_tree, "cpu", specs=model_torch.param_specs)
+    return (jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32),
+                                   np_tree),
+            jax.tree_util.tree_map(lambda a: a.float(), tparams))
+
+
+def np_batch(cfg, seed: int = 1, B: int = 2, S: int = 16) -> dict:
+    """A training batch for ``cfg``'s family, drawn with numpy from
+    ``seed`` (the shapes of ``tests/test_models_smoke.py::_batch``)."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (B, S, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["vision"] = rng.standard_normal(
+            (B, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vla":
+        batch = {"patches": rng.standard_normal(
+                     (B, cfg.n_patches, cfg.vit_dim)).astype(np.float32),
+                 "tokens": tokens[:, :8],
+                 "actions": rng.uniform(
+                     -1, 1, (B, cfg.action_horizon, cfg.action_dim)
+                 ).astype(np.float32)}
+    return batch
+
+
+def vla_draws(cfg, key, batch: dict) -> dict:
+    """What the JAX package's ``vla_loss`` draws from ``key``, as tensors,
+    for the port's ``loss_fn(..., t=, noise=)``: the DiT's timesteps and
+    noise, the diffusion head's initial noise."""
+    B = batch["actions"].shape[0]
+    if cfg.vla_action_head == "dit":
+        k1, k2 = jax.random.split(key)
+        draws = {"t": jax.random.randint(k1, (B,), 0, cfg.diffusion_steps),
+                 "noise": jax.random.normal(k2, batch["actions"].shape)}
+    elif cfg.vla_action_head == "diffusion":
+        draws = {"noise": jax.random.normal(
+            key, (B, cfg.action_horizon * cfg.action_dim))}
+    else:
+        draws = {}
+    return {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}

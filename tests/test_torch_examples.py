@@ -1,8 +1,10 @@
 """The paper's example scripts on the port (``examples/*_torch.py``),
 each run as its own process under its own time limit: the two numpy-only
 scripts print exactly what the reference scripts print, the quickstart
-prints what the reference's does, and the VLA serving script runs its
-60 requests with ``--device cpu`` and ends ``OK``."""
+prints what the reference's does, the VLA serving script runs its
+60 requests with ``--device cpu`` and ends ``OK``, and the training
+script converges on the CPU at a small width and survives its injected
+failure."""
 import os
 import pathlib
 import re
@@ -64,3 +66,15 @@ def test_serve_vla_ecc_on_the_cpu():
     cfg = get_config("cogact-7b").reduced()
     kb = codec_ref.wire_bytes((1, cfg.n_patches + 17, cfg.d_model)) / 1e3
     assert out[-2].endswith(f"cut payload {kb:.1f} KB (int8 codec)")
+
+
+def test_train_lm_on_the_cpu_converges_and_survives_its_failure():
+    """The twin of ``examples/train_lm.py`` at a CPU size: the loss falls
+    below 0.7 of the first (the script's own assertion), and the failure
+    injected at half-way is survived."""
+    out = _run("train_lm_torch.py", "--device", "cpu", "--steps", "40",
+               "--batch", "4", "--seq", "64", "--d-model", "128",
+               timeout=240).splitlines()
+    assert out[-1] == "OK"
+    assert out[0] == "model: 16.8M params (8L d128)"
+    assert "1 restart(s) survived" in out[-3]

@@ -97,6 +97,9 @@ def test_the_package_lists_every_module_of_the_slice():
                  "kernels.ssd_scan.ops", "kernels.ssd_scan.ref",
                  "core.scene", "core.telemetry", "runtime.trace_export",
                  "runtime.fleet", "runtime.events",
+                 "train", "train.optimizer", "train.train_loop",
+                 "train.compression", "checkpoint", "checkpoint.ckpt",
+                 "data", "data.pipeline", "runtime.fault", "launch.train",
                  *(f"configs.{m}" for m in (
                      "command_r_35b", "deepseek_v2_lite_16b", "glm4_9b",
                      "granite_moe_3b_a800m", "llama_3_2_vision_11b",
@@ -203,13 +206,20 @@ def test_no_try_except_around_kernels_or_entry_points():
     ``core/adjustment.py``) and the scene registry (``core/scene.py::
     scene_config``) each hold one, which turns a KeyError into a readable
     one; the event engine of the fleet simulator holds one ``try`` with
-    only a ``finally``, which unhooks it from the simulator."""
+    only a ``finally``, which unhooks it from the simulator; the training
+    supervisor (``runtime/fault.py``) holds one that catches only
+    ``InjectedFailure``, the drill it restores a checkpoint for."""
     registries = ("configs/__init__.py", "core/codec.py", "core/adjustment.py",
                   "core/scene.py")
     for path in FILES:
         rel = str(path.relative_to(ROOT))
         tries = [n for n in ast.walk(ast.parse(path.read_text()))
                  if isinstance(n, ast.Try)]
+        if rel.endswith("runtime/fault.py"):
+            assert len(tries) == 1 and len(tries[0].handlers) == 1, rel
+            assert ast.unparse(tries[0].handlers[0].type) == \
+                "InjectedFailure", rel
+            continue
         if rel.endswith("runtime/events.py"):
             assert len(tries) == 1 and not tries[0].handlers \
                 and tries[0].finalbody, rel
