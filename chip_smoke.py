@@ -127,6 +127,19 @@ Phases, one JSON line each:
                 memory
   train_families  every reduced config in float32: one step on the card
                 against the same step on the CPU
+  spmd_ring, spmd_train, spmd_moe, spmd_decode  4 ranks spawned on the
+                card (``launch/ranks.py``, the ``hostgloo`` group: every
+                collective through host copies) after one-rank references
+                on this process: the int8 ring over data = 4 on one
+                Llama-3.2-3B block's gradient leaves against the plain ring
+                (bit-equal) and the exact sum; Llama-3.2-3B at 4 layers on
+                data 2 x model 2, 3 steps without and 3 with the int8 ring
+                on 4 x 512 tokens (B5 on 12 q / 4 KV heads, 24 launches a
+                rank a run) and a reduced float32 gate; one granite MoE
+                layer with experts over model = 4; float32 decode (512-token
+                prompt, 16 steps) with the cache over model = 4 on the
+                sequence (sp), over model = 2 on the KV heads (tp, B6 on
+                local heads) and tp with the int8 ring; then ``spmd_walls``
   examples      ``examples/quickstart_torch.py``, ``serve_vla_ecc_torch.py``,
                 ``train_lm_torch.py`` (300 steps of a ~100M Llama with a
                 failure injected half-way) and
@@ -157,7 +170,9 @@ runs the int8 and int4 codecs' cases, their times at the served shapes
 beside the launch floor (an empty kernel queued the same way), what the
 quantise kernels' rounding division costs (inputs with no tie, random
 ones, all ties), and where the host time of an int4 call goes.  With
-``--train-only`` runs the gradient cases and the four training paths.
+``--train-only`` runs the gradient cases and the four training paths, and
+``--spmd-only`` the four SPMD phases (``--spmd-lr-probe``: the one-rank
+runs that chose ``spmd_train``'s learning rate).
 With ``--src DIR`` each does so for the ``repro_torch`` under ``DIR``, e.g. a
 parent commit unpacked beside this one, so that two versions are compared
 in one call.
@@ -736,6 +751,29 @@ def check_repeat(name, fn) -> dict:
     return {"case": name, "bit_equal": True}
 
 
+def spmd_attn_shapes(lcfg) -> list:
+    """(B, S, H, KV, D, dtype) of B5's launches on one rank of the SPMD
+    phases: spmd_train's bf16 steps (batch over data 2, heads over model
+    2) and its reduced float32 gate, spmd_decode's float32 prefills (tp:
+    model 2, sp: model SPMD_WORLD)."""
+    H, KV, hd = lcfg.n_heads, lcfg.n_kv_heads, lcfg.resolved_head_dim
+    r = get_config("llama3.2-3b").reduced()
+    return [(SPMD_TRAIN_BATCH // 2, SPMD_TRAIN_SEQ, H // 2, KV // 2, hd,
+             torch.bfloat16),
+            (SPMD_F32_BATCH // 2, SPMD_F32_SEQ, r.n_heads // 2,
+             r.n_kv_heads // 2, r.resolved_head_dim, torch.float32),
+            (1, SPMD_PROMPT, H // 2, KV // 2, hd, torch.float32),
+            (1, SPMD_PROMPT, H // SPMD_WORLD, KV // SPMD_WORLD, hd,
+             torch.float32)]
+
+
+def spmd_decode_shape(lcfg) -> tuple:
+    """(B, H, KV, T, D) of B6's launches on one rank of spmd_decode's tp
+    run: batch 1, the heads over model 2, the prompt + steps buffer."""
+    return (1, lcfg.n_heads // 2, lcfg.n_kv_heads // 2,
+            SPMD_PROMPT + SPMD_STEPS, lcfg.resolved_head_dim)
+
+
 def attention_cases(cfg, lcfg, zcfg, pcfg) -> tuple:
     """B5 and B6 against their plain versions at the shapes the main paths
     give them (``cfg`` the served VLA, ``lcfg`` Llama-3.2-3B, ``zcfg``
@@ -843,6 +881,11 @@ def attention_cases(cfg, lcfg, zcfg, pcfg) -> tuple:
     S_v, S_e = LM_PROMPT + F32_GATE_STEPS, ENCDEC_PREFIX + F32_GATE_STEPS
     attn_cases += [check_attn(1, S_v, S_v, H_v, KV_v, hd_v, f32, True, 114),
                    check_attn(1, S_e, S_e, H_e, KV_e, hd_e, f32, True, 115)]
+    # the SPMD phases' local heads: spmd_train's (data 2 x model 2, bf16,
+    # and the reduced float32 gate's) and spmd_decode's prefills (float32,
+    # model SPMD_WORLD for sp and 2 for tp)
+    for i, (B, S, h, kv, d, dt) in enumerate(spmd_attn_shapes(lcfg)):
+        attn_cases.append(check_attn(B, S, S, h, kv, d, dt, True, 120 + i))
     q, k, v = _attn_inputs(1, S_main, S_main, H, KV, hd, bf, 10)
     attn_cases.append(check_repeat(
         "flash_attention (1, 273, 32 x 128) causal, twice",
@@ -895,6 +938,12 @@ def attention_cases(cfg, lcfg, zcfg, pcfg) -> tuple:
         check_decode(1, 16, 1, 4096, 96, 4000, bf, 345),      # GQA 16x
         check_decode(1, 4, 4, 32, 96, 32, f32, 346),         # one split
     ]
+    # spmd_decode's tp: float32, the cache's KV heads over model 2, each
+    # rank's flat (B, T, KV/2 * hd) shard read through its strides
+    B, h, kv, t, d = spmd_decode_shape(lcfg)
+    for kv_len in (1, SPMD_PROMPT + 1, t):
+        dec_cases.append(check_decode(B, h, kv, t, d, kv_len, f32,
+                                      380 + kv_len, flat=True))
     for B, h, kv, t, d in ((1, H_l, KV_l, T_l, hd_l), (4, H_l, KV_l, T_l, hd_l),
                            (1, H_l, KV_l, 8192, hd_l), (4, H_z, KV_z, T_l, hd_z),
                            (1, 32, 2, 8192, 128), (1, H_p, KV_p, T_p, hd_p)):
@@ -907,31 +956,34 @@ def attention_cases(cfg, lcfg, zcfg, pcfg) -> tuple:
     return attn_cases, dec_cases
 
 
-def attn_bound(B, S, T, H, KV, D, causal, Dv=None) -> tuple:
-    """The card's least time for one bf16 prefill attention: q, k, v read
-    and the output written once; the two products over the (query, key)
-    pairs the mask keeps (q k^T at D, p v at Dv)."""
+def attn_bound(B, S, T, H, KV, D, causal, Dv=None,
+               dtype=torch.bfloat16) -> tuple:
+    """The card's least time for one prefill attention: q, k, v read and
+    the output written once; the two products over the (query, key) pairs
+    the mask keeps (q k^T at D, p v at Dv)."""
     Dv = Dv or D
     pairs = S * (S + 1) / 2 if causal and S == T else S * T
-    return bound(2 * B * (H * S * (D + Dv) + KV * T * (D + Dv)),
-                 2.0 * B * H * (D + Dv) * pairs, torch.bfloat16)
+    size = torch.finfo(dtype).bits // 8
+    return bound(size * B * (H * S * (D + Dv) + KV * T * (D + Dv)),
+                 2.0 * B * H * (D + Dv) * pairs, dtype)
 
 
-def time_attn(B, S, H, KV, D, max_err, Dv=None) -> dict:
-    """Times of the flash attention kernel at a served bf16 causal shape:
-    the kernel, its host time, the plain version, and as the yardstick
-    ``F.scaled_dot_product_attention`` on (B, H, S, D) views of the same
-    tensors (grouped heads by ``enable_gqa``, a backend that takes Dv != D
-    at the MLA shapes; the port calls it nowhere)."""
-    q, k, v = _attn_inputs(B, S, S, H, KV, D, torch.bfloat16, 10 + B + S + D,
-                           Dv=Dv)
+def time_attn(B, S, H, KV, D, max_err, Dv=None,
+              dtype=torch.bfloat16) -> dict:
+    """Times of the flash attention kernel at a served causal shape (bf16
+    unless ``dtype`` says otherwise): the kernel, its host time, the plain
+    version, and as the yardstick ``F.scaled_dot_product_attention`` on
+    (B, H, S, D) views of the same tensors (grouped heads by
+    ``enable_gqa``, a backend that takes Dv != D at the MLA shapes; the
+    port calls it nowhere)."""
+    q, k, v = _attn_inputs(B, S, S, H, KV, D, dtype, 10 + B + S + D, Dv=Dv)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    b_ms, b_by = attn_bound(B, S, S, H, KV, D, True, Dv)
+    b_ms, b_by = attn_bound(B, S, S, H, KV, D, True, Dv, dtype)
     return {"route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
             "shape": [B, S, H, KV, D] + ([Dv] if Dv else []),
-            "dtype": "bfloat16", "causal": True,
+            "dtype": str(dtype).split(".")[-1], "causal": True,
             "max_abs_err": max_err,
             "ms": time_ms(lambda: fa_ops.flash_attention(q, k, v,
                                                          causal=True)),
@@ -944,21 +996,24 @@ def time_attn(B, S, H, KV, D, max_err, Dv=None) -> dict:
                 qt, kt, vt, is_causal=True, enable_gqa=KV != H))}
 
 
-def time_decode(B, H, KV, T, D, kv_len, max_err) -> dict:
-    """Times of the flash-decode kernel on a flat bf16 cache at live length
-    ``kv_len``: the kernel, its host time, the plain version, and as the
-    yardstick ``F.scaled_dot_product_attention`` on the same q and the live
-    K/V prefix (grouped heads by ``enable_gqa``; the port calls it
+def time_decode(B, H, KV, T, D, kv_len, max_err,
+                dtype=torch.bfloat16) -> dict:
+    """Times of the flash-decode kernel on a flat cache (bf16 unless
+    ``dtype`` says otherwise) at live length ``kv_len``: the kernel, its
+    host time, the plain version, and as the yardstick
+    ``F.scaled_dot_product_attention`` on the same q and the live K/V
+    prefix (grouped heads by ``enable_gqa``; the port calls it
     nowhere)."""
-    bf = torch.bfloat16
-    q, k, v = _decode_inputs(B, H, KV, T, D, bf, 400 + T, flat=True)
+    q, k, v = _decode_inputs(B, H, KV, T, D, dtype, 400 + T, flat=True)
     q4, kl, vl = q[:, :, None], k[:, :, :kv_len], v[:, :, :kv_len]
-    nbytes = 2 * (2 * B * KV * kv_len * D + 2 * B * H * D)
-    b_ms, b_by = bound(nbytes, 4.0 * B * H * kv_len * D, bf)
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * (2 * B * KV * kv_len * D + 2 * B * H * D)
+    b_ms, b_by = bound(nbytes, 4.0 * B * H * kv_len * D, dtype)
     return {"route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:65",
-            "shape": [B, H, KV, T, D], "kv_len": kv_len, "dtype": "bfloat16",
+            "shape": [B, H, KV, T, D], "kv_len": kv_len,
+            "dtype": str(dtype).split(".")[-1],
             "split_plan": list(da_ops.split_plan(T, B * KV,
                                                  da_ops.sm_count(q.device))),
             "max_abs_err": max_err,
@@ -972,8 +1027,8 @@ def time_decode(B, H, KV, T, D, kv_len, max_err) -> dict:
                 q4, kl, vl, enable_gqa=KV != H))}
 
 
-SERVED_KEYS = ("shape", "kv_len", "split_plan", "ms", "host_ms", "plain_ms",
-               "bound_ms", "bound_by", "library_ms")
+SERVED_KEYS = ("shape", "dtype", "kv_len", "split_plan", "ms", "host_ms",
+               "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def attention_times(cfg, lcfg, zcfg, pcfg, attn_cases, dec_cases) -> dict:
@@ -1015,6 +1070,11 @@ def attention_times(cfg, lcfg, zcfg, pcfg, attn_cases, dec_cases) -> dict:
                for B in LM_BATCHES]
     served += [time_attn(B, ENCDEC_PREFIX, H_e, KV_e, hd_e, attn_err)
                for B in LM_BATCHES]
+    errs = {dt: max(c["max_err"] for c in attn_cases
+                    if c.get("dtype") == str(dt).split(".")[-1])
+            for dt in (torch.bfloat16, torch.float32)}
+    served += [time_attn(B, S, h, kv, d, errs[dt], dtype=dt)
+               for B, S, h, kv, d, dt in spmd_attn_shapes(lcfg)]
     rec = {"flash_attention": dict(served[0])}
     rec["flash_attention"]["served"] = [
         {k: r[k] for k in SERVED_KEYS if k in r} for r in served]
@@ -1038,6 +1098,10 @@ def attention_times(cfg, lcfg, zcfg, pcfg, attn_cases, dec_cases) -> dict:
                for B in LM_BATCHES]
     served += [time_decode(B, H_e, KV_e, T_e, hd_e, T_e, dec_err)
                for B in LM_BATCHES]
+    B, h, kv, t, d = spmd_decode_shape(lcfg)
+    served.append(time_decode(B, h, kv, t, d, t, max(
+        c["max_err"] for c in dec_cases if c.get("dtype") == "float32"),
+        dtype=torch.float32))
     rec["decode_attention"] = dict(served[0])
     rec["decode_attention"]["served"] = [
         {k: r[k] for k in SERVED_KEYS if k in r} for r in served]
@@ -4199,6 +4263,766 @@ def phase_examples() -> dict:
     return info
 
 
+# ==================================================================== spmd
+# The SPMD layer (``models/sharding.py``: DTensor parameters and
+# activations, ``local_map`` regions; ``train/compression.py``: the int8
+# ring) driven by SPMD_WORLD ranks on the one card.  NCCL refuses two ranks
+# on one device ("Duplicate GPU detected") and gloo's CUDA collectives
+# crash under DTensor's functional-collective wait (torch 2.11), so the
+# ranks' group is the port's ``hostgloo`` (``launch/host_group.py``): gloo
+# on host copies of the tensors, the copy counted as the wire.  The ranks
+# are spawned children (``launch/ranks.py``) that load the kernels the
+# parent built; the parent computes the one-rank references first.
+SPMD_WORLD = 4
+SPMD_BACKEND = "hostgloo"
+SPMD_LAYERS = 4                     # depth cut of Llama-3.2-3B (28 layers)
+SPMD_TRAIN_BATCH, SPMD_TRAIN_SEQ, SPMD_TRAIN_STEPS = 4, 512, 3
+SPMD_F32_BATCH, SPMD_F32_SEQ = 4, 64    # the reduced float32 gate's batch
+# bf16 training at the full lr from the first step.  The one-rank loss
+# diverges at lr 1e-3 (250 -> 906 -> 703) and jumps at 1e-4 (250 -> 613 ->
+# 507) and 5e-5 (250 -> 369 -> 264); at 3e-5 it falls (250 -> 186 -> 166)
+# (``--spmd-lr-probe`` on the H100).  AdamW's first steps move an element
+# by at most 1.001 lr (sign-like), which bf16 keeps where that is above
+# half the element's ulp: the elements below 2^-7 move, and those above
+# stay put on every rank (half their ulp, 3.05e-5 and up, exceeds 1.001 lr)
+SPMD_OPT = OptConfig(lr=3e-5, warmup_steps=1)
+# the float32 gate's optimizers: without compression the default warm-up
+# (lr 1e-5 .. 3e-5), where rounding-level gradient differences stay
+# rounding-level in the parameters (at the full lr an element whose
+# gradient is near zero moves by up to 2 lr on a flip of its sign); with
+# the int8 ring lr 1e-3 from the first step, so that the update shows
+SPMD_F32_OPT = OptConfig(lr=1e-3)
+SPMD_F32_RING_OPT = OptConfig(lr=1e-3, warmup_steps=1)
+SPMD_PROMPT, SPMD_STEPS = 512, 16
+SPMD_MOE_TOKENS = (2, 512)
+SPMD_RING_ODD = 3 * 3072 + 1        # a leaf whose size 4 does not divide
+# Bounds of spmd_train against the one-rank run, every step:
+# - the loss within SPMD_LOSS_REL of one rank's, and its change from the
+#   first step within SPMD_DLOSS_REL of one rank's change (a missing update
+#   does not change the loss);
+# - the gradient norm (after the sync) within SPMD_NORM_REL, and the
+#   float32 int8 run's first one (the ring's noise alone) within
+#   SPMD_F32_NORM_REL: a sync that drops, halves or doubles the sum is 50 %
+#   off or more, and AdamW would not see a factor;
+# - the parameters' change p - p0 within SPMD_DELTA_RATIO of one rank's
+#   change, in norm over every element (a missing update is 1 off; the
+#   layouts' roundings and the ring's noise flip the first, sign-like step
+#   of elements whose gradient lies within that noise);
+# - the int8 runs' step-0 gradients synced by the ring and exactly from one
+#   autograd output: every element within the ring's bound, 2(N-1) x
+#   0.5/127 x the data ranks' abs-max sum, plus 3 roundings to the dtype of
+#   that sum (3 eps/2) -- which must stay below the leaf's largest
+#   element, so that a missing sum would show.
+# The float32 gate without compression holds losses and parameters to
+# SPMD_F32_TOL.  The MoE output within 2 % of its largest magnitude; the
+# int8 ring's logits within 2 % of the largest.
+SPMD_LOSS_REL, SPMD_DLOSS_REL, SPMD_NORM_REL = 1e-2, 1e-1, 2e-2
+SPMD_F32_NORM_REL, SPMD_F32_DLOSS_REL = 1e-3, 1e-2
+SPMD_DELTA_RATIO = 0.5
+SPMD_MOE_REL, SPMD_F32_TOL = 2e-2, 1e-5
+SPMD_INT8_LOGIT_REL = 2e-2
+DECODE_MODES = ("sp", "tp", "tp_int8_ring")
+SPMD_CONSTS = ("SPMD_WORLD", "SPMD_BACKEND", "SPMD_TRAIN_BATCH",
+               "SPMD_TRAIN_SEQ", "SPMD_TRAIN_STEPS", "SPMD_PROMPT",
+               "SPMD_STEPS", "SPMD_MOE_TOKENS", "SPMD_RING_ODD")
+
+
+def _spmd_sync(dev) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def _spmd_barrier_wall(dev, t0) -> float:
+    import torch.distributed as dist
+    _spmd_sync(dev)
+    dist.barrier()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _local_slice(full: torch.Tensor, dt) -> torch.Tensor:
+    """The part of ``full`` that the DTensor ``dt``'s local shard holds
+    (torch.chunk along each sharded dim, mesh dims in order)."""
+    dm = dt.device_mesh
+    coord = dm.get_coordinate()
+    for i, pl in enumerate(dt.placements):
+        if pl.is_shard():
+            full = full.chunk(dm.size(i), pl.dim)[coord[i]]
+    return full
+
+
+def _flat(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _ring_leaves(lcfg) -> dict:
+    """Shapes of one Llama-3.2-3B block's gradient leaves, and one leaf
+    whose size the ring's 4 ranks do not divide."""
+    from repro_torch.models.transformer import dense_block_specs
+    leaves = {k: s.shape for k, s in _flat(dense_block_specs(lcfg)).items()}
+    leaves["odd"] = (SPMD_RING_ODD,)
+    return leaves
+
+
+def spmd_ring_rank(rank, spec) -> dict:
+    """spmd_ring on this rank: data = SPMD_WORLD."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import use_mesh
+    from repro_torch.train import compression as C
+    dev = spec["dev"]
+    N = SPMD_WORLD
+    mesh = make_mesh((N, 1), ("data", "model"), dev)
+    r = mesh.local_rank("data")
+    rows = []
+    with use_mesh(mesh, {}):
+        for i, (name, shape) in enumerate(_ring_leaves(spec["lcfg"]).items()):
+            g = torch.Generator(device=dev)
+            xs = []
+            for j in range(N):
+                g.manual_seed(SEED + 200 + 10 * i + j)
+                xs.append(torch.randn(shape, generator=g, device=dev))
+            C.reset_wire()
+            t0 = time.perf_counter()
+            out = C.ring_allreduce_int8(xs[r], "data")
+            wall = _spmd_barrier_wall(dev, t0)
+            wire = dict(C.WIRE)
+            stacked = torch.stack(xs)
+            plain = C.ring_allreduce_int8_plain(stacked)[r]
+            exact = stacked.double().sum(0)
+            bound = 2 * (N - 1) * 0.5 / 127 * float(sum(
+                x.abs().max() for x in xs))
+            n = math.prod(shape)
+            rows.append({"leaf": name, "shape": list(shape),
+                         "plain_max_abs_err": float((out - plain).abs().max()),
+                         "exact_max_abs_err": float(
+                             (out.double() - exact).abs().max()),
+                         "bound": bound,
+                         "int8_bytes_per_hop": -(-n // N), "scale_bytes": 4,
+                         "hops": wire["hops"],
+                         "host_bytes": wire["host_bytes"], "wall_ms": wall})
+            del xs, stacked, plain, exact, out
+    return {"rows": rows}
+
+
+def _sync_check(model, params, batch, mesh) -> dict:
+    """The step-0 gradients of ``params`` synced by the int8 ring
+    (``_compressed_sync``) and exactly (``_reduce_to_params``) from one
+    autograd output: by leaf, the largest distance on this rank's shard,
+    the ring's bound there (see SPMD_DELTA_RATIO's comment), the largest
+    exact element and whether the gradient was a pending sum over data."""
+    import torch.distributed as dist
+    from repro_torch.train.train_loop import (_compressed_sync,
+                                              _reduce_to_params)
+    _, grads = loss_and_grads(model, params, batch)
+    ring = _compressed_sync(grads, params)
+    exact = _reduce_to_params(grads, params)
+    N, d = mesh.shape["data"], mesh.axis_names.index("data")
+    rows = {}
+    for (name, g), r, e, p in zip(_flat(grads).items(), tree_leaves(ring),
+                                  tree_leaves(exact), tree_leaves(params)):
+        mid = list(p.placements)
+        mid[d] = g.placements[d]
+        amax = g.redistribute(p.device_mesh, mid).to_local().float() \
+            .abs().max()
+        dist.all_reduce(amax, group=mesh.device_mesh.get_group("data"))
+        eps = torch.finfo(g.dtype).eps
+        el = e.to_local().float()
+        rows[name] = {"err": float((r.to_local().float() - el).abs().max()),
+                      "bound": (2 * (N - 1) * 0.5 / 127 + 1.5 * eps)
+                      * float(amax),
+                      "max_abs": float(el.abs().max()),
+                      "partial": g.placements[d].is_partial()}
+    return rows
+
+
+def _spmd_train_run(spec, mesh, cfg, params, batch_np, steps, compression,
+                    ref, opt, want_shapes=False) -> dict:
+    """``steps`` train steps of ``cfg`` on ``mesh`` from ``params`` (full,
+    on every rank): losses, gradient norms, walls and B5 launches; against
+    ``ref`` (the one-rank run's final parameters, flat names) the largest
+    distance of this rank's shard of every parameter, and the sums of
+    squares of (p - p0) - (p_ref - p0) and of p_ref - p0 over the shard;
+    with the int8 ring, the sync check of the step-0 gradients first
+    (not counted)."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.models.sharding import (distribute_tree, make_rules,
+                                             use_mesh)
+    dev = spec["dev"]
+    model = build(cfg)
+    rules = make_rules(cfg, mesh, "train")
+    seen = []
+    with use_mesh(mesh, rules):
+        state = init_state(distribute_tree(params, model.param_specs, mesh,
+                                           rules))
+        del params
+        p0 = {k: p.to_local().clone() for k, p in _flat(state.params).items()}
+        batch = shard_batch(batch_np, mesh, rules)
+        sync = None if compression is None else _sync_check(
+            model, state.params, batch, mesh)
+        step = make_train_step(model, opt, grad_compression=compression)
+        launch = fa_ops._launch
+
+        def record(q, k, v, causal):        # the shapes each launch takes
+            seen.append((tuple(q.shape), tuple(k.shape)))
+            return launch(q, k, v, causal)
+
+        fa_ops._launch = record             # a raise ends the rank
+        _reset_counts()
+        losses, norms, walls = [], [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            walls.append(_spmd_barrier_wall(dev, t0))
+        fa_ops._launch = launch
+        counts = _counts()
+        errs, num, den = {}, 0.0, 0.0
+        for name, p in _flat(state.params).items():
+            want = _local_slice(ref[name], p).to(dev).float()
+            got, start = p.to_local().float(), p0[name].float()
+            errs[name] = float((got - want).abs().max())
+            num += float(((got - want).double() ** 2).sum())
+            den += float(((want - start).double() ** 2).sum())
+    return {"losses": losses, "norms": norms, "walls_ms": walls,
+            "launches": counts,
+            "b5_shapes": sorted(set(seen)) if want_shapes else None,
+            "param_max_abs_err": max(errs.values()),
+            "param_worst": max(errs, key=errs.get),
+            "delta_sq": num, "ref_delta_sq": den, "sync": sync}
+
+
+def spmd_train_rank(rank, spec) -> dict:
+    """spmd_train on this rank: data 2 x model 2."""
+    from repro_torch.launch.mesh import make_mesh
+    dev = spec["dev"]
+    lcfg = spec["lcfg"]
+    mesh = make_mesh((2, 2), ("data", "model"), dev)
+    model = build(lcfg)
+    out = {}
+    ref = torch.load(spec["train_ref"], mmap=True)
+    for compression in (None, "int8_ring"):
+        params = init_params(model.param_specs, gen(SEED + 210), dev)
+        out[str(compression)] = _spmd_train_run(
+            spec, mesh, lcfg, params, spec["train_batch"], SPMD_TRAIN_STEPS,
+            compression, ref, SPMD_OPT, want_shapes=True)
+        gc.collect()
+    del ref
+    # the float32 gate: a reduced config without compression (one-rank
+    # parameters to 1e-5) and with the int8 ring
+    scfg = spec["small_cfg"]
+    for key, compression, opt in (("f32_reduced", None, SPMD_F32_OPT),
+                                  ("f32_reduced_int8_ring", "int8_ring",
+                                   SPMD_F32_RING_OPT)):
+        small = tree_map(lambda a: torch.from_numpy(a).to(dev, copy=True),
+                         spec["small_params"])
+        out[key] = _spmd_train_run(
+            spec, mesh, scfg, small, spec["small_batch"], SPMD_TRAIN_STEPS,
+            compression, tree_map(torch.from_numpy, spec["small_ref"][key]),
+            opt)
+    return out
+
+
+def spmd_moe_rank(rank, spec) -> dict:
+    """spmd_moe on this rank: one granite MoE layer, experts over model."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import (distribute_tree, make_rules,
+                                             placements, resolve, use_mesh)
+    dev = spec["dev"]
+    out = {}
+    mesh = make_mesh((1, SPMD_WORLD), ("data", "model"), dev)
+    for dtype in ("bfloat16", "float32"):
+        cfg = spec["gcfg"].replace(dtype=dtype)
+        specs = moe_mod.moe_specs(cfg)
+        tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        params = tree_map(lambda t: t.to(tdt),
+                          init_params(specs, gen(SEED + 220), dev))
+        x = torch.randn(SPMD_MOE_TOKENS + (cfg.d_model,), generator=gen(
+            SEED + 221), device=dev).to(tdt)
+        with torch.no_grad():
+            y1, aux1 = moe_ffn(cfg, params, x)
+        rules = make_rules(cfg, mesh, "train")
+        with use_mesh(mesh, rules), torch.no_grad():
+            pd = distribute_tree(params, specs, mesh, rules)
+            xd = distribute_tensor(x, mesh.device_mesh, placements(
+                resolve(("batch", "seq", None)), mesh), src_data_rank=None)
+            t0 = time.perf_counter()
+            y, aux = moe_ffn(cfg, pd, xd)
+            y = y.to_local()
+            wall = _spmd_barrier_wall(dev, t0)
+            aux = float(aux.full_tensor())
+        out[dtype] = {"y_max_abs_err": float((y.float() - y1.float())
+                                             .abs().max()),
+                      "y_max_abs": float(y1.float().abs().max()),
+                      "aux": aux, "aux_one_rank": float(aux1),
+                      "experts_per_rank": pd["wg"].to_local().shape[0],
+                      "wall_ms": wall}
+    return out
+
+
+def _spmd_decode_run(spec, mesh, cfg, rules, forced=None) -> dict:
+    """Prefill SPMD_PROMPT tokens and SPMD_STEPS greedy steps at batch 1 on
+    ``mesh`` (with ``forced`` tokens fed instead of the argmax); the
+    tokens, each step's logits (rank 0), walls and launches."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.models.sharding import distribute_tree, use_mesh
+    dev = spec["dev"]
+    model = build(cfg)
+    params = tree_map(lambda t: t.float(), init_params(
+        model.param_specs, gen(SEED + 230), dev))
+    prompt = spec["decode_prompt"]
+    with use_mesh(mesh, rules), torch.no_grad():
+        pd = distribute_tree(params, model.param_specs, mesh, rules)
+        del params
+        _reset_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill_and_pad(
+            model, pd, shard_batch({"tokens": prompt}, mesh, rules),
+            SPMD_PROMPT + SPMD_STEPS)
+        prefill_ms = _spmd_barrier_wall(dev, t0)
+        prefill_counts = _counts()
+        step = make_serve_step(model)
+        last = [logits.full_tensor()[:, -1].float()]
+        toks, walls = [], []
+        for i in range(SPMD_STEPS):
+            cur = (torch.argmax(last[-1], -1)[:, None].to(torch.int32).cpu()
+                   if forced is None else torch.from_numpy(forced[:, i:i + 1]))
+            toks.append(cur)
+            t0 = time.perf_counter()
+            logits, cache = step(pd, cache, shard_batch(
+                {"tokens": cur.numpy()}, mesh, rules)["tokens"],
+                SPMD_PROMPT + i)
+            last.append(logits.full_tensor()[:, -1].float())
+            walls.append(_spmd_barrier_wall(dev, t0))
+        counts = _counts()
+    return {"tokens": torch.cat(toks, 1),
+            "logits": torch.stack(last, 1).cpu() if mesh.device_mesh
+            .get_rank() == 0 else None,
+            "prefill_ms": prefill_ms, "step_ms": walls,
+            "prefill_launches": prefill_counts, "launches": counts}
+
+
+def spmd_decode_rank(rank, spec) -> dict:
+    """spmd_decode on this rank: sp over model = 4, tp over model = 2 (B6
+    on 12 / 4 local heads), tp with the int8 ring on the row-parallel
+    projections fed the one-rank tokens."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import make_rules
+    dev = spec["dev"]
+    lcfg = spec["lcfg"].replace(dtype="float32")
+    out = {}
+    m14 = make_mesh((1, SPMD_WORLD), ("data", "model"), dev)
+    cfg = lcfg.replace(decode_attn="sp")
+    out["sp"] = _spmd_decode_run(spec, m14, cfg,
+                                 make_rules(cfg, m14, "long_decode"))
+    m22 = make_mesh((2, 2), ("data", "model"), dev)
+    rules = make_rules(lcfg, m22, "long_decode")
+    out["tp"] = _spmd_decode_run(spec, m22, lcfg, rules)
+    rules = dict(rules, __tp_int8__=True)
+    out["tp_int8_ring"] = _spmd_decode_run(
+        spec, m22, lcfg.replace(tp_collective="int8_ring"), rules,
+        forced=spec["decode_ref_tokens"])
+    return out
+
+
+def spmd_rank(rank, spec) -> dict:
+    """Every spmd phase on this rank, in order, with the staged bytes of
+    each."""
+    global DEV
+    from repro_torch.launch import host_group
+    DEV = spec["dev"]
+    globals().update(spec["consts"])      # the parent's sizes
+    out = {}
+    for name, fn in (("spmd_ring", spmd_ring_rank),
+                     ("spmd_train", spmd_train_rank),
+                     ("spmd_moe", spmd_moe_rank),
+                     ("spmd_decode", spmd_decode_rank)):
+        host_group.reset_staged()
+        t0 = time.perf_counter()
+        out[name] = fn(rank, spec)
+        out[name]["wall_s"] = _spmd_barrier_wall(DEV, t0) / 1e3
+        out[name]["staged"] = dict(host_group.STAGED)
+        if rank == 0:                   # progress, before the phase's line
+            print(json.dumps({"rank0_done": name,
+                              "wall_s": out[name]["wall_s"]}), flush=True)
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+            out[name]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def _spmd_references(lcfg, scfg, workdir) -> dict:
+    """The one-rank runs the ranks are held against, on this process: the
+    train steps (parameters saved for the ranks to slice), the reduced
+    float32 steps and the greedy tokens and logits of the decode."""
+    model = build(lcfg)
+    batch_np = SyntheticStream(DataConfig(
+        vocab_size=lcfg.vocab_size, seq_len=SPMD_TRAIN_SEQ,
+        global_batch=SPMD_TRAIN_BATCH, seed=SEED + 211)).next()
+    state = init_state(init_params(model.param_specs, gen(SEED + 210), DEV))
+    step = make_train_step(model, SPMD_OPT)
+    b = to_device(batch_np, DEV)
+    losses, norms = [], []
+    for _ in range(SPMD_TRAIN_STEPS):
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    path = os.path.join(workdir, "train_ref.pt")
+    torch.save({k: v.cpu() for k, v in _flat(state.params).items()}, path)
+    del state, step
+    # the float32 gate, with the default warm-up and without
+    smodel = build(scfg)
+    small = tree_map(lambda t: t.float(), init_params(
+        smodel.param_specs, gen(SEED + 212), DEV))
+    small_np = tree_map(lambda t: t.cpu().numpy().copy(), small)
+    sbatch = SyntheticStream(DataConfig(
+        vocab_size=scfg.vocab_size, seq_len=SPMD_F32_SEQ,
+        global_batch=SPMD_F32_BATCH,
+        seed=SEED + 213)).next()
+    small_ref, small_losses, small_norms = {}, {}, {}
+    for key, opt in (("f32_reduced", SPMD_F32_OPT),
+                     ("f32_reduced_int8_ring", SPMD_F32_RING_OPT)):
+        sstate = init_state(tree_map(
+            lambda a: torch.from_numpy(a).to(DEV, copy=True), small_np))
+        sstep = make_train_step(smodel, opt)
+        small_losses[key], small_norms[key] = [], []
+        for _ in range(SPMD_TRAIN_STEPS):
+            sstate, m = sstep(sstate, to_device(sbatch, DEV))
+            small_losses[key].append(float(m["loss"]))
+            small_norms[key].append(float(m["grad_norm"]))
+        small_ref[key] = {k: v.cpu().numpy().copy()
+                          for k, v in _flat(sstate.params).items()}
+    # the decode: float32, batch 1
+    dcfg = lcfg.replace(dtype="float32")
+    dmodel = build(dcfg)
+    dparams = tree_map(lambda t: t.float(), init_params(
+        dmodel.param_specs, gen(SEED + 230), DEV))
+    prompt = np.random.default_rng(SEED + 231).integers(
+        0, lcfg.vocab_size, (1, SPMD_PROMPT)).astype(np.int32)
+    with torch.no_grad():
+        logits, cache = prefill_and_pad(dmodel, dparams,
+                                        to_device({"tokens": prompt}, DEV),
+                                        SPMD_PROMPT + SPMD_STEPS)
+        dstep = make_serve_step(dmodel)
+        last, toks = [logits[:, -1].float()], []
+        for i in range(SPMD_STEPS):
+            cur = torch.argmax(last[-1], -1)[:, None].to(torch.int32)
+            toks.append(cur)
+            logits, cache = dstep(dparams, cache, cur, SPMD_PROMPT + i)
+            last.append(logits[:, -1].float())
+    del dparams, cache
+    return {"dev": DEV, "lcfg": lcfg, "small_cfg": scfg,
+            "train_ref": path, "train_batch": batch_np,
+            "train_ref_losses": losses, "train_ref_norms": norms,
+            "small_params": small_np, "small_batch": sbatch,
+            "small_ref": small_ref, "small_ref_losses": small_losses,
+            "small_ref_norms": small_norms,
+            "decode_prompt": prompt,
+            "decode_ref_tokens": torch.cat(toks, 1).cpu().numpy(),
+            "decode_ref_logits": torch.stack(last, 1).cpu()}
+
+
+def _sum_ranks(ranks, get) -> dict:
+    return {k: sum(get(r)[k] for r in ranks) for k in WRAPPERS}
+
+
+SPMD_LR_PROBE = ((1e-3, 1), (1e-4, 1), (5e-5, 1), (3e-5, 1), (1e-3, 100))
+
+
+def spmd_lr_probe(lcfg=None) -> None:
+    """What chose SPMD_OPT: spmd_train's one-rank run (bf16, its depth,
+    batch and seed) at each (lr, warm-up) of SPMD_LR_PROBE, a line each:
+    the losses and gradient norms, the share of elements the 3 steps
+    moved, and the parameters' change against two other runs, in the norm
+    of spmd_train's change check: two microbatches (another summation
+    order: the size of rounding noise) and half the batch (what a sync
+    that keeps one data rank's part feeds AdamW)."""
+    lcfg = lcfg or get_config("llama3.2-3b").replace(n_layers=SPMD_LAYERS)
+    model = build(lcfg)
+    b = to_device(SyntheticStream(DataConfig(
+        vocab_size=lcfg.vocab_size, seq_len=SPMD_TRAIN_SEQ,
+        global_batch=SPMD_TRAIN_BATCH, seed=SEED + 211)).next(), DEV)
+    half = {k: v[:SPMD_TRAIN_BATCH // 2] for k, v in b.items()}
+
+    def run(opt, n, batch):
+        params = init_params(model.param_specs, gen(SEED + 210), DEV)
+        p0 = [p.clone() for p in tree_leaves(params)]
+        st, step = init_state(params), make_train_step(model, opt,
+                                                        n_microbatches=n)
+        out = {"losses": [], "norms": []}
+        for _ in range(SPMD_TRAIN_STEPS):
+            st, m = step(st, batch)
+            out["losses"].append(float(m["loss"]))
+            out["norms"].append(float(m["grad_norm"]))
+        return out, [p.float() - q.float()
+                     for p, q in zip(tree_leaves(st.params), p0)]
+
+    def ratio(da, db):
+        return math.sqrt(sum(float(((x - y) ** 2).sum())
+                             for x, y in zip(da, db))
+                         / sum(float((x ** 2).sum()) for x in da))
+
+    for lr, warmup in SPMD_LR_PROBE:
+        opt = OptConfig(lr=lr, warmup_steps=warmup)
+        one, da = run(opt, 1, b)
+        micro, db = run(opt, 2, b)
+        part, dh = run(opt, 1, half)
+        emit({"phase": "spmd_lr_probe", "model": "llama3.2-3b",
+              "depth": f"{lcfg.n_layers} of 28 layers", "lr": lr,
+              "warmup_steps": warmup, **one,
+              "moved_share": sum(int((x != 0).sum()) for x in da)
+              / sum(x.numel() for x in da),
+              "change_ratio_two_microbatches": ratio(da, db),
+              "change_ratio_half_batch": ratio(da, dh),
+              "two_microbatches": micro, "half_batch": part})
+        del da, db, dh
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_spmd(lcfg=None, scfg=None, gcfg=None, workdir=None) -> dict:
+    """spmd_ring, spmd_train, spmd_moe and spmd_decode: the references on
+    this process, then SPMD_WORLD spawned ranks on the card running all
+    four; one line each.  Returns each phase's launches, summed over the
+    ranks."""
+    from repro_torch.launch.ranks import run_ranks
+    t_all = time.perf_counter()
+    lcfg = lcfg or get_config("llama3.2-3b").replace(n_layers=SPMD_LAYERS)
+    scfg = scfg or get_config("llama3.2-3b").reduced().replace(
+        dtype="float32")
+    workdir = workdir or os.path.join(_build.build_dir(),
+                                      f"spmd_{os.getpid()}")
+    os.makedirs(workdir, exist_ok=True)
+    t0 = time.perf_counter()
+    spec = _spmd_references(lcfg, scfg, workdir)
+    spec["gcfg"] = gcfg or get_config(GRANITE)
+    spec["consts"] = {k: globals()[k] for k in SPMD_CONSTS}
+    ref_s = time.perf_counter() - t0
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(spmd_rank, SPMD_WORLD, os.path.join(workdir, "ranks"),
+                      spec, backend=SPMD_BACKEND, device=DEV,
+                      timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    depth = {"llama3.2-3b": f"{lcfg.n_layers} of 28 layers"}
+    common = {"world": SPMD_WORLD, "backend": SPMD_BACKEND,
+              "ranks_on": "one card, each rank cuda:0",
+              "references_s": ref_s, "ranks_s": ranks_s}
+    runs = {}
+
+    # ---- ring
+    rows = [r["spmd_ring"]["rows"] for r in ranks]
+    for leaf in zip(*rows):
+        for x in leaf:
+            if x["plain_max_abs_err"] != 0.0:
+                raise AssertionError(f"ring != plain ring on {x['leaf']}")
+            if not x["exact_max_abs_err"] <= x["bound"]:
+                raise AssertionError(f"ring off the exact sum: {x}")
+    runs["spmd_ring"] = _sum_ranks(ranks, lambda r: dict.fromkeys(WRAPPERS,
+                                                                  0))
+    emit({"phase": "spmd_ring", "mesh": {"data": SPMD_WORLD, "model": 1},
+          "tolerances": {"plain": "bit-equal",
+                         "exact": "2 (N-1) x 0.5 / 127 x sum of the ranks' "
+                                  "abs-max"},
+          "leaves": [{k: v for k, v in x.items()} for x in rows[0]],
+          "wall_ms_by_rank": [[x["wall_ms"] for x in rr] for rr in rows],
+          "wall_s": ranks[0]["spmd_ring"]["wall_s"],
+          "staged": ranks[0]["spmd_ring"]["staged"], **common})
+
+    # ---- train
+    tr = [r["spmd_train"] for r in ranks]
+    want_b5 = SPMD_TRAIN_STEPS * lcfg.n_layers * (2 if lcfg.remat else 1)
+    keys = ("None", "int8_ring", "f32_reduced", "f32_reduced_int8_ring")
+    one = {"None": (spec["train_ref_losses"], spec["train_ref_norms"]),
+           "int8_ring": (spec["train_ref_losses"], spec["train_ref_norms"])}
+    for k in keys[2:]:
+        one[k] = (spec["small_ref_losses"][k], spec["small_ref_norms"][k])
+    summary = {}
+    for key in keys:
+        runs_k = [r[key] for r in tr]
+        ref_l, ref_n = one[key]
+        f32 = key.startswith("f32")
+        exact = key == "f32_reduced"
+        for run in runs_k:
+            losses, norms = run["losses"], run["norms"]
+            if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+                raise AssertionError(f"{key}: losses {losses} norms {norms}")
+            if exact:
+                np.testing.assert_allclose(losses, ref_l, rtol=SPMD_F32_TOL)
+                np.testing.assert_allclose(norms, ref_n, rtol=SPMD_F32_TOL)
+                if not run["param_max_abs_err"] <= SPMD_F32_TOL:
+                    raise AssertionError(f"float32 gate: {run}")
+                continue
+            np.testing.assert_allclose(
+                losses[:1], ref_l[:1],
+                rtol=SPMD_F32_TOL if f32 else SPMD_LOSS_REL)
+            np.testing.assert_allclose(losses, ref_l, rtol=SPMD_LOSS_REL)
+            dl = SPMD_F32_DLOSS_REL if f32 else SPMD_DLOSS_REL
+            for k in range(1, len(losses)):
+                want = ref_l[k] - ref_l[0]
+                if not abs(losses[k] - losses[0] - want) <= dl * abs(want):
+                    raise AssertionError(f"{key}: loss change at step {k}: "
+                                         f"{losses} vs {ref_l}")
+            np.testing.assert_allclose(norms, ref_n, rtol=SPMD_NORM_REL)
+            if f32:
+                np.testing.assert_allclose(norms[:1], ref_n[:1],
+                                           rtol=SPMD_F32_NORM_REL)
+            for name, row in (run["sync"] or {}).items():
+                if not (row["partial"] and row["err"] <= row["bound"]
+                        < row["max_abs"]):
+                    raise AssertionError(f"{key}: sync of {name}: {row}")
+        ratio = math.sqrt(sum(r["delta_sq"] for r in runs_k)
+                          / sum(r["ref_delta_sq"] for r in runs_k))
+        if not exact and not ratio <= SPMD_DELTA_RATIO:
+            raise AssertionError(f"{key}: the parameters' change is "
+                                 f"{ratio} off one rank's")
+        want = want_b5 if not f32 else SPMD_TRAIN_STEPS * \
+            spec["small_cfg"].n_layers
+        for run in runs_k:
+            if run["launches"]["flash_attention"] != want:
+                raise AssertionError(f"{key}: B5 launches {run['launches']}")
+            if any(v for k, v in run["launches"].items()
+                   if k != "flash_attention"):
+                raise AssertionError(f"{key}: launches {run['launches']}")
+        if not f32:
+            heads = {(q[2], k[2]) for r in runs_k for q, k in r["b5_shapes"]}
+            if DEV == "cuda" and heads != {(lcfg.n_heads // 2,
+                                            lcfg.n_kv_heads // 2)}:
+                raise AssertionError(f"B5 local heads {heads}")
+        sync = [r["sync"] for r in runs_k if r["sync"]]
+        summary[key] = {
+            "losses": runs_k[0]["losses"], "one_rank_losses": ref_l,
+            "grad_norms": runs_k[0]["norms"], "one_rank_grad_norms": ref_n,
+            "delta_ratio": ratio,
+            "param_max_abs_err": max(r["param_max_abs_err"] for r in runs_k),
+            "param_worst": runs_k[0]["param_worst"],
+            "sync_err_over_bound_max": max(
+                (row["err"] / row["bound"] for s_ in sync
+                 for row in s_.values()), default=None),
+            "step_ms": runs_k[0]["walls_ms"],
+            "tokens_per_s": (SPMD_TRAIN_BATCH * SPMD_TRAIN_SEQ if not f32
+                             else SPMD_F32_BATCH * SPMD_F32_SEQ)
+            / statistics.median(runs_k[0]["walls_ms"]) * 1e3,
+            "b5_launches_per_rank": [r["launches"]["flash_attention"]
+                                     for r in runs_k],
+            "b5_local_heads": runs_k[0]["b5_shapes"]}
+    runs["spmd_train"] = _sum_ranks(
+        ranks, lambda r: {k: sum(r["spmd_train"][key]["launches"][k]
+                                 for key in keys) for k in WRAPPERS})
+
+    def opt_of(o):
+        return {"lr": o.lr, "warmup_steps": o.warmup_steps}
+
+    emit({"phase": "spmd_train", "model": "llama3.2-3b",
+          "mesh": {"data": 2, "model": 2}, "depth": depth, "reduced":
+              ["n_layers 28 -> 4"], "batch": SPMD_TRAIN_BATCH,
+          "seq": SPMD_TRAIN_SEQ, "steps": SPMD_TRAIN_STEPS,
+          "opt": {"bf16": opt_of(SPMD_OPT), "f32_reduced": opt_of(
+              SPMD_F32_OPT), "f32_reduced_int8_ring": opt_of(
+              SPMD_F32_RING_OPT)},
+          "tolerances": {"loss_rel": SPMD_LOSS_REL,
+                         "loss_change_rel": {"bf16": SPMD_DLOSS_REL,
+                                             "f32": SPMD_F32_DLOSS_REL},
+                         "grad_norm_rel": {"every step": SPMD_NORM_REL,
+                                           "f32_int8_ring step 0":
+                                               SPMD_F32_NORM_REL},
+                         "delta_ratio": SPMD_DELTA_RATIO,
+                         "sync": "2 (N-1) x 0.5/127 x sum of abs-max + "
+                                 "3 eps/2 x the same, below max|g|",
+                         "f32_reduced": SPMD_F32_TOL},
+          "runs": summary,
+          "wall_s": ranks[0]["spmd_train"]["wall_s"],
+          "staged": ranks[0]["spmd_train"]["staged"],
+          "peak_gb_rank0": ranks[0]["spmd_train"].get("peak_gb"), **common})
+
+    # ---- moe
+    for r in ranks:
+        for dtype in ("bfloat16", "float32"):
+            res = r["spmd_moe"][dtype]
+            rel = SPMD_MOE_REL if dtype == "bfloat16" else SPMD_F32_TOL
+            if not res["y_max_abs_err"] <= rel * res["y_max_abs"]:
+                raise AssertionError(f"MoE {dtype}: {res}")
+            if not abs(res["aux"] - res["aux_one_rank"]) <= \
+                    1e-5 * abs(res["aux_one_rank"]):
+                raise AssertionError(f"MoE aux {dtype}: {res}")
+    runs["spmd_moe"] = _sum_ranks(ranks, lambda r: dict.fromkeys(WRAPPERS,
+                                                                 0))
+    emit({"phase": "spmd_moe", "model": GRANITE,
+          "mesh": {"data": 1, "model": SPMD_WORLD},
+          "layer": "one MoE layer at full width", "tokens":
+              list(SPMD_MOE_TOKENS),
+          "tolerances": {"bfloat16": f"{SPMD_MOE_REL} x max|y|",
+                         "float32": f"{SPMD_F32_TOL} x max|y|",
+                         "aux_rel": 1e-5},
+          "results": ranks[0]["spmd_moe"],
+          "wall_s": ranks[0]["spmd_moe"]["wall_s"],
+          "staged": ranks[0]["spmd_moe"]["staged"], **common})
+
+    # ---- decode
+    ref_toks = torch.from_numpy(spec["decode_ref_tokens"])
+    ref_logits = spec["decode_ref_logits"]
+    for r in ranks:
+        dec = r["spmd_decode"]
+        for mode in ("sp", "tp"):
+            if not torch.equal(dec[mode]["tokens"], ref_toks):
+                raise AssertionError(f"{mode} tokens {dec[mode]['tokens']} "
+                                     f"!= {ref_toks}")
+        tp = dec["tp"]["launches"]
+        if tp["decode_attention"] != SPMD_STEPS * lcfg.n_layers:
+            raise AssertionError(f"tp B6 launches {tp}")
+        if dec["sp"]["launches"]["decode_attention"] != 0:
+            raise AssertionError(f"sp launched B6: {dec['sp']['launches']}")
+        for mode in DECODE_MODES:
+            if dec[mode]["prefill_launches"]["flash_attention"] != \
+                    lcfg.n_layers:
+                raise AssertionError(f"{mode} prefill B5 launches")
+    d0 = ranks[0]["spmd_decode"]
+    errs = {mode: float((d0[mode]["logits"] - ref_logits).abs().max())
+            for mode in DECODE_MODES}
+    scale = float(ref_logits.abs().max())
+    if not errs["tp_int8_ring"] <= SPMD_INT8_LOGIT_REL * scale:
+        raise AssertionError(f"int8 ring logits {errs} (scale {scale})")
+    runs["spmd_decode"] = _sum_ranks(
+        ranks, lambda r: {k: sum(r["spmd_decode"][m]["launches"][k]
+                                 for m in DECODE_MODES)
+                          for k in WRAPPERS})
+    emit({"phase": "spmd_decode", "model": "llama3.2-3b", "dtype": "float32",
+          "depth": depth, "reduced": ["n_layers 28 -> 4"],
+          "prompt": SPMD_PROMPT, "steps": SPMD_STEPS, "batch": 1,
+          "meshes": {"sp": {"data": 1, "model": SPMD_WORLD},
+                     "tp": {"data": 2, "model": 2},
+                     "tp_int8_ring": {"data": 2, "model": 2}},
+          "tolerances": {"tokens": "equal to one rank's (sp, tp)",
+                         "int8_ring_logits": f"{SPMD_INT8_LOGIT_REL} x "
+                                             f"max|logit| = "
+                                             f"{SPMD_INT8_LOGIT_REL * scale}"},
+          "logits_max_abs_err": errs,
+          "runs": {m: {"prefill_ms": d0[m]["prefill_ms"],
+                       "step_ms_median": statistics.median(d0[m]["step_ms"]),
+                       "b6_launches_per_rank": [
+                           r["spmd_decode"][m]["launches"]["decode_attention"]
+                           for r in ranks],
+                       "b5_prefill_launches_per_rank": [
+                           r["spmd_decode"][m]["prefill_launches"][
+                               "flash_attention"] for r in ranks]}
+                   for m in DECODE_MODES},
+          "wall_s": ranks[0]["spmd_decode"]["wall_s"],
+          "staged": ranks[0]["spmd_decode"]["staged"], **common})
+    emit({"phase": "spmd_walls", "total_s": time.perf_counter() - t_all,
+          "references_s": ref_s, "ranks_s": ranks_s,
+          "by_phase_s": {p: ranks[0][p]["wall_s"] for p in ranks[0]}})
+    return runs
+
+
 # ==================================================================== main
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4218,6 +5042,12 @@ def main() -> None:
                     help="run only the training paths: the B5/B7 gradient "
                          "cases, train, train_ssm, train_vla and "
                          "train_families")
+    ap.add_argument("--spmd-only", action="store_true",
+                    help="run only the SPMD phases: spmd_ring, spmd_train, "
+                         "spmd_moe and spmd_decode on SPMD_WORLD ranks")
+    ap.add_argument("--spmd-lr-probe", action="store_true",
+                    help="run only the one-rank training probe that chose "
+                         "spmd_train's learning rate")
     ap.add_argument("--src", default=None,
                     help="drive the repro_torch under this directory instead "
                          "of this checkout's src/")
@@ -4225,6 +5055,14 @@ def main() -> None:
 
     env = phase_env()
     torch.cuda.set_device(0)
+    if args.spmd_only or args.spmd_lr_probe:
+        phase_build()
+        spmd_lr_probe() if args.spmd_lr_probe else phase_spmd()
+        print(env["nvidia_smi"], flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     if args.train_only:
         phase_build()
         train_grad_cases()
@@ -4324,6 +5162,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_grad_cases()
     runs.update(phase_training())
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.update(phase_spmd())
     phase_examples()
 
     print(env["nvidia_smi"], flush=True)

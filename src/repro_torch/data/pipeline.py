@@ -5,9 +5,10 @@ it is, so that the port's batches are the JAX package's (``==``): LM token
 streams (a Zipf unigram whose second half repeats the first, so that the
 ~100M-parameter training example shows a falling loss), VLA trajectories,
 and the stub frames / vision embeddings of the encoder-decoder and the
-VLM.  The step index is the stream's state, which checkpoints carry.  The
-JAX package's ``shard_batch`` places a batch on a mesh; here
-:func:`to_device` puts it on one device.
+VLM.  The step index is the stream's state, which checkpoints carry.
+:func:`to_device` puts a batch on one device and :func:`shard_batch` on a
+bound mesh, as ``DTensor`` s sharded over the rules' ``batch`` axes (and
+``seq`` for tokens and labels), as the JAX package's ``shard_batch`` does.
 """
 from __future__ import annotations
 
@@ -93,3 +94,23 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """Host numpy batch -> tensors on ``device`` (the same dtypes)."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh, rules
+                ) -> Dict[str, torch.Tensor]:
+    """Host numpy batch -> ``DTensor`` s on the bound ``mesh``, on its
+    device type.  Every rank holds the same host batch and keeps its own
+    shard of it."""
+    from torch.distributed.tensor import distribute_tensor
+    from ..models.sharding import placements, resolve
+    dm = mesh.device_mesh
+    dev = torch.device(dm.device_type)
+    out = {}
+    for k, v in batch.items():
+        axes = ("batch",) + (None,) * (v.ndim - 1)
+        if k in ("tokens", "labels"):
+            axes = ("batch", "seq")
+        t = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        out[k] = distribute_tensor(t, dm, placements(resolve(axes, rules),
+                                                     mesh), src_data_rank=None)
+    return out

@@ -24,6 +24,17 @@ package.  :func:`attn_decode` writes the new token's K/V into the cache
 step donates) and hands the kernel a strided ``(B, KV, T, hd)`` view of
 it, so no step copies the cache.
 
+On a mesh (``models/sharding.py``) the activation constraints sit where
+the JAX package has them, and the kernels run in ``local_map`` regions on
+each rank's heads (:func:`_flash_local`, :func:`_tp_decode`): q is
+``(B, S, H/n, hd)`` over a ``model`` axis of n ranks, K/V ``(B, S, KV/n,
+hd)`` where n divides KV — the kernels' query head h then reads K/V head
+``h // (H/KV)`` locally too — and otherwise each rank is handed the K/V
+heads its own query heads read (the JAX package pads instead).
+``cfg.decode_attn="sp"`` shards the cache on the sequence over ``model``
+(:func:`_sp_flash_decode`: local plain products, one ``pmax`` and two
+``psum`` s a layer, as in the JAX package, which has no kernel there).
+
 MLA (DeepSeek-V2) keeps the compressed ``(c_kv, k_pe)`` cache.  Its
 prefill decompresses K/V per head and runs causal attention with q/k head
 dim ``qk_nope + qk_rope`` and v head dim ``v_head_dim`` — (192, 128) in
@@ -41,8 +52,11 @@ import torch
 from .. import to_dtype
 from ..kernels.decode_attention import ops as da_ops
 from ..kernels.flash_attention import ops as fa_ops
-from .layers import _common, apply_rope, dense, linear_spec, rmsnorm
-from .sharding import spec
+from .layers import (_common, _use_int8_ring, apply_rope, dense,
+                     int8_ring_proj, linear_spec, rmsnorm)
+from .sharding import (P, bound_mesh, contiguous_grad, is_dtensor,
+                       local_region, placements, pmax, psum, resolve, shard,
+                       spec)
 
 
 # ============================================================== specs
@@ -182,8 +196,62 @@ def _qkv(cfg, p, x):
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     B, S = x.shape[:2]
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
-            v.reshape(B, S, KV, hd))
+    q = shard(q.reshape(B, S, H, hd), "batch", "seq", "act_heads", None)
+    if is_dtensor(k) and bound_mesh() is not None and not _model_divides(KV):
+        # a rank's columns of K/V are not whole heads: replicate them
+        k, v = (shard(t, "batch", "seq", None) for t in (k, v))
+    return q, k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
+
+
+def _out_proj(out2d: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """Attention output projection; int8-ring TP combine when enabled."""
+    if _use_int8_ring():
+        return int8_ring_proj(out2d, wo)
+    return dense(out2d, wo)
+
+
+def _batch_rule():
+    return resolve(("batch",))[0]
+
+
+def _local_kv_heads(k: torch.Tensor, H: int, KV: int, Hl: int
+                    ) -> torch.Tensor:
+    """The K/V heads (dim 2 of a full-head ``(B, T, KV, hd)`` tensor) that
+    this rank's ``Hl`` query heads read, one per query head."""
+    r = bound_mesh().local_rank("model")
+    idx = (r * Hl + torch.arange(Hl, device=k.device)) // (H // KV)
+    return k.index_select(2, idx)
+
+
+def _model_divides(n_heads: int) -> bool:
+    m = bound_mesh()
+    n = m.shape.get("model", 1)
+    return n_heads % n == 0
+
+
+def _flash_local(cfg, q, k, v):
+    """Causal flash attention (B5) on each rank's heads: q (B, S, H, D), k/v
+    (B, S, KV, D) DTensors -> (B, S, H, Dv) sharded on heads over
+    ``model``."""
+    H, KV = q.shape[2], k.shape[2]
+    if not _model_divides(H):
+        raise ValueError(f"{H} query heads do not shard over "
+                         f"model={bound_mesh().shape['model']}")
+    b = _batch_rule()
+    even = _model_divides(KV)
+    kv_spec = P(b, None, "model" if even else None, None)
+
+    def local(q_, k_, v_):
+        q_, k_, v_ = (contiguous_grad(t) for t in (q_, k_, v_))
+        if not even:
+            k_ = _local_kv_heads(k_, H, KV, q_.shape[2])
+            v_ = _local_kv_heads(v_, H, KV, q_.shape[2])
+        # contiguous: DTensor takes the local shard's strides as its own
+        return fa_ops.flash_attention(q_, k_, v_, causal=True).contiguous()
+
+    qs = P(b, None, "model", None)
+    return local_region(local, qs, (qs, kv_spec, kv_spec),
+                        partial_grad=() if even else ("model",))(q, k, v)
 
 
 def attn_forward(cfg, p, x, positions, *, causal=True, rope=True,
@@ -196,16 +264,23 @@ def attn_forward(cfg, p, x, positions, *, causal=True, rope=True,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     if causal and S > 1:
-        out = fa_ops.flash_attention(q, k, v, causal=True)
+        if is_dtensor(q) and bound_mesh() is not None:
+            out = _flash_local(cfg, q, k, v)
+        else:
+            out = fa_ops.flash_attention(q, k, v, causal=True)
     else:
         kt = k.permute(0, 2, 1, 3)   # (B,KV,T,D)
         vt = v.permute(0, 2, 1, 3)
         out = _sdpa(q, _expand_kv(kt, cfg.n_heads),
                     _expand_kv(vt, cfg.n_heads), causal=causal,
                     q_pos=positions[0] if positions.dim() == 2 else positions)
-    y = dense(out.reshape(B, S, -1), p["wo"])
+    out = shard(out, "batch", "seq", "act_heads", None)
+    y = _out_proj(out.reshape(B, S, -1), p["wo"])
     if return_kv:
-        return y, {"k": k.reshape(B, S, -1), "v": v.reshape(B, S, -1)}
+        cax = "cache_seq_sp" if cfg.decode_attn == "sp" else None
+        kax = None if cax else "kv_heads"
+        return y, {"k": shard(k.reshape(B, S, -1), "batch", cax, kax),
+                   "v": shard(v.reshape(B, S, -1), "batch", cax, kax)}
     return y
 
 
@@ -231,6 +306,12 @@ def attn_decode(cfg, p, x, pos, cache: Dict):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     kc, vc = cache["k"], cache["v"]
+    if is_dtensor(kc) and bound_mesh() is not None:
+        step = _sp_flash_decode if cfg.decode_attn == "sp" else _tp_decode
+        out = step(cfg, q, kc, vc, k.reshape(B, 1, KV * hd),
+                   v.reshape(B, 1, KV * hd), positions)
+        out = shard(out, "batch", "seq", "act_heads", None)
+        return _out_proj(out.reshape(B, 1, -1), p["wo"]), {"k": kc, "v": vc}
     kc.index_copy_(1, positions, k.reshape(B, 1, KV * hd).to(kc.dtype))
     vc.index_copy_(1, positions, v.reshape(B, 1, KV * hd).to(vc.dtype))
     T = kc.shape[1]
@@ -239,6 +320,106 @@ def attn_decode(cfg, p, x, pos, cache: Dict):
     out = da_ops.decode_attention(q[:, 0], k4, v4, pos + 1)
     y = dense(out.reshape(B, 1, -1), p["wo"])
     return y, {"k": kc, "v": vc}
+
+
+def _check_cache(c: torch.Tensor, pl: tuple) -> None:
+    """A cache is written in place through its local shard: it must already
+    have the placements the region takes (a redistributed copy would take
+    the write and be thrown away)."""
+    if tuple(c.placements) != pl:
+        raise ValueError(f"cache placements {tuple(c.placements)} are not "
+                         f"the decode's {pl}; make the cache with "
+                         "kv_cache_specs under the same rules")
+
+
+def _tp_decode(cfg, q, kc, vc, k_new, v_new, positions):
+    """One token against a cache sharded on its flat KV*hd dim over
+    ``model`` (``decode_attn="tp"``): each rank writes its columns of the
+    new K/V into its shard in place and runs flash-decode (B6) on its
+    query heads.  Where ``model`` does not divide KV a rank's columns are
+    not whole heads: the shards are gathered over ``model`` and each rank
+    takes the K/V heads its query heads read."""
+    B, _, H, hd = q.shape
+    KV = cfg.n_kv_heads
+    if not _model_divides(H):
+        raise ValueError(f"{H} query heads do not shard over "
+                         f"model={bound_mesh().shape['model']}")
+    m = bound_mesh()
+    b = _batch_rule()
+    cs, qs = P(b, None, "model"), P(b, None, "model", None)
+    _check_cache(kc, placements(cs, m))
+    _check_cache(vc, placements(cs, m))
+    even = _model_divides(KV)
+
+    def local(q_, kn, vn, kc_, vc_):
+        Bl, T, Hl = kc_.shape[0], kc_.shape[1], q_.shape[2]
+        kc_.index_copy_(1, positions, kn.to(kc_.dtype))
+        vc_.index_copy_(1, positions, vn.to(vc_.dtype))
+        if even:
+            KVl = kc_.shape[2] // hd
+            k4 = kc_.view(Bl, T, KVl, hd).permute(0, 2, 1, 3)
+            v4 = vc_.view(Bl, T, KVl, hd).permute(0, 2, 1, 3)
+        else:
+            from .sharding import all_gather
+            kf = all_gather(kc_, 2, "model").view(Bl, T, KV, hd)
+            vf = all_gather(vc_, 2, "model").view(Bl, T, KV, hd)
+            k4 = _local_kv_heads(kf, H, KV, Hl).permute(0, 2, 1, 3)
+            v4 = _local_kv_heads(vf, H, KV, Hl).permute(0, 2, 1, 3)
+        return da_ops.decode_attention(q_[:, 0], k4, v4,
+                                       positions + 1)[:, None]
+
+    return local_region(local, qs, (qs, cs, cs, cs, cs))(
+        q, k_new, v_new, kc, vc)
+
+
+def _sp_flash_decode(cfg, q, kc, vc, k_new, v_new, positions):
+    """Sequence-parallel flash-decode (``cfg.decode_attn == "sp"``).
+
+    The cache is sharded along the SEQUENCE dim over ``model``; each rank
+    writes the new token into its own slice if the position falls there,
+    computes complete attention scores for its slice (all heads local, as
+    plain products) and the ranks combine with an online-softmax
+    reduction: one ``pmax`` and two ``psum`` s of (B, H)-sized statistics
+    and outputs a layer."""
+    B, _, H, hd = q.shape
+    KV = cfg.n_kv_heads
+    m = bound_mesh()
+    b = _batch_rule()
+    cs = P(b, "model", None)
+    _check_cache(kc, placements(cs, m))
+    _check_cache(vc, placements(cs, m))
+
+    # a sequence that does not divide over the ranks is split as
+    # torch.chunk splits it, the last rank short
+    T_rank = -(-kc.shape[1] // m.shape["model"])
+
+    def local(q_, kn, vn, kc_, vc_):
+        Bl, Tl = kc_.shape[0], kc_.shape[1]
+        t0 = m.local_rank("model") * T_rank
+        tglob = t0 + torch.arange(Tl, device=kc_.device)
+        mine = (positions >= t0) & (positions < t0 + Tl)
+        # only the owning rank lands the write (an empty index elsewhere)
+        idx = (positions - t0)[mine]
+        kc_.index_copy_(1, idx, kn[:, :idx.numel()].to(kc_.dtype))
+        vc_.index_copy_(1, idx, vn[:, :idx.numel()].to(vc_.dtype))
+        k4 = _expand_kv(kc_.view(Bl, Tl, KV, hd).permute(0, 2, 1, 3), H)
+        v4 = _expand_kv(vc_.view(Bl, Tl, KV, hd).permute(0, 2, 1, 3), H)
+        s = torch.einsum("bshd,bhtd->bhst", q_.float(), k4.float()) \
+            * (hd ** -0.5)
+        s = torch.where(tglob[None, None, None, :] < positions + 1, s,
+                        torch.full_like(s, _NEG))
+        m_ = pmax(s.amax(dim=-1, keepdim=True), "model")     # (B,H,1,1)
+        p_ = torch.where(m_ <= -1e29, torch.zeros_like(s), torch.exp(s - m_))
+        l = psum(p_.sum(-1, keepdim=True), "model")
+        o = psum(torch.einsum("bhst,bhtd->bshd", p_.to(v4.dtype), v4),
+                 "model")
+        l = torch.where(l == 0.0, torch.ones_like(l), l)
+        return (o / l.permute(0, 2, 1, 3).to(o.dtype)).to(q_.dtype)
+
+    qs = P(b, None, None, None)
+    ks = P(b, None, None)
+    return local_region(local, qs, (qs, ks, ks, cs, cs))(
+        q, k_new, v_new, kc, vc)
 
 
 def kv_cache_specs(cfg, batch: int, max_len: int) -> Dict:

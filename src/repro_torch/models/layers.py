@@ -5,6 +5,12 @@ Counterpart of ``src/repro/models/layers.py``, with the training loss
 another dtype than the activations (the specs default to bfloat16 whatever
 ``cfg.dtype`` says); a product then runs in the wider of the two types, as
 JAX's promotion has it.
+
+On a mesh the activation constraints sit where the JAX package has them
+(:func:`~.sharding.shard`, a no-op off a mesh), and with
+``cfg.tp_collective="int8_ring"`` (the rules' ``__tp_int8__`` flag) a
+row-parallel projection combines its partial products over an int8 ring
+(:func:`int8_ring_proj`).
 """
 from __future__ import annotations
 
@@ -13,7 +19,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .sharding import ParamSpec, spec
+from .sharding import ParamSpec, is_dtensor, shard, spec
 
 
 # ------------------------------------------------------------------- norms
@@ -87,8 +93,39 @@ def mlp_specs(d: int, ff: int, layers: Optional[int] = None) -> dict:
     }
 
 
+def int8_ring_proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Row-parallel projection whose TP combine runs as an int8 ring
+    all-reduce (inference only, ``cfg.tp_collective="int8_ring"``): each
+    model rank computes its partial (..., d) product and the partials are
+    summed with int8 + scale chunks on the wire.
+
+    h: (..., F) sharded on F over ``model``; w: (F, d) sharded on F.  The
+    leading (batch) dim keeps its data sharding."""
+    from ..train.compression import ring_allreduce_int8
+    from .sharding import P, local_region, resolve
+    b = resolve(("batch",))[0]
+    lead = (b,) + (None,) * (h.dim() - 2)
+
+    def local(h_, w_):
+        part = dense(h_, w_)
+        return ring_allreduce_int8(part, "model")
+
+    return local_region(local, P(*lead, None),
+                        (P(*lead, "model"), P("model", None)))(h, w)
+
+
+def _use_int8_ring() -> bool:
+    from .sharding import bound_mesh, rule_flag
+    m = bound_mesh()
+    return bool(rule_flag("__tp_int8__")) and m is not None \
+        and "model" in m.axis_names
+
+
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(dense(x, p["wg"])) * dense(x, p["wu"])
+    h = shard(h, "batch", "seq", "act_ff")
+    if _use_int8_ring():
+        return int8_ring_proj(h, p["wd"])
     return dense(h, p["wd"])
 
 
@@ -108,7 +145,33 @@ def embed_spec(vocab: int, d: int) -> ParamSpec:
 
 
 def embed(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(w):
+        return shard(_embed_vocab_sharded(w, tokens), "batch", "seq", None)
     return w[tokens]
+
+
+def _embed_vocab_sharded(w: torch.Tensor, tokens: torch.Tensor
+                         ) -> torch.Tensor:
+    """The lookup in a table sharded on its rows over ``model``: each rank
+    looks up the tokens its rows hold and zeroes the rest, and the ranks'
+    rows sum to the lookup (left pending for :func:`shard`).  Written out
+    as a region, not left to DTensor's masked embedding, whose gradient
+    cannot meet the tied output head's in one sum (torch 2.11)."""
+    from .sharding import P, batch_axes, bound_mesh, local_region, resolve
+    m = bound_mesh()
+    rows = -(-w.shape[0] // m.shape.get("model", 1))  # torch.chunk's split
+    b = resolve(("batch",))[0]
+
+    def local(w_, t_):
+        idx = t_.long() - m.local_rank("model") * rows
+        keep = (idx >= 0) & (idx < w_.shape[0])
+        out = F.embedding(idx.clamp(0, w_.shape[0] - 1), w_)
+        return out * keep[..., None].to(out.dtype)
+
+    return local_region(local, P(b, None, None),
+                        (P("model", None), P(b, None)),
+                        partial_grad=batch_axes(),
+                        partial_out=("model",))(w, tokens)
 
 
 def unembed(w: torch.Tensor, x: torch.Tensor, vocab: Optional[int] = None
@@ -121,15 +184,52 @@ def unembed(w: torch.Tensor, x: torch.Tensor, vocab: Optional[int] = None
         ids = torch.arange(V_pad, device=logits.device)
         logits = torch.where(ids < vocab, logits,
                              torch.full_like(logits, -1e30))
-    return logits
+    return shard(logits, "batch", "seq", "act_vocab")
 
 
 # ---------------------------------------------------------------- softmax xent
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Token-mean cross entropy, float32 accumulation: the log-sum-exp of
     each row minus its label's logit, picked with ``gather`` (the JAX
-    package's iota mask picks the same element; both are exact)."""
+    package's iota mask picks the same element; both are exact).
+
+    On a mesh (vocab-sharded ``DTensor`` logits) each rank sums its own
+    columns (:func:`_xent_parts`), so that only (B, S) statistics cross the
+    ranks, as in the JAX package."""
     logits = logits.float()
+    if is_dtensor(logits):
+        # the rows' maxima: a constant shift of the log-sum-exp
+        mx = shard(logits.detach().amax(dim=-1, keepdim=True),
+                   "batch", "seq", None)
+        ll, se = _xent_parts(logits, labels, mx)
+        loss = (se.log() + mx[..., 0] - ll).mean()   # pending over ranks
+        from torch.distributed.tensor import Replicate
+        return loss.redistribute(loss.device_mesh,
+                                 [Replicate()] * loss.device_mesh.ndim)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return (lse - ll).mean()
+
+
+def _xent_parts(logits, labels, mx):
+    """(the label's logit, sum(exp(logit - mx))) of every row, each the sum
+    of the ranks' own columns.  A region with its sums left to
+    :func:`shard`: DTensor's own propagation through these reductions gave
+    wrong gradients on a 2-D mesh of CUDA ranks (torch 2.11), where this
+    form's gradients are the local ones."""
+    from .sharding import P, bound_mesh, local_region, resolve
+    m = bound_mesh()
+    cols = -(-logits.shape[-1] // m.shape.get("model", 1))
+    b = resolve(("batch",))[0]
+
+    def local(lg, lab, mx_):
+        idx = lab.long() - m.local_rank("model") * cols
+        keep = (idx >= 0) & (idx < lg.shape[-1])
+        ll = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])
+        return torch.stack([ll[..., 0] * keep, (lg - mx_).exp().sum(-1)])
+
+    parts = local_region(local, P(None, b, None),
+                         (P(b, None, "model"), P(b, None), P(b, None, None)),
+                         partial_out=("model",))(logits, labels, mx)
+    parts = shard(parts, None, "batch", "seq")
+    return parts[0], parts[1]

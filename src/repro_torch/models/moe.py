@@ -1,9 +1,17 @@
 """Mixture-of-Experts FFN: top-k routing, GShard capacity and drops.
 
-Counterpart of ``src/repro/models/moe.py`` on one device (the JAX
-package's ``shard_map`` branch, experts over a ``model`` mesh axis, waits
-for the port's mesh; with no mesh the JAX package takes the same local
-routine as here).
+Counterpart of ``src/repro/models/moe.py``.  With no mesh every expert
+runs here; on a bound mesh with a ``model`` axis (expert parallelism) each
+model rank owns ``E_tbl / model`` experts, ``[e0, e0 + E_loc)`` with ``e0 =
+rank * E_loc``: in a ``local_map`` region over the rank's tokens (sharded
+over the batch axes, replicated over ``model``) it routes, runs its own
+experts' queues and returns its partial output, which the ranks sum over
+``model`` (``shard`` of the output: one all-reduce, as the JAX package's one
+``psum``).  Capacity is per *local* token block, ``B*S // data_shards``, as
+in the JAX package.  An expert table that does not divide over ``model``
+is split unevenly, the last rank short: the JAX package pads it with zero
+experts at run time, and a rank's missing experts are those pads (they
+receive no token).
 
 Per-expert capacity ``C = ceil(T * top_k / E * capacity_factor)`` (rounded
 up to a multiple of 4, at least 4) with ``E`` the *unpadded* expert count;
@@ -30,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import dense, linear_spec, mlp
-from .sharding import spec
+from .sharding import batch_axes, bound_mesh, is_dtensor, shard, spec
 
 
 def _pad_experts(n_experts: int, shards: int) -> int:
@@ -92,11 +100,14 @@ def _route(x2d: torch.Tensor, router: torch.Tensor, top_k: int):
     return gates, eids, aux
 
 
-def _local_expert_ffn(x2d, gates, eids, wg, wu, wd, *, E: int, C: int):
-    """Gather -> expert FFN -> fixed-order combine for every expert of the
-    table ``wg``/``wu`` (E_tbl, d, f), ``wd`` (E_tbl, f, d).
+def _local_expert_ffn(x2d, gates, eids, wg, wu, wd, *, E: int, C: int,
+                      e0: int = 0):
+    """Gather -> expert FFN -> fixed-order combine for the experts
+    ``[e0, e0 + E_loc)`` of the table ``wg``/``wu`` (E_loc, d, f), ``wd``
+    (E_loc, f, d) (all of them with ``e0 = 0`` and the whole table).
 
-    x2d: (T, d); gates/eids: (T, k).  Returns (T, d) in x2d's dtype."""
+    x2d: (T, d); gates/eids: (T, k).  Returns (T, d) in x2d's dtype: the
+    contributions of these experts only."""
     T, d = x2d.shape
     k = eids.shape[1]
     E_tbl = wg.shape[0]
@@ -105,9 +116,9 @@ def _local_expert_ffn(x2d, gates, eids, wg, wu, wd, *, E: int, C: int):
     onehot = F.one_hot(eids, E).sum(dim=1)                       # (T, E)
     pos_all = torch.cumsum(onehot, dim=0) - onehot               # (T, E)
     pos = torch.gather(pos_all, 1, eids)                         # (T, k)
-    kept = (eids < E_tbl) & (pos < C)
+    kept = (eids >= e0) & (eids < e0 + E_tbl) & (pos < C)
     sentinel = E_tbl * C
-    slot = torch.where(kept, eids * C + pos,
+    slot = torch.where(kept, (eids - e0) * C + pos,
                        torch.full_like(eids, sentinel))
     # each kept slot holds one token; empty slots read the zero row T
     tok = torch.arange(T, device=dev)[:, None].expand(T, k)
@@ -135,6 +146,9 @@ def moe_ffn(cfg, p: Dict, x: torch.Tensor
     """x: (B, S, d) -> (out (B,S,d), aux_loss scalar)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
+    m = bound_mesh()
+    if m is not None and is_dtensor(x) and m.shape.get("model", 1) > 1:
+        return _moe_ep(cfg, p, x, m)
     x2d = x.reshape(B * S, d)
     gates, eids, aux = _route(x2d, p["router"], k)
     C = capacity(B * S, E, k, cfg.moe_capacity_factor)
@@ -143,3 +157,61 @@ def moe_ffn(cfg, p: Dict, x: torch.Tensor
     if cfg.n_shared_experts:
         y = y + mlp(p["shared"], x)
     return y, aux
+
+
+def _moe_ep(cfg, p: Dict, x: torch.Tensor, m):
+    """Expert parallelism over ``model`` (see the module docstring)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.moe_top_k
+    shards = m.shape["model"]
+    batch = batch_axes()
+    data_shards = 1
+    for a in batch:
+        data_shards *= m.shape.get(a, 1)
+    E_loc = -(-p["wg"].shape[0] // shards)   # ceil: a short last rank
+    C = capacity(B * S // data_shards, E, k, cfg.moe_capacity_factor)
+
+    def local(x_, router, wg, wu, wd):
+        Bl, Sl = x_.shape[:2]
+        x2d = x_.reshape(Bl * Sl, d)
+        gates, eids, _ = _route(x2d, router, k)
+        probs = torch.softmax(torch.matmul(x2d.float(), router.float()), -1)
+        # the routing statistics of the aux loss: every model rank has the
+        # same ones; rank 0 gives them, so that their gradient reaches x and
+        # the router once
+        stats = torch.stack([probs.sum(0),
+                             F.one_hot(eids[:, 0], E).float().sum(0)]) \
+            * float(m.local_rank("model") == 0)
+        e0 = m.local_rank("model") * E_loc
+        y = _local_expert_ffn(x2d, gates, eids, wg, wu, wd, E=E, C=C, e0=e0)
+        return y.reshape(Bl, Sl, d), stats
+
+    names = m.axis_names
+    x_pl = [Shard(0) if a in batch else Replicate() for a in names]
+    w_pl = [Shard(0) if a == "model" else Replicate() for a in names]
+    y_pl = [Shard(0) if a in batch else
+            Partial() if a == "model" else Replicate() for a in names]
+    st_pl = [Partial() if a in batch or a == "model" else Replicate()
+             for a in names]
+    rep = [Replicate()] * len(names)
+    # gradients: each model rank's tokens reach only its experts, and each
+    # data rank's weights meet only its tokens: sums pending over those
+    x_g = [Shard(0) if a in batch else
+           Partial() if a == "model" else Replicate() for a in names]
+    r_g = [Partial() if a in batch or a == "model" else Replicate()
+           for a in names]
+    w_g = [Shard(0) if a == "model" else
+           Partial() if a in batch else Replicate() for a in names]
+    y, stats = local_map(local, out_placements=(y_pl, st_pl),
+                         in_placements=(x_pl, rep, w_pl, w_pl, w_pl),
+                         in_grad_placements=(x_g, r_g, w_g, w_g, w_g),
+                         device_mesh=m.device_mesh, redistribute_inputs=True)(
+        x, p["router"], p["wg"], p["wu"], p["wd"])
+    # GShard aux loss over the global tokens: E * sum_e(frac_e * mean_prob_e)
+    stats = stats.redistribute(m.device_mesh, rep) / (B * S)
+    aux = E * (stats[0] * stats[1]).sum()
+    if cfg.n_shared_experts:
+        y = y + mlp(p["shared"], x)
+    return shard(y, "batch", "seq", None), aux

@@ -14,7 +14,8 @@ training loss is :func:`lm_loss`; serving (:func:`lm_prefill`,
 An MoE model runs its layers in groups (:func:`_groups`): the
 ``dense_blocks`` first (deepseek-v2-lite-16b has one), then the
 ``moe_blocks``, each group a stack of its own; attention is MLA where the
-config says so (``use_mla``).
+config says so (``use_mla``).  On a mesh the residual stream is constrained
+to be replicated over ``model`` after each block, as in the JAX package.
 
 Caches follow the same convention: stacked ``(L, B, S_max, KV*hd)``
 tensors per group (MLA: ``c_kv`` and ``k_pe``).  Decode writes each
@@ -34,7 +35,7 @@ from . import attention as A
 from .layers import (embed, embed_spec, mlp, mlp_specs, rmsnorm, rmsnorm_spec,
                      softmax_xent, unembed)
 from .moe import moe_ffn, moe_specs
-from .sharding import spec, tree_leaves, tree_map
+from .sharding import in_current_mesh, shard, spec, tree_leaves, tree_map
 
 Tree = Any
 
@@ -103,14 +104,14 @@ def block_forward(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
     a, kv = a if return_kv else (a, None)
     if cfg.parallel_block and not is_moe:
         # command-r: shared-norm parallel residual
-        return x + a + mlp(p["mlp"], h), kv, 0.0
+        return shard(x + a + mlp(p["mlp"], h), "batch", "seq", None), kv, 0.0
     x = x + a
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if is_moe:
         m, aux = moe_ffn(cfg, p["moe"], h)
     else:
         m, aux = mlp(p["mlp"], h), 0.0
-    return x + m, kv, aux
+    return shard(x + m, "batch", "seq", None), kv, aux
 
 
 def block_decode(cfg, p: Dict, x: torch.Tensor, pos, cache: Dict, *,
@@ -141,8 +142,11 @@ def run_stack(cfg, blocks_p: Tree, x: torch.Tensor, fwd_one, n_layers: int,
     ys_list, aux = [], 0.0
     fn = fwd_one
     if remat and torch.is_grad_enabled():
+        # the recompute runs in autograd's thread: it takes the mesh along
+        layer = in_current_mesh(fwd_one)
+
         def fn(pl, h):
-            return checkpoint(fwd_one, pl, h, use_reentrant=False)
+            return checkpoint(layer, pl, h, use_reentrant=False)
     # one unbind per leaf: its backward stacks the layers' gradients once,
     # where a view per layer would write a stack-sized gradient per layer
     layers = tree_map(lambda w: w.unbind(0), blocks_p)

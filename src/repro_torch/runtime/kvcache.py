@@ -124,9 +124,21 @@ def pad_cache(cache: Tree, specs: Tree) -> Tree:
     Prefill produces caches sized to the prompt; decode wants
     max_len-sized buffers.  Dims only ever differ along the sequence axis,
     so a generic per-dim pad is safe.  Each leaf is copied once into a new
-    buffer of the spec's shape and dtype, on the leaf's device."""
+    buffer of the spec's shape and dtype, on the leaf's device.  On a
+    bound mesh a ``DTensor`` leaf is gathered, padded and placed again with
+    its spec's placements under the installed rules (a sequence-sharded
+    cache's shards do not line up before and after the pad)."""
+    from ..models.sharding import (bound_mesh, is_dtensor, placements,
+                                   resolve)
 
     def one(x, s):
+        m = bound_mesh()
+        if m is not None and is_dtensor(x):
+            from torch.distributed.tensor import distribute_tensor
+            full = one(x.full_tensor(), s)
+            return distribute_tensor(full, m.device_mesh,
+                                     placements(resolve(s.axes), m),
+                                     src_data_rank=None)
         for have, want in zip(x.shape, s.shape):
             if have > want:
                 raise ValueError(f"cache leaf {tuple(x.shape)} is larger "

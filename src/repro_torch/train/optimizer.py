@@ -11,18 +11,26 @@ times that on top of the state.  The step's scalars (learning rate, bias
 corrections) are float32 on the host; the clip's scale is read back from
 the card, the step's one wait, before the first update.
 
-The ZeRO-1 sharding of the moments (``opt_state_specs``, ``zero_rules``)
-needs a mesh and is not ported.
+On a mesh (``models/sharding.py``) parameters, gradients and moments are
+``DTensor`` s with the parameters' placements, and every update runs on
+each rank's local shard in place (the update is elementwise); the norm
+sums each rank's local squares and reduces them over the mesh dims the
+leaves are sharded on.  The moments follow the parameters' placements, as
+the JAX train step keeps them (``init_state``).  :func:`opt_state_specs`
+and :func:`zero_rules` are the JAX package's ZeRO-1 specs, copied: the
+moments sharded over the data axes on their largest replicated dim, which
+only the dry run's arithmetic reads.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..models.sharding import tree_leaves
+from ..models.sharding import (ParamSpec, is_dtensor, resolve, spec,
+                               tree_leaves, tree_map_specs)
 
 Tree = Any
 
@@ -36,6 +44,47 @@ class OptConfig:
     weight_decay: float = 0.1
     grad_clip: float = 1.0
     warmup_steps: int = 100
+
+
+def opt_state_specs(param_specs: Tree, mesh=None, rules: Optional[Dict] = None,
+                    zero1: bool = True) -> Tree:
+    """fp32 moment ParamSpecs; with zero1, shard the largest currently-
+    replicated dim over the data axes."""
+    data_axes = tuple(a for a in ("pod", "data")
+                      if mesh is not None and a in mesh.axis_names)
+    data_size = 1
+    if mesh is not None:
+        sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+        for a in data_axes:
+            data_size *= sizes[a]
+
+    def one(s: ParamSpec) -> ParamSpec:
+        axes = list(s.axes)
+        if zero1 and mesh is not None and data_size > 1:
+            pspec = resolve(s.axes, rules)
+            # don't double-map mesh axes the param sharding already uses
+            # (FSDP params already consume `data`)
+            used = set()
+            for e in pspec:
+                for a in ((e,) if isinstance(e, str) else (e or ())):
+                    used.add(a)
+            if not used.intersection(data_axes):
+                cands = [(dim, i) for i, dim in enumerate(s.shape)
+                         if pspec[i] is None and dim % data_size == 0]
+                if cands:
+                    _, i = max(cands)
+                    axes[i] = "__zero__"
+        return spec(s.shape, tuple(axes), dtype=torch.float32, init="zeros")
+
+    return tree_map_specs(one, param_specs)
+
+
+def zero_rules(rules: Dict, mesh) -> Dict:
+    """Extend model rules with the ZeRO axis mapping."""
+    data_axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    out = dict(rules)
+    out["__zero__"] = data_axes if data_axes else None
+    return out
 
 
 def lr_at(cfg: OptConfig, step: int) -> float:
@@ -59,6 +108,35 @@ def _square_sum(g: torch.Tensor) -> torch.Tensor:
                for i in range(0, flat.numel(), _NORM_CHUNK))
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its storage: in-place updates land in the
+    DTensor), or the tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _global_square_sum(leaves) -> torch.Tensor:
+    """sum(g**2) over all leaves, float32.  A DTensor leaf adds its local
+    shard's squares; the leaves sharded over the same mesh dims are summed
+    first and each such group is reduced once over those dims."""
+    plain = [g for g in leaves if not is_dtensor(g)]
+    total = sum(_square_sum(g) for g in plain) if plain else None
+    groups: Dict[tuple, torch.Tensor] = {}
+    for g in leaves:
+        if is_dtensor(g):
+            key = (g.device_mesh, tuple(i for i, pl in enumerate(g.placements)
+                                        if pl.is_shard()))
+            part = _square_sum(g.to_local())
+            groups[key] = part if key not in groups else groups[key] + part
+    if groups:
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        for (dm, dims), part in groups.items():
+            pl = [Partial() if i in dims else Replicate()
+                  for i in range(dm.ndim)]
+            full = DTensor.from_local(part, dm, pl).full_tensor()
+            total = full if total is None else total + full
+    return total
+
+
 @torch.no_grad()
 def clip_by_global_norm(grads: Tree, max_norm: float
                         ) -> Tuple[Tree, torch.Tensor]:
@@ -66,7 +144,7 @@ def clip_by_global_norm(grads: Tree, max_norm: float
     1e-9))``, in float32 and cast back to the gradient's dtype; returns
     (grads, the float32 norm before clipping)."""
     leaves = tree_leaves(grads)
-    gn = torch.sqrt(sum(_square_sum(g) for g in leaves))
+    gn = torch.sqrt(_global_square_sum(leaves))
     # read back as a Python number: a Python scale multiplies each element
     # in float32 (the operation's compute type for bf16) and rounds once to
     # the gradient's dtype, where a 0-dim float32 tensor would itself be
@@ -74,7 +152,7 @@ def clip_by_global_norm(grads: Tree, max_norm: float
     scale = float(torch.clamp(max_norm / (gn + 1e-9), max=1.0))
     if not scale >= 1.0:
         for g in leaves:
-            g.mul_(scale)
+            _local(g).mul_(scale)
     return grads, gn
 
 
@@ -113,11 +191,14 @@ def adamw_update(cfg: OptConfig, params: Tree, grads: Tree, m: Tree, v: Tree,
                  step: int) -> Tuple[Tree, Tree, Tree, torch.Tensor]:
     """One AdamW step at ``step`` (0-based): clips ``grads`` and updates
     ``params``, ``m`` and ``v`` in place; returns them with the gradient
-    norm before clipping."""
+    norm before clipping.  On a mesh all four trees are DTensors with the
+    same placements leaf by leaf (the gradients reduced to the
+    parameters' placements)."""
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     lr = lr_at(cfg, step)
     bc1, bc2 = _bias_corrections(cfg, step)
     for p, g, m_, v_ in zip(tree_leaves(params), tree_leaves(grads),
                             tree_leaves(m), tree_leaves(v)):
-        _update_leaf(cfg, p, g, m_, v_, lr, bc1, bc2)
+        _update_leaf(cfg, _local(p), _local(g), _local(m_), _local(v_), lr,
+                     bc1, bc2)
     return params, m, v, gnorm

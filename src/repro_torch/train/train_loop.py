@@ -16,6 +16,14 @@ recomputed in the backward, so those kernels launch twice a layer a step.
 A VLA's loss draws from ``generator``; every microbatch starts from the
 generator's state at the start of the step, as every microbatch of the
 JAX package takes the step's one key.
+
+On a mesh (``models/sharding.py``: the parameters ``DTensor`` s, the
+batch placed by ``data/pipeline.py::shard_batch``, the step run under
+``use_mesh``) the loss is the global batch's, and autograd leaves each
+gradient as a sum still pending over the ranks that saw other tokens
+(``Partial``).  Without compression the gradients are reduced to their
+parameters' placements; with ``grad_compression="int8_ring"`` the pending
+sum over the data axes is the int8 ring's (:func:`_compressed_sync`).
 """
 from __future__ import annotations
 
@@ -24,7 +32,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..models.sharding import tree_leaves, tree_map
+from ..models.sharding import current_mesh, is_dtensor, tree_leaves, tree_map
+from .compression import ring_allreduce_int8
 from .optimizer import OptConfig, adamw_update
 
 Tree = Any
@@ -39,9 +48,10 @@ class TrainState:
 
 
 def init_state(params: Tree) -> TrainState:
-    """Step 0 with float32 moments at zero, beside ``params``."""
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                           device=p.device), params)
+    """Step 0 with float32 moments at zero, beside ``params`` (with their
+    placements on a mesh)."""
+    zeros = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                     params)
     return TrainState(0, params, zeros, tree_map(torch.clone, zeros))
 
 
@@ -82,8 +92,8 @@ def make_train_step(model, opt: OptConfig, *, n_microbatches: int = 1,
         n = n_microbatches
         if n > 1:
             start = None if generator is None else generator.get_state()
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), state.params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), state.params)
             losses = []
             for mb in _split_micro(batch, n):
                 if start is not None:
@@ -99,7 +109,11 @@ def make_train_step(model, opt: OptConfig, *, n_microbatches: int = 1,
             loss, grads = loss_and_grads(model, state.params, batch,
                                          generator)
         if grad_compression == "int8_ring":
-            grads = _compressed_sync(grads)
+            grads = _compressed_sync(grads, state.params)
+        else:
+            grads = _reduce_to_params(grads, state.params)
+        if is_dtensor(loss):
+            loss = loss.full_tensor()
         _, _, _, gnorm = adamw_update(opt, state.params, grads, state.m,
                                       state.v, state.step)
         metrics = {"loss": loss, "grad_norm": gnorm, "step": state.step}
@@ -109,14 +123,56 @@ def make_train_step(model, opt: OptConfig, *, n_microbatches: int = 1,
     return train_step
 
 
-def _compressed_sync(grads: Tree) -> Tree:
-    """The int8 ring all-reduce over the data-parallel ranks.  With no
-    process group (one device) there is nothing to reduce and the
+def _reduce_to_params(grads: Tree, params: Tree) -> Tree:
+    """Each DTensor gradient redistributed to its parameter's placements
+    (its pending sums reduced); plain gradients as they are."""
+    return tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
+                    if is_dtensor(g) else g, grads, params)
+
+
+def _data_axes(mesh) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _compressed_sync(grads: Tree, params: Tree) -> Tree:
+    """The int8 ring all-reduce over the data axes.
+
+    With no mesh, or plain tensors, there is nothing to reduce and the
     gradients come back unchanged, as the JAX package returns them with no
-    mesh; across ranks it is not ported yet."""
-    dist = torch.distributed
-    if not (dist.is_available() and dist.is_initialized()) \
-            or dist.get_world_size() == 1:
+    mesh.  The semantics differ from the JAX package's on purpose: under
+    pjit its gradients are already averaged over the data axes, so it
+    rings N equal copies and divides by N; a DTensor gradient is still a
+    pending sum (``Partial``) over the data axes, and ring-summing those
+    partials gives the global gradient without a division.  Both give the
+    global gradient plus the ring's noise.  The pending sums over the
+    other mesh axes are reduced first, by ``redistribute``; a gradient
+    already replicated over a data axis holds its sum there and is left
+    as it is.  A gradient sharded over a data axis (the ``fsdp`` rules)
+    raises: the ring sums whole tensors."""
+    mesh = current_mesh()
+    if mesh is None or mesh.device_mesh is None:
         return grads
-    raise NotImplementedError("the int8 ring all-reduce across ranks comes "
-                              "with the port's SPMD slice")
+    names = mesh.axis_names
+    data = [i for i, ax in enumerate(names)
+            if ax in _data_axes(mesh) and mesh.shape[ax] > 1]
+    for g, p in zip(tree_leaves(grads), tree_leaves(params)):
+        if is_dtensor(g) and any(t.placements[i].is_shard()
+                                 for t in (g, p) for i in data):
+            raise ValueError(                # before any rank starts a hop
+                f"grad_compression='int8_ring' rings whole gradients; "
+                f"{g.placements} / {p.placements} shard over the data axes")
+
+    def one(g, p):
+        if not is_dtensor(g):
+            return g
+        mid = [g.placements[i] if i in data else p.placements[i]
+               for i in range(len(names))]
+        local = g.redistribute(p.device_mesh, mid).to_local()
+        for i in data:
+            if mid[i].is_partial():
+                local = ring_allreduce_int8(local, names[i])
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(local, p.device_mesh, p.placements,
+                                  shape=p.shape, stride=p.stride())
+
+    return tree_map(one, grads, params)

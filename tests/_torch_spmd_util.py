@@ -1,0 +1,260 @@
+"""Rank functions for the port's SPMD tests (``tests/test_torch_spmd*.py``).
+
+Each runs in a spawned ``gloo`` rank on the CPU (``repro_torch.launch.
+ranks.run_ranks``) and imports the port only: the parent test holds what
+comes back against the JAX package and the port's one-rank run.  Inputs
+arrive as numpy trees, so every rank starts from the same values."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.convert import from_numpy_tree
+from repro_torch.data.pipeline import shard_batch
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import build
+from repro_torch.models.sharding import (distribute_tree, make_rules,
+                                         tree_map, use_mesh)
+
+AXES = ("data", "model")
+
+
+def jobs_rank(rank, jobs):
+    """Several rank functions in one spawn (one process group): ``jobs`` is
+    a list of (function name, args); returns their results in order."""
+    return [globals()[name](rank, *args) for name, args in jobs]
+
+
+def small_cfg(name: str, **kw):
+    return get_config(name).reduced().replace(**kw)
+
+
+def _full(t):
+    from repro_torch.models.sharding import is_dtensor
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _params(model, params_np, f32: bool):
+    p = from_numpy_tree(params_np, "cpu", specs=model.param_specs)
+    return tree_map(lambda t: t.float(), p) if f32 else p
+
+
+def ring_rank(rank, shape, names, axis, xs):
+    """This rank's ring sum of ``xs[i]`` over ``axis``, ``i`` its index along
+    ``axis``; and the ring's wire counts."""
+    from repro_torch.train.compression import WIRE, ring_allreduce_int8
+    mesh = make_mesh(shape, names, "cpu")
+    with use_mesh(mesh, {}):
+        r = mesh.local_rank(axis)
+        return ring_allreduce_int8(torch.from_numpy(xs[r]), axis).numpy(), \
+            dict(WIRE)
+
+
+def train_rank(rank, shape, name, cfg_kw, params_np, batch_np, steps,
+               compression, lr, f32, warmup=100):
+    """``steps`` train steps on the mesh; (losses, grad norms, the final
+    parameters as full tensors)."""
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_loop import init_state, make_train_step
+    cfg = small_cfg(name, **cfg_kw)
+    model = build(cfg)
+    mesh = make_mesh(shape, AXES, "cpu")
+    rules = make_rules(cfg, mesh, "train")
+    params = _params(model, params_np, f32)
+    with use_mesh(mesh, rules):
+        state = init_state(distribute_tree(params, model.param_specs, mesh,
+                                           rules))
+        batch = shard_batch(batch_np, mesh, rules)
+        step = make_train_step(model, OptConfig(lr=lr, warmup_steps=warmup),
+                               grad_compression=compression)
+        losses, norms = [], []
+        for _ in range(steps):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(_full(m["grad_norm"])))
+        return losses, norms, tree_map(_full, state.params)
+
+
+def sync_rank(rank, shape, name, cfg_kw, params_np, batch_np):
+    """One step's gradients on the mesh, synced twice from the same
+    autograd output: by the int8 ring (``_compressed_sync``) and exactly
+    (``_reduce_to_params``), as full tensors; and each leaf's ring bound,
+    2(N-1) x 0.5/127 x the sum over the data ranks of the abs-max of what
+    each hands the ring, the largest over the model shards."""
+    import torch.distributed as dist
+    from repro_torch.models.sharding import tree_leaves
+    from repro_torch.train.train_loop import (_compressed_sync,
+                                              _reduce_to_params,
+                                              loss_and_grads)
+    cfg = small_cfg(name, **cfg_kw)
+    model = build(cfg)
+    mesh = make_mesh(shape, AXES, "cpu")
+    rules = make_rules(cfg, mesh, "train")
+    params = _params(model, params_np, True)
+    N = mesh.shape["data"]
+    d = AXES.index("data")
+    with use_mesh(mesh, rules):
+        pd = distribute_tree(params, model.param_specs, mesh, rules)
+        _, grads = loss_and_grads(model, pd, shard_batch(batch_np, mesh,
+                                                         rules))
+        ring = _compressed_sync(grads, pd)
+        exact = _reduce_to_params(grads, pd)
+        bounds = []
+        for g, p in zip(tree_leaves(grads), tree_leaves(pd)):
+            mid = list(p.placements)
+            mid[d] = g.placements[d]          # the data axis left pending
+            amax = g.redistribute(p.device_mesh, mid).to_local().abs().max()
+            dist.all_reduce(amax, group=mesh.device_mesh.get_group("data"))
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+            bounds.append(2 * (N - 1) * 0.5 / 127 * float(amax))
+        return (tree_map(_full, ring), tree_map(_full, exact), bounds,
+                [str(g.placements) for g in tree_leaves(grads)])
+
+
+def data_sharded_sync_rank(rank, shape):
+    """``_compressed_sync`` of a parameter and gradient sharded over data
+    (as the ``fsdp`` rules place them) beside a replicated pair: the error
+    it raises, as text."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.sharding import P, placements
+    from repro_torch.train.train_loop import _compressed_sync
+    mesh = make_mesh(shape, AXES, "cpu")
+    with use_mesh(mesh, make_rules(None, mesh, "train", strategy="fsdp")):
+        def put(spec):
+            return distribute_tensor(torch.ones(8, 4), mesh.device_mesh,
+                                     placements(spec, mesh))
+        params = {"a": put(P(None, None)), "b": put(P(("data", "model"),
+                                                      None))}
+        grads = {"a": put(P(None, None)), "b": put(P(("data", "model"),
+                                                     None))}
+        try:
+            _compressed_sync(grads, params)
+        except ValueError as e:
+            return str(e)
+        return None
+
+
+def staged_rank(rank):
+    """The host group's counts in this rank (``launch/host_group.py``)."""
+    from repro_torch.launch import host_group
+    return dict(host_group.STAGED)
+
+
+def decode_rank(rank, shape, name, cfg_kw, params_np, prompt, steps,
+                int8_tp, shape_kind="prefill", forced=None):
+    """Greedy decode on the mesh: (tokens, every step's last logits); with
+    ``forced`` (B, steps) those tokens are fed instead of the argmax."""
+    from repro_torch.runtime.serving import make_serve_step, prefill_and_pad
+    cfg = small_cfg(name, **cfg_kw)
+    model = build(cfg)
+    mesh = make_mesh(shape, AXES, "cpu")
+    rules = make_rules(cfg, mesh, shape_kind)
+    if int8_tp:
+        rules["__tp_int8__"] = True
+    params = _params(model, params_np, cfg.dtype == "float32")
+    with use_mesh(mesh, rules), torch.no_grad():
+        pd = distribute_tree(params, model.param_specs, mesh, rules)
+        batch = shard_batch({"tokens": prompt}, mesh, rules)
+        S = prompt.shape[1]
+        logits, cache = prefill_and_pad(model, pd, batch, S + steps)
+        step = make_serve_step(model)
+        toks, all_logits = [], [_full(logits)[:, -1]]
+        cur = torch.argmax(_full(logits)[:, -1], -1)[:, None].to(torch.int32)
+        for i in range(steps):
+            if forced is not None:
+                cur = torch.from_numpy(forced[:, i:i + 1])
+            toks.append(cur)
+            tok = shard_batch({"tokens": cur.numpy()}, mesh, rules)["tokens"]
+            logits, cache = step(pd, cache, tok, S + i)
+            all_logits.append(_full(logits)[:, -1])
+            cur = torch.argmax(_full(logits)[:, -1], -1)[:, None].to(
+                torch.int32)
+        return torch.cat(toks, 1), torch.stack(all_logits, 1)
+
+
+def moe_rank(rank, shape, name, cfg_kw, params_np, x):
+    """``moe_ffn`` with experts over ``model``: (out, aux)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.moe import moe_ffn, moe_specs
+    from repro_torch.models.sharding import placements, resolve
+    cfg = small_cfg(name, **cfg_kw)
+    specs = moe_specs(cfg)
+    params = tree_map(lambda t: t.float(),
+                      from_numpy_tree(params_np, "cpu", specs=specs))
+    mesh = make_mesh(shape, AXES, "cpu")
+    rules = make_rules(cfg, mesh, "train")
+    with use_mesh(mesh, rules), torch.no_grad():
+        pd = distribute_tree(params, specs, mesh, rules)
+        xd = distribute_tensor(torch.from_numpy(x), mesh.device_mesh,
+                               placements(resolve(("batch", "seq", None)),
+                                          mesh), src_data_rank=None)
+        y, aux = moe_ffn(cfg, pd, xd)
+        return _full(y), float(_full(aux))
+
+
+def moe_grad_rank(rank, shape, name, cfg_kw, params_np, x, c):
+    """The gradients of ``sum(moe_ffn(x) * c) + aux`` with respect to x, the
+    router and the expert tables, experts over ``model``."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.moe import moe_ffn, moe_specs
+    from repro_torch.models.sharding import placements, resolve
+    cfg = small_cfg(name, **cfg_kw)
+    specs = moe_specs(cfg)
+    params = tree_map(lambda t: t.float(),
+                      from_numpy_tree(params_np, "cpu", specs=specs))
+    mesh = make_mesh(shape, AXES, "cpu")
+    rules = make_rules(cfg, mesh, "train")
+    with use_mesh(mesh, rules):
+        pd = distribute_tree(params, specs, mesh, rules)
+        xd = distribute_tensor(torch.from_numpy(x), mesh.device_mesh,
+                               placements(resolve(("batch", "seq", None)),
+                                          mesh), src_data_rank=None)
+        leaves = [xd, pd["router"], pd["wg"], pd["wd"]]
+        for t in leaves:
+            t.requires_grad_(True)
+        y, aux = moe_ffn(cfg, pd, xd)
+        ((y * torch.from_numpy(c)).sum() + aux).backward()
+        return [_full(t.grad) for t in leaves]
+
+
+def attn_rank(rank, shape, name, cfg_kw, params_np, x):
+    """One causal self-attention prefill (B5's path) on the mesh, forward
+    and the gradient of its sum with respect to x."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.attention import attn_forward, attn_specs
+    from repro_torch.models.sharding import placements, resolve
+    cfg = small_cfg(name, **cfg_kw)
+    specs = attn_specs(cfg)
+    params = tree_map(lambda t: t.float(),
+                      from_numpy_tree(params_np, "cpu", specs=specs))
+    mesh = make_mesh(shape, AXES, "cpu")
+    rules = make_rules(cfg, mesh, "train")
+    with use_mesh(mesh, rules):
+        pd = distribute_tree(params, specs, mesh, rules)
+        xd = distribute_tensor(torch.from_numpy(x), mesh.device_mesh,
+                               placements(resolve(("batch", "seq", None)),
+                                          mesh), src_data_rank=None)
+        xd.requires_grad_(True)
+        pos = torch.arange(x.shape[1])
+        y = attn_forward(cfg, pd, xd, pos)
+        y.sum().backward()
+        return _full(y).detach(), _full(xd.grad)
+
+
+def proj_rank(rank, shape, h, w):
+    """``int8_ring_proj`` of the model-sharded h (..., F) and w (F, d)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.layers import int8_ring_proj
+    from repro_torch.models.sharding import P, placements
+    mesh = make_mesh(shape, AXES, "cpu")
+    rules = make_rules(None, mesh, "prefill")
+    with use_mesh(mesh, rules), torch.no_grad():
+        lead = (None,) * (h.ndim - 1)
+        hd = distribute_tensor(torch.from_numpy(h), mesh.device_mesh,
+                               placements(P(*lead, "model"), mesh),
+                               src_data_rank=None)
+        wd = distribute_tensor(torch.from_numpy(w), mesh.device_mesh,
+                               placements(P("model", None), mesh),
+                               src_data_rank=None)
+        return _full(int8_ring_proj(hd, wd))

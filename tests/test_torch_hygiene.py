@@ -100,6 +100,7 @@ def test_the_package_lists_every_module_of_the_slice():
                  "train", "train.optimizer", "train.train_loop",
                  "train.compression", "checkpoint", "checkpoint.ckpt",
                  "data", "data.pipeline", "runtime.fault", "launch.train",
+                 "launch.mesh", "launch.ranks", "launch.host_group",
                  *(f"configs.{m}" for m in (
                      "command_r_35b", "deepseek_v2_lite_16b", "glm4_9b",
                      "granite_moe_3b_a800m", "llama_3_2_vision_11b",
