@@ -236,6 +236,23 @@ def axis_size(name: str) -> int:
     return dict(zip(m.axis_names, m.devices.shape))[name]
 
 
+def act_axis(name: str) -> Optional[str]:
+    """The mesh axis (or None) the installed rules shard the activation
+    axis ``name`` over; a region on each rank's heads reads its head axis
+    here, so that the rules decide it as they decide the weights'."""
+    r = resolve((name,))[0]
+    if isinstance(r, tuple):
+        raise ValueError(f"activation axis {name!r} resolves to several "
+                         f"mesh axes {r}; a region takes one")
+    return r
+
+
+def act_shards(name: str) -> int:
+    """How many shards the activation axis ``name`` has under the rules."""
+    a = act_axis(name)
+    return 1 if a is None else axis_size(a)
+
+
 def resolve(axes: Tuple[Optional[str], ...], rules=None) -> P:
     rules = rules if rules is not None else (_CTX.rules or {})
     out = []
@@ -322,7 +339,8 @@ def local_region(fn: Callable, out_pspecs, in_pspecs,
                  partial_grad: Tuple[str, ...] = (),
                  partial_out: Tuple[str, ...] = ()) -> Callable:
     """``shard_map`` on the installed bound mesh: ``fn`` runs on each
-    rank's local shards and returns one tensor, the in/out specs over mesh
+    rank's local shards and returns one tensor (or, when ``out_pspecs`` is
+    a list of specs, a tuple of as many), the in/out specs over mesh
     axis names as in ``shard_map`` (``None`` for an argument that is not a
     tensor).  The inputs are redistributed to the in specs first.  The
     output is a sum still pending over the mesh axes in ``partial_out``
@@ -340,7 +358,9 @@ def local_region(fn: Callable, out_pspecs, in_pspecs,
         return [Partial() if a in partial and p.is_replicate() else p
                 for a, p in zip(m.axis_names, placements(s, m))]
 
-    return local_map(fn, out_placements=pl(out_pspecs, partial_out),
+    out = (tuple(pl(s, partial_out) for s in out_pspecs)
+           if isinstance(out_pspecs, list) else pl(out_pspecs, partial_out))
+    return local_map(fn, out_placements=out,
                      in_placements=tuple(pl(s) for s in in_pspecs),
                      in_grad_placements=tuple(pl(s, partial_grad)
                                               for s in in_pspecs),

@@ -1,8 +1,8 @@
 """Mamba2 (SSD — state-space duality) blocks: chunked prefill and O(1)
 decode, and the SSM language model.
 
-Counterpart of ``src/repro/models/ssm.py`` without the mesh annotations
-(``shard``); the training loss is :func:`ssm_lm_loss`.
+Counterpart of ``src/repro/models/ssm.py``, its three activation
+constraints (``shard``) included; the training loss is :func:`ssm_lm_loss`.
 
 ``ssd_chunked`` is the plain version of the SSD scan, in the JAX package's
 own precision: ``xdt``, the masked scores and the incoming chunk states are
@@ -19,9 +19,19 @@ Decode states are stacked ``(L, B, ...)`` tensors, and
 into its layer's views of them **in place** (the JAX package returns
 updated copies, which its serving step donates), so a step copies no
 state.
+
+On a mesh (``models/sharding.py``) ``d_inner``, and so the SSD heads,
+shard over ``model`` (``inner`` / ``act_inner``); B and C (the state dim,
+one group) stay replicated.  The per-head part of a block — the depthwise
+convs, the scan (B7 on each rank's heads), the D skip and the gate — runs
+in a ``local_map`` region (:func:`_mix_sharded`); the gated RMSNorm over
+the whole ``d_inner`` adds the ranks' sums of squares (:func:`_gate_norm`);
+decode writes each rank's heads of the state in place through the local
+shards, which must carry ``ssm_state_specs``' placements.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -31,7 +41,9 @@ from .. import to_dtype
 from ..kernels.ssd_scan import ops as ssd_ops
 from .layers import dense, embed, embed_spec, linear_spec, rmsnorm, \
     rmsnorm_spec, softmax_xent, unembed
-from .sharding import spec, tree_map
+from .sharding import (P, act_axis, act_shards, batch_axes, bound_mesh,
+                       contiguous_grad, is_dtensor, local_region, placements,
+                       resolve, shard, spec, tree_map)
 from .transformer import run_stack, run_stack_decode
 
 
@@ -198,30 +210,105 @@ def _proj(cfg, p, u):
     return z, xi, Bm, Cm, dt
 
 
-def _gate_out(cfg, p, y, xh, z):
-    """Skip (D), gated RMSNorm and the output projection."""
-    B, T = y.shape[:2]
-    y = y + xh * p["D"].to(xh.dtype)[:, None]
-    y = y.reshape(B, T, cfg.d_inner)
-    y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["gate_norm"],
-                cfg.norm_eps)
+def _mix(cfg, z, xi, Bm, Cm, dt, conv_x, conv_B, conv_C, A_log, D, *,
+         state: bool = False):
+    """The per-head part of a block over the heads it is given (all of
+    them, or one rank's): the depthwise causal convs, the SSD scan (B7 on
+    the card), the D skip and the silu(z) gate, before the gated norm.
+    With ``state``: also the final SSD state and the three raw conv tails
+    for the decode handoff."""
+    B, T, di = xi.shape
+    P, W = cfg.ssm_headdim, cfg.ssm_conv
+    H = di // P
+    x = _causal_conv(xi, conv_x)
+    b = _causal_conv(Bm, conv_B)
+    c = _causal_conv(Cm, conv_C)
+    A = -torch.exp(A_log.float())
+    xh = x.reshape(B, T, H, P)
+    y, S = ssd_ops.ssd_scan(xh, dt, A, b, c, chunk=cfg.ssm_chunk)
+    y = y + xh * D.to(xh.dtype)[:, None]
+    y = y.reshape(B, T, di) * F.silu(z.float()).to(y.dtype)
+    if not state:
+        return y
+    return y, S, _tail(xi, W), _tail(Bm, W), _tail(Cm, W)
+
+
+def _on_mesh(t) -> bool:
+    return is_dtensor(t) and bound_mesh() is not None
+
+
+def _heads_axis(cfg) -> Optional[str]:
+    """The mesh axis the rules shard the SSD heads over (``act_inner``),
+    checked to divide them."""
+    ax = act_axis("act_inner")
+    n = act_shards("act_inner")
+    if cfg.ssm_nheads % n:
+        raise ValueError(f"{cfg.ssm_nheads} SSD heads do not shard over "
+                         f"{ax}={n}")
+    return ax
+
+
+def _mix_sharded(cfg, p, z, xi, Bm, Cm, dt, *, state: bool = False):
+    """:func:`_mix` in a region on each rank's heads: x, z, dt, A and D
+    (and conv_x's channels) sharded on heads, B and C (N, one group)
+    replicated.  Replicated inputs read by each rank for its own heads, or
+    by each data rank for its own tokens, get their gradients as pending
+    sums."""
+    ax, b = _heads_axis(cfg), resolve(("batch",))[0]
+    inner, rep = P(b, None, ax), P(b, None, None)
+
+    def local(*args):
+        return _mix(cfg, *(contiguous_grad(t) for t in args), state=state)
+
+    out = [inner, P(b, ax, None, None), inner, rep, rep] if state else inner
+    return local_region(
+        local, out,
+        (inner, inner, rep, rep, inner, P(None, ax), P(None, None),
+         P(None, None), P(ax), P(ax)),
+        partial_grad=batch_axes() + ((ax,) if ax else ()))(
+        z, xi, Bm, Cm, dt, p["conv_x"], p["conv_B"], p["conv_C"],
+        p["A_log"], p["D"])
+
+
+def _gate_norm(cfg, y, w):
+    """The gated RMSNorm over the whole ``d_inner``.  On a mesh each rank
+    sums the squares of its own channels and the ranks' sums are added
+    (a pending sum that :func:`shard` reduces) before the scale, in float32
+    as :func:`rmsnorm` does."""
+    if not _on_mesh(y):
+        return rmsnorm(y, w, cfg.norm_eps)
+    ax, b = act_axis("act_inner"), resolve(("batch",))[0]
+    ss = local_region(
+        lambda y_: y_.float().square().sum(-1, keepdim=True),
+        P(b, None, None), (P(b, None, ax),),
+        partial_out=(ax,) if ax else ())(y)
+    ss = shard(ss, "batch", "seq", None)
+    inv = torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps).to(y.dtype)
+    return (y * inv) * w.to(y.dtype)
+
+
+def _out(cfg, p, y):
+    y = _gate_norm(cfg, y, p["gate_norm"])
+    y = shard(y, "batch", "seq", "act_inner")
     return dense(y, p["wo"])
+
+
+def _mix_params(p):
+    return (p["conv_x"], p["conv_B"], p["conv_C"], p["A_log"], p["D"])
 
 
 def mamba_forward(cfg, p: Dict, x: torch.Tensor):
     """Full-sequence Mamba2 block (pre-norm, residual outside).  The SSD
-    scan runs as the device of ``x`` decides (no ``impl`` switch)."""
-    B, T, d = x.shape
-    H, P = cfg.ssm_nheads, cfg.ssm_headdim
+    scan runs as the device of ``x`` decides (no ``impl`` switch); on a
+    mesh, on each rank's heads."""
     u = rmsnorm(x, p["norm"], cfg.norm_eps)
     z, xi, Bm, Cm, dt = _proj(cfg, p, u)
-    xi = _causal_conv(xi, p["conv_x"])
-    Bm = _causal_conv(Bm, p["conv_B"])
-    Cm = _causal_conv(Cm, p["conv_C"])
-    A = -torch.exp(p["A_log"].float())
-    xh = xi.reshape(B, T, H, P)
-    y, _ = ssd_ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
-    return _gate_out(cfg, p, y, xh, z)
+    xi = shard(xi, "batch", "seq", "act_inner")
+    if _on_mesh(xi):
+        y = _mix_sharded(cfg, p, z, xi, Bm, Cm, dt)
+    else:
+        y = _mix(cfg, z, xi, Bm, Cm, dt, *_mix_params(p))
+    return _out(cfg, p, y)
 
 
 def _tail(pre_conv_in: torch.Tensor, W: int) -> torch.Tensor:
@@ -234,44 +321,85 @@ def _tail(pre_conv_in: torch.Tensor, W: int) -> torch.Tensor:
 
 def mamba_prefill(cfg, p: Dict, x: torch.Tensor):
     """Forward + recurrent state for decode handoff."""
-    B, T, d = x.shape
-    H, P, W = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_conv
     u = rmsnorm(x, p["norm"], cfg.norm_eps)
     z, xi_raw, Bm_raw, Cm_raw, dt = _proj(cfg, p, u)
-    xi = _causal_conv(xi_raw, p["conv_x"])
-    Bm = _causal_conv(Bm_raw, p["conv_B"])
-    Cm = _causal_conv(Cm_raw, p["conv_C"])
-    A = -torch.exp(p["A_log"].float())
-    xh = xi.reshape(B, T, H, P)
-    y, S = ssd_ops.ssd_scan(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
-    out = _gate_out(cfg, p, y, xh, z)
-    state = {"ssd": S,
-             "conv_x": _tail(xi_raw, W),
-             "conv_B": _tail(Bm_raw, W),
-             "conv_C": _tail(Cm_raw, W)}
-    return out, state
+    xi_raw = shard(xi_raw, "batch", "seq", "act_inner")
+    if _on_mesh(xi_raw):
+        y, S, tx, tB, tC = _mix_sharded(cfg, p, z, xi_raw, Bm_raw, Cm_raw,
+                                        dt, state=True)
+    else:
+        y, S, tx, tB, tC = _mix(cfg, z, xi_raw, Bm_raw, Cm_raw, dt,
+                                *_mix_params(p), state=True)
+    state = {"ssd": S, "conv_x": tx, "conv_B": tB, "conv_C": tC}
+    return _out(cfg, p, y), state
+
+
+def _step(cfg, z, xi, Bm, Cm, dt, conv_x, conv_B, conv_C, A_log, D, ssd,
+          cx, cB, cC):
+    """One token of the per-head part over the heads it is given: the conv
+    steps and the SSD step, the new state and conv tails written into
+    ``ssd``, ``cx``, ``cB``, ``cC`` in place; returns the gated (B, di)
+    output before the norm."""
+    B, di = xi.shape
+    P = cfg.ssm_headdim
+    H = di // P
+    x, nx = _conv_step(xi, conv_x, cx)
+    b, nB = _conv_step(Bm, conv_B, cB)
+    c, nC = _conv_step(Cm, conv_C, cC)
+    A = -torch.exp(A_log.float())
+    y, S = ssd_step(ssd, x.reshape(B, H, P), dt, A, b, c)
+    for dst, new in ((ssd, S), (cx, nx), (cB, nB), (cC, nC)):
+        dst.copy_(new)
+    y = y + x.reshape(B, H, P) * D.to(x.dtype)[:, None]
+    return y.reshape(B, di) * F.silu(z.float()).to(y.dtype)
+
+
+def _check_state(st: Dict, specs: Dict) -> None:
+    """A decode state is written in place through its local shard: it must
+    already have the placements the region takes (a redistributed copy
+    would take the write and be thrown away)."""
+    m = bound_mesh()
+    for name, s in specs.items():
+        pl = placements(s, m)
+        if tuple(st[name].placements) != pl:
+            raise ValueError(f"state {name!r} placements "
+                             f"{tuple(st[name].placements)} are not the "
+                             f"decode's {pl}; make the state with "
+                             "ssm_state_specs under the same rules")
 
 
 def mamba_decode(cfg, p: Dict, x: torch.Tensor, state: Dict):
     """One-token step. x: (B,1,d).  ``state`` (this layer's views of the
-    stacked decode state) is updated in place and returned."""
-    B = x.shape[0]
-    H, P = cfg.ssm_nheads, cfg.ssm_headdim
+    stacked decode state) is updated in place and returned; on a mesh each
+    rank writes its own heads' state."""
     u = rmsnorm(x[:, 0], p["norm"], cfg.norm_eps)
     z, xi, Bm, Cm, dt = _proj(cfg, p, u)
-    xi, cx = _conv_step(xi, p["conv_x"], state["conv_x"])
-    Bm, cB = _conv_step(Bm, p["conv_B"], state["conv_B"])
-    Cm, cC = _conv_step(Cm, p["conv_C"], state["conv_C"])
-    A = -torch.exp(p["A_log"].float())
-    y, S = ssd_step(state["ssd"], xi.reshape(B, H, P), dt, A, Bm, Cm)
-    for name, new in (("ssd", S), ("conv_x", cx), ("conv_B", cB),
-                      ("conv_C", cC)):
-        state[name].copy_(new)
-    out = _gate_out(cfg, p, y[:, None], xi.reshape(B, 1, H, P), z[:, None])
-    return out, state
+    xi = shard(xi, "batch", "act_inner")
+    sts = (state["ssd"], state["conv_x"], state["conv_B"], state["conv_C"])
+    if _on_mesh(xi):
+        ax, b = _heads_axis(cfg), resolve(("batch",))[0]
+        inner, rep = P(b, ax), P(b, None)
+        sspecs = {"ssd": P(b, ax, None, None), "conv_x": P(b, None, ax),
+                  "conv_B": P(b, None, None), "conv_C": P(b, None, None)}
+        _check_state(state, sspecs)
+        y = local_region(
+            functools.partial(_step, cfg), inner,
+            (inner, inner, rep, rep, inner, P(None, ax), P(None, None),
+             P(None, None), P(ax), P(ax), *sspecs.values()))(
+            z, xi, Bm, Cm, dt, *_mix_params(p), *sts)
+    else:
+        y = _step(cfg, z, xi, Bm, Cm, dt, *_mix_params(p), *sts)
+    return _out(cfg, p, y[:, None]), state
 
 
 # ================================================================ SSM LM
+def _residual(h: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The residual stream after a block: on a mesh replicated over
+    ``model`` (the block's row-parallel output sum reduced), as the dense
+    blocks keep it."""
+    return shard(h + out, "batch", "seq", None)
+
+
 def ssm_lm_specs(cfg) -> Dict:
     s = {
         "embed": embed_spec(cfg.vocab_size, cfg.d_model),
@@ -295,7 +423,7 @@ def ssm_lm_hidden(cfg, params: Dict, tokens: torch.Tensor, *,
     x = embed(params["embed"], tokens).to(to_dtype(cfg.dtype))
 
     def one(pl, h):
-        return h + mamba_forward(cfg, pl, h), None, 0.0
+        return _residual(h, mamba_forward(cfg, pl, h)), None, 0.0
 
     x, _, _ = run_stack(cfg, params["mamba"], x, one, cfg.n_layers,
                         remat=remat)
@@ -314,7 +442,7 @@ def ssm_lm_prefill(cfg, params: Dict, tokens: torch.Tensor):
 
     def one(pl, h):
         out, st = mamba_prefill(cfg, pl, h)
-        return h + out, st, 0.0
+        return _residual(h, out), st, 0.0
 
     x, states, _ = run_stack(cfg, params["mamba"], x, one, cfg.n_layers,
                              collect=True)
@@ -329,7 +457,7 @@ def ssm_lm_decode(cfg, params: Dict, states: Dict, tokens: torch.Tensor,
 
     def dec(pl, h, st):
         out, st = mamba_decode(cfg, pl, h, st)
-        return h + out, st
+        return _residual(h, out), st
 
     x, states = run_stack_decode(cfg, params["mamba"], states, x, dec,
                                  cfg.n_layers)

@@ -258,3 +258,92 @@ def proj_rank(rank, shape, h, w):
                                placements(P("model", None), mesh),
                                src_data_rank=None)
         return _full(int8_ring_proj(hd, wd))
+
+
+# ------------------------------------------------ the five other families
+def _counting_plain(mod, name, seen):
+    """Wrap ``mod.name`` (a kernel's plain version) so that each call
+    records the shape of its first argument in ``seen``; returns the
+    original to put back."""
+    orig = getattr(mod, name)
+
+    def counted(x, *a, **k):
+        seen.append(tuple(x.shape))
+        return orig(x, *a, **k)
+
+    setattr(mod, name, counted)
+    return orig
+
+
+def family_grad_rank(rank, shape, name, cfg_kw, params_np, batch_np,
+                     inject_np=None):
+    """One ``loss_and_grads`` of a reduced config on the mesh, float32:
+    the loss, every gradient reduced to its parameter's placements (as
+    full tensors), and the (B, T, H, P) shapes the SSD scan's plain
+    version was handed (its calls inside the regions)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.train.train_loop import _reduce_to_params, loss_and_grads
+    cfg = small_cfg(name, **cfg_kw)
+    model = build(cfg)
+    mesh = make_mesh(shape, AXES, "cpu")
+    rules = make_rules(cfg, mesh, "train")
+    params = _params(model, params_np, True)
+    seen = []
+    orig = _counting_plain(ssd_ops, "ssd_scan_plain", seen)
+    try:
+        with use_mesh(mesh, rules):
+            pd = distribute_tree(params, model.param_specs, mesh, rules)
+            batch = shard_batch(batch_np, mesh, rules)
+            inject = {k: torch.from_numpy(v)
+                      for k, v in (inject_np or {}).items()}
+            loss, grads = loss_and_grads(model, pd, batch, **inject)
+            grads = _reduce_to_params(grads, pd)
+            return float(_full(loss)), tree_map(_full, grads), seen
+    finally:
+        ssd_ops.ssd_scan_plain = orig
+
+
+def family_decode_rank(rank, shape, name, cfg_kw, params_np, batch_np,
+                       steps, shape_kind="prefill"):
+    """Prefill and ``steps`` greedy steps of a reduced config on the mesh
+    (float32 per ``cfg_kw``): the tokens, and the (B, T, H, P) shapes the
+    SSD scan's plain version was handed."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.runtime.serving import make_serve_step, prefill_and_pad
+    cfg = small_cfg(name, **cfg_kw)
+    model = build(cfg)
+    mesh = make_mesh(shape, AXES, "cpu")
+    rules = make_rules(cfg, mesh, shape_kind)
+    params = _params(model, params_np, cfg.dtype == "float32")
+    seen = []
+    orig = _counting_plain(ssd_ops, "ssd_scan_plain", seen)
+    try:
+        with use_mesh(mesh, rules), torch.no_grad():
+            pd = distribute_tree(params, model.param_specs, mesh, rules)
+            batch = shard_batch(batch_np, mesh, rules)
+            S = batch_np["tokens"].shape[1]
+            kw = ({"src_len": batch_np["frames"].shape[1]}
+                  if "frames" in batch_np else {})
+            logits, cache = prefill_and_pad(model, pd, batch, S + steps, **kw)
+            step = make_serve_step(model)
+            toks = []
+            cur = torch.argmax(_full(logits)[:, -1], -1)[:, None].to(
+                torch.int32)
+            for i in range(steps):
+                toks.append(cur)
+                tok = shard_batch({"tokens": cur.numpy()}, mesh,
+                                  rules)["tokens"]
+                logits, cache = step(pd, cache, tok, S + i)
+                cur = torch.argmax(_full(logits)[:, -1], -1)[:, None].to(
+                    torch.int32)
+            return torch.cat(toks, 1), seen
+    finally:
+        ssd_ops.ssd_scan_plain = orig
+
+
+def _flat_names(tree, prefix=""):
+    """The leaves' paths of a nested dict, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _flat_names(v, f"{prefix}{k}/")]
+    return [prefix[:-1]]
