@@ -11,6 +11,12 @@ attention kernel (B5), its one-token decode the flash-decode kernel (B6),
 and every Mamba block's scan the SSD scan kernel (B7).  Decode writes the
 new K/V of each site and the new state of each Mamba layer into the
 stacked caches in place, and returns the caches it was given.
+
+On a mesh the Mamba2 layers run as ``models/ssm.py`` runs them (B7 on each
+rank's heads), the shared block's attention as the dense blocks' (B5 and
+B6 on each rank's heads), and the caches carry the placements of their
+specs: the sites' K/V sharded on their KV heads, the SSD states on their
+heads, over ``model``.
 """
 from __future__ import annotations
 
@@ -24,8 +30,8 @@ from . import attention as A
 from .layers import (embed, embed_spec, mlp, mlp_specs, rmsnorm, rmsnorm_spec,
                      softmax_xent)
 from .sharding import spec, tree_map
-from .ssm import (mamba_decode, mamba_forward, mamba_prefill, mamba_specs,
-                  ssm_logits, ssm_state_specs)
+from .ssm import (_residual, mamba_decode, mamba_forward, mamba_prefill,
+                  mamba_specs, ssm_logits, ssm_state_specs)
 from .transformer import _layer_slice, run_stack, run_stack_decode
 
 
@@ -56,7 +62,7 @@ def _shared_fwd(cfg, p, x, positions, return_kv=False):
                        positions, causal=True, return_kv=return_kv)
     a, kv = a if return_kv else (a, None)
     x = x + a
-    x = x + mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps))
+    x = _residual(x, mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps)))
     return (x, kv) if return_kv else x
 
 
@@ -80,7 +86,7 @@ def hybrid_hidden(cfg, params, tokens, *, remat: bool = False):
     positions = torch.arange(tokens.shape[1], device=tokens.device)
 
     def one(pl, h):
-        return h + mamba_forward(cfg, pl, h), None, 0.0
+        return _residual(h, mamba_forward(cfg, pl, h)), None, 0.0
 
     for g, lo, hi in _groups(cfg):
         x = _shared_fwd(cfg, params["shared"], x, positions)
@@ -102,7 +108,7 @@ def hybrid_prefill(cfg, params, tokens):
 
     def one(pl, h):
         out, st = mamba_prefill(cfg, pl, h)
-        return h + out, st, 0.0
+        return _residual(h, out), st, 0.0
 
     for g, lo, hi in _groups(cfg):
         x, kv = _shared_fwd(cfg, params["shared"], x, positions,
@@ -126,14 +132,14 @@ def hybrid_decode(cfg, params, caches, tokens, pos):
 
     def dec(pl, h, st):
         out, st = mamba_decode(cfg, pl, h, st)
-        return h + out, st
+        return _residual(h, out), st
 
     for g, lo, hi in _groups(cfg):
         h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
         a, _ = A.attn_decode(cfg, sp["attn"], h, pos,
                              _layer_slice(caches["attn"], g))
         x = x + a
-        x = x + mlp(sp["mlp"], rmsnorm(x, sp["ln2"], cfg.norm_eps))
+        x = _residual(x, mlp(sp["mlp"], rmsnorm(x, sp["ln2"], cfg.norm_eps)))
         x, _ = run_stack_decode(cfg, _group(params["mamba"], lo, hi),
                                 _group(caches["ssm"], lo, hi), x, dec,
                                 hi - lo)
