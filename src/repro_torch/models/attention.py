@@ -26,7 +26,10 @@ it, so no step copies the cache.
 
 On a mesh (``models/sharding.py``) the activation constraints sit where
 the JAX package has them, and the kernels run in ``local_map`` regions on
-each rank's heads (:func:`_flash_local`, :func:`_tp_decode`): q is
+each rank's heads (:func:`_flash_local`, :func:`_tp_decode`), as do the
+plain products of non-causal and cross attention (:func:`_sdpa_local`;
+cross K/V and their caches sharded on the KV heads as the self caches
+are): q is
 ``(B, S, H/n, hd)`` over a ``model`` axis of n ranks, K/V ``(B, S, KV/n,
 hd)`` where n divides KV — the kernels' query head h then reads K/V head
 ``h // (H/KV)`` locally too — and otherwise each rank is handed the K/V
@@ -54,9 +57,9 @@ from ..kernels.decode_attention import ops as da_ops
 from ..kernels.flash_attention import ops as fa_ops
 from .layers import (_common, _use_int8_ring, apply_rope, dense,
                      int8_ring_proj, linear_spec, rmsnorm)
-from .sharding import (P, bound_mesh, contiguous_grad, is_dtensor,
-                       local_region, placements, pmax, psum, resolve, shard,
-                       spec)
+from .sharding import (P, act_axis, act_shards, bound_mesh, contiguous_grad,
+                       is_dtensor, local_region, placements, pmax, psum,
+                       resolve, shard, spec)
 
 
 # ============================================================== specs
@@ -229,6 +232,46 @@ def _model_divides(n_heads: int) -> bool:
     return n_heads % n == 0
 
 
+def _attend(q, k, v, *, causal=False, q_pos=None):
+    """:func:`_sdpa` of q (B, S, H, D) against k/v (B, T, KV, D) not yet
+    expanded to the query heads."""
+    H = q.shape[2]
+    kt = k.permute(0, 2, 1, 3)   # (B,KV,T,D)
+    vt = v.permute(0, 2, 1, 3)
+    return _sdpa(q, _expand_kv(kt, H), _expand_kv(vt, H), causal=causal,
+                 q_pos=q_pos)
+
+
+def _sdpa_local(q, k, v, *, causal=False, q_pos=None):
+    """:func:`_attend` (plain products: the non-causal self attention of
+    the ViT and the encoder, and cross attention) in a region on each
+    rank's query heads, as :func:`_flash_local` runs B5: q (B, S, H, D)
+    and k/v (B, T, KV, D) DTensors -> (B, S, H, Dv) sharded on heads over
+    the rules' ``act_heads`` axis.  Where that axis does not divide KV each
+    rank is handed the K/V heads its own query heads read.  Softmax,
+    masking and the K/V expansion run on local tensors: DTensor's own
+    propagation through them is where a 2 x 2 mesh of CUDA ranks gave
+    wrong gradients with the right forward (``ROADMAP.md`` C7)."""
+    H, KV = q.shape[2], k.shape[2]
+    ax, n = act_axis("act_heads"), act_shards("act_heads")
+    if H % n:
+        raise ValueError(f"{H} query heads do not shard over {ax}={n}")
+    b = _batch_rule()
+    even = KV % n == 0
+    kv_spec = P(b, None, ax if even else None, None)
+
+    def local(q_, k_, v_):
+        q_, k_, v_ = (contiguous_grad(t) for t in (q_, k_, v_))
+        if not even:
+            k_ = _local_kv_heads(k_, H, KV, q_.shape[2])
+            v_ = _local_kv_heads(v_, H, KV, q_.shape[2])
+        return _attend(q_, k_, v_, causal=causal, q_pos=q_pos).contiguous()
+
+    qs = P(b, None, ax, None)
+    return local_region(local, qs, (qs, kv_spec, kv_spec),
+                        partial_grad=() if even else (ax,))(q, k, v)
+
+
 def _flash_local(cfg, q, k, v):
     """Causal flash attention (B5) on each rank's heads: q (B, S, H, D), k/v
     (B, S, KV, D) DTensors -> (B, S, H, Dv) sharded on heads over
@@ -263,17 +306,18 @@ def attn_forward(cfg, p, x, positions, *, causal=True, rope=True,
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    on_mesh = is_dtensor(q) and bound_mesh() is not None
     if causal and S > 1:
-        if is_dtensor(q) and bound_mesh() is not None:
+        if on_mesh:
             out = _flash_local(cfg, q, k, v)
         else:
             out = fa_ops.flash_attention(q, k, v, causal=True)
     else:
-        kt = k.permute(0, 2, 1, 3)   # (B,KV,T,D)
-        vt = v.permute(0, 2, 1, 3)
-        out = _sdpa(q, _expand_kv(kt, cfg.n_heads),
-                    _expand_kv(vt, cfg.n_heads), causal=causal,
-                    q_pos=positions[0] if positions.dim() == 2 else positions)
+        q_pos = positions[0] if positions.dim() == 2 else positions
+        if on_mesh:
+            out = _sdpa_local(q, k, v, causal=causal, q_pos=q_pos)
+        else:
+            out = _attend(q, k, v, causal=causal, q_pos=q_pos)
     out = shard(out, "batch", "seq", "act_heads", None)
     y = _out_proj(out.reshape(B, S, -1), p["wo"])
     if return_kv:
@@ -442,13 +486,22 @@ def cross_attn_forward(cfg, p, x, kv_x=None, kv_cache: Optional[Dict] = None):
     cache it was given, or the one made from ``kv_x``."""
     B, S, _ = x.shape
     hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = dense(x, p["wq"]).reshape(B, S, H, hd)
+    q = shard(dense(x, p["wq"]).reshape(B, S, H, hd),
+              "batch", "seq", "act_heads", None)
     if kv_cache is None:
-        kv_cache = {"k": dense(kv_x, p["wk"]), "v": dense(kv_x, p["wv"])}
+        kv_cache = {n: shard(dense(kv_x, p[w]), "batch", None, "kv_heads")
+                    for n, w in (("k", "wk"), ("v", "wv"))}
     T = kv_cache["k"].shape[1]
-    k4 = kv_cache["k"].reshape(B, T, KV, hd).permute(0, 2, 1, 3)
-    v4 = kv_cache["v"].reshape(B, T, KV, hd).permute(0, 2, 1, 3)
-    out = _sdpa(q, _expand_kv(k4, H), _expand_kv(v4, H), causal=False)
+    kc, vc = kv_cache["k"], kv_cache["v"]
+    if is_dtensor(q) and bound_mesh() is not None:
+        if is_dtensor(kc) and KV % act_shards("act_heads"):
+            # a rank's columns of K/V are not whole heads: replicate them
+            kc, vc = (shard(t, "batch", None, None) for t in (kc, vc))
+        out = _sdpa_local(q, kc.reshape(B, T, KV, hd),
+                          vc.reshape(B, T, KV, hd))
+    else:
+        out = _attend(q, kc.reshape(B, T, KV, hd), vc.reshape(B, T, KV, hd))
+    out = shard(out, "batch", "seq", "act_heads", None)
     return dense(out.reshape(B, S, -1), p["wo"]), kv_cache
 
 

@@ -15,6 +15,11 @@ over all ``n_layers``; ``cross``, the vision K/V stacked over the cross
 layers, computed once in the prefill.  Decode hands each group a view of
 ``self`` (basic slicing), into which ``attn_decode`` writes the new K/V in
 place, and returns the caches it was given.
+
+On a mesh the dense blocks run as in ``models/transformer.py`` and the
+cross attention on each rank's query heads (``attention._sdpa_local``);
+the cross caches are sharded on their KV heads over ``model``, as the self
+caches are.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from .. import to_dtype
 from . import attention as A
 from .layers import (embed, embed_spec, mlp, mlp_specs, rmsnorm, rmsnorm_spec,
                      softmax_xent)
-from .sharding import spec, tree_map
+from .sharding import shard, spec, tree_map
 from .transformer import (_layer_slice, block_decode, block_forward,
                           dense_block_specs, lm_cache_specs, lm_logits,
                           run_stack, run_stack_decode)
@@ -70,7 +75,7 @@ def _cross_layer(cfg, pl, x, vision=None, kv_cache=None, return_kv=False):
                                   kv_cache=kv_cache)
     x = x + _gate(pl["gate_attn"], x) * a
     m = mlp(pl["mlp"], rmsnorm(x, pl["ln2"], cfg.norm_eps))
-    x = x + _gate(pl["gate_mlp"], x) * m
+    x = shard(x + _gate(pl["gate_mlp"], x) * m, "batch", "seq", None)
     return (x, ckv) if return_kv else x
 
 
