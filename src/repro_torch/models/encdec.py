@@ -13,6 +13,12 @@ encoder's attention and cross attention are plain products
 (``attention._sdpa``), as the JAX package leaves them to XLA.  Decode
 caches: per decoder layer the self K/V, written in place, and the cross
 K/V over the source, computed once in the prefill.
+
+On a mesh the encoder's attention and cross attention run on each rank's
+query heads as plain products (``attention._sdpa_local``), the decoder's
+causal prefill and its decode through B5 and B6 on each rank's heads
+(``attention._flash_local``, ``_tp_decode``); both caches are sharded on
+their KV heads over ``model``.
 """
 from __future__ import annotations
 
@@ -24,8 +30,14 @@ from .. import to_dtype
 from . import attention as A
 from .layers import (dense, embed, embed_spec, linear_spec, mlp, mlp_specs,
                      rmsnorm, rmsnorm_spec, softmax_xent)
-from .sharding import spec, tree_map
+from .sharding import shard, spec, tree_map
 from .transformer import lm_logits, run_stack, run_stack_decode
+
+
+def _residual(h: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """The residual stream after a block, replicated over ``model`` on a
+    mesh (the block's row-parallel sum reduced)."""
+    return shard(h + out, "batch", "seq", None)
 
 
 def enc_block_specs(cfg, layers):
@@ -73,7 +85,7 @@ def encode(cfg, params, frames: torch.Tensor, *, remat: bool = False
         a = A.attn_forward(cfg, pl["attn"], rmsnorm(h, pl["ln1"], cfg.norm_eps),
                            positions, causal=False)
         h = h + a
-        h = h + mlp(pl["mlp"], rmsnorm(h, pl["ln2"], cfg.norm_eps))
+        h = _residual(h, mlp(pl["mlp"], rmsnorm(h, pl["ln2"], cfg.norm_eps)))
         return h, None, 0.0
 
     x, _, _ = run_stack(cfg, params["enc_blocks"], x, one, cfg.n_enc_layers,
@@ -92,7 +104,7 @@ def _dec_block(cfg, pl, h, positions, enc_out=None, cross_kv=None,
                                   rmsnorm(h, pl["lnx"], cfg.norm_eps),
                                   kv_x=enc_out, kv_cache=cross_kv)
     h = h + c
-    h = h + mlp(pl["mlp"], rmsnorm(h, pl["ln2"], cfg.norm_eps))
+    h = _residual(h, mlp(pl["mlp"], rmsnorm(h, pl["ln2"], cfg.norm_eps)))
     return h, kv, ckv
 
 
@@ -149,7 +161,7 @@ def encdec_decode(cfg, params, caches, tokens, pos):
                                      rmsnorm(h, pl["lnx"], cfg.norm_eps),
                                      kv_cache=c["cross"])
         h = h + cr
-        h = h + mlp(pl["mlp"], rmsnorm(h, pl["ln2"], cfg.norm_eps))
+        h = _residual(h, mlp(pl["mlp"], rmsnorm(h, pl["ln2"], cfg.norm_eps)))
         return h, c
 
     x, caches = run_stack_decode(cfg, params["dec_blocks"], caches, x, dec,
