@@ -12,6 +12,13 @@ Where the JAX package draws the initial noise of the ``diffusion`` and
 by :func:`draw_noise` from an explicit ``torch.Generator`` when left out),
 so that a test can feed both packages the same draw; :func:`vla_loss`
 takes the DiT's timesteps and noise the same way.
+
+On a mesh the ViT runs as the encoder does (its non-causal attention on
+each rank's heads, ``attention._sdpa_local``; ``vit_heads`` / ``vit_ff``
+over ``model``), the LLM blocks as the dense blocks, and the action head
+(the DiT, the ``mlp``, ``lstm`` and ``diffusion`` heads) replicated over
+``model`` on each rank's tokens (:func:`_replicated`).  A VLA serves whole
+requests, so on a mesh its path is the loss and the train step.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ from .. import to_dtype
 from . import attention as A
 from .layers import (dense, embed, embed_spec, linear_spec, mlp, mlp_specs,
                      rmsnorm, rmsnorm_spec, softmax_xent, unembed)
-from .sharding import spec
+from .sharding import is_dtensor, shard, spec, tree_map
 from .transformer import block_forward, dense_block_specs, run_stack
 
 HEADS = ("detok", "", "mlp", "lstm", "diffusion", "dit")
@@ -68,7 +75,8 @@ def vit_encode(cfg, p, patches: torch.Tensor) -> torch.Tensor:
                            rmsnorm(h, pl["ln1"], cfg.norm_eps), positions,
                            causal=False)
         h = h + a
-        h = h + mlp(pl["mlp"], rmsnorm(h, pl["ln2"], cfg.norm_eps))
+        h = shard(h + mlp(pl["mlp"], rmsnorm(h, pl["ln2"], cfg.norm_eps)),
+                  "batch", "seq", None)
         return h, None, 0.0
 
     x, _, _ = run_stack(vit_cfg, p["blocks"], x, one, cfg.vit_layers)
@@ -302,6 +310,14 @@ def vla_backbone(cfg, params, patches, tokens, *, remat=False):
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
+def _replicated(tree):
+    """The action head's parameters replicated over the mesh (no-op off
+    one): the DiT and the small heads run whole on every rank, on its
+    tokens, where the rules would shard their products over ``model``."""
+    return tree_map(lambda w: shard(w, *(None,) * w.dim())
+                    if is_dtensor(w) else w, tree)
+
+
 def detokenize(logits: torch.Tensor) -> torch.Tensor:
     """Greedy action tokens -> 256 uniform bins over [-1, 1]:
     (B, action_dim, V) -> (B, 1, action_dim)."""
@@ -333,7 +349,7 @@ def vla_forward(cfg, params, patches, tokens, noise=None, generator=None):
     cog = h[:, -1]                                        # cognition feature
     if kind in NOISY_HEADS and noise is None:
         noise = draw_noise(cfg, cog.shape[0], cog.device, generator)
-    return decode_action(cfg, params["action"], cog, noise)
+    return decode_action(cfg, _replicated(params["action"]), cog, noise)
 
 
 def vla_loss(cfg, params, patches, tokens, action_labels,
@@ -353,6 +369,7 @@ def vla_loss(cfg, params, patches, tokens, action_labels,
         bins = torch.clamp((action_labels[:, 0].float() + 1) * 127.5, 0, 255)
         return softmax_xent(logits, bins.to(torch.int32))
     cog = h[:, -1]
+    pa = _replicated(params["action"])
     dev, B = cog.device, cog.shape[0]
     if generator is None and ((kind == "dit" and (t is None or noise is None))
                               or (kind == "diffusion" and noise is None)):
@@ -371,11 +388,11 @@ def vla_loss(cfg, params, patches, tokens, action_labels,
                                device=dev)
         ab = torch.cumprod(1.0 - betas, dim=0)[t][:, None, None]
         noisy = torch.sqrt(ab) * labels + torch.sqrt(1 - ab) * noise
-        eps = dit_denoise(cfg, params["action"], noisy, t, cog)
+        eps = dit_denoise(cfg, pa, noisy, t, cog)
         return ((eps.float() - noise) ** 2).mean()
     if kind == "diffusion" and noise is None:
         noise = draw_noise(cfg, B, dev, generator)
     if noise is not None:
         noise = noise.to(device=dev, dtype=torch.float32)
-    pred = decode_action(cfg, params["action"], cog, noise)
+    pred = decode_action(cfg, pa, cog, noise)
     return ((pred.float() - labels) ** 2).mean()
