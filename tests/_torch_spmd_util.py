@@ -303,11 +303,27 @@ def family_grad_rank(rank, shape, name, cfg_kw, params_np, batch_np,
         ssd_ops.ssd_scan_plain = orig
 
 
+def family_loss_rank(rank, shape, name, cfg_kw, params_np, batch_np,
+                     inject_np=None):
+    """The loss of a reduced config on the mesh, float32, no gradient."""
+    cfg = small_cfg(name, **cfg_kw)
+    model = build(cfg)
+    mesh = make_mesh(shape, AXES, "cpu")
+    rules = make_rules(cfg, mesh, "train")
+    params = _params(model, params_np, True)
+    with use_mesh(mesh, rules), torch.no_grad():
+        pd = distribute_tree(params, model.param_specs, mesh, rules)
+        batch = shard_batch(batch_np, mesh, rules)
+        inject = {k: torch.from_numpy(v) for k, v in (inject_np or {}).items()}
+        return float(_full(model.loss_fn(pd, batch, None, **inject)))
+
+
 def family_decode_rank(rank, shape, name, cfg_kw, params_np, batch_np,
                        steps, shape_kind="prefill"):
     """Prefill and ``steps`` greedy steps of a reduced config on the mesh
-    (float32 per ``cfg_kw``): the tokens, and the (B, T, H, P) shapes the
-    SSD scan's plain version was handed."""
+    (float32 per ``cfg_kw``): the tokens, the last position's logits of
+    the prefill and of every step, and the (B, T, H, P) shapes the SSD
+    scan's plain version was handed."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.runtime.serving import make_serve_step, prefill_and_pad
     cfg = small_cfg(name, **cfg_kw)
@@ -326,17 +342,16 @@ def family_decode_rank(rank, shape, name, cfg_kw, params_np, batch_np,
                   if "frames" in batch_np else {})
             logits, cache = prefill_and_pad(model, pd, batch, S + steps, **kw)
             step = make_serve_step(model)
-            toks = []
-            cur = torch.argmax(_full(logits)[:, -1], -1)[:, None].to(
-                torch.int32)
+            toks, last = [], [_full(logits)[:, -1]]
+            cur = torch.argmax(last[-1], -1)[:, None].to(torch.int32)
             for i in range(steps):
                 toks.append(cur)
                 tok = shard_batch({"tokens": cur.numpy()}, mesh,
                                   rules)["tokens"]
                 logits, cache = step(pd, cache, tok, S + i)
-                cur = torch.argmax(_full(logits)[:, -1], -1)[:, None].to(
-                    torch.int32)
-            return torch.cat(toks, 1), seen
+                last.append(_full(logits)[:, -1])
+                cur = torch.argmax(last[-1], -1)[:, None].to(torch.int32)
+            return torch.cat(toks, 1), torch.stack(last, 1), seen
     finally:
         ssd_ops.ssd_scan_plain = orig
 
