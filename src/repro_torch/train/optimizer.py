@@ -16,10 +16,11 @@ On a mesh (``models/sharding.py``) parameters, gradients and moments are
 each rank's local shard in place (the update is elementwise); the norm
 sums each rank's local squares and reduces them over the mesh dims the
 leaves are sharded on.  The moments follow the parameters' placements, as
-the JAX train step keeps them (``init_state``).  :func:`opt_state_specs`
-and :func:`zero_rules` are the JAX package's ZeRO-1 specs, copied: the
-moments sharded over the data axes on their largest replicated dim, which
-only the dry run's arithmetic reads.
+the JAX train step keeps them (``init_state``), or those of
+:func:`opt_state_specs` under :func:`zero_rules` (the JAX package's ZeRO-1
+specs, copied: sharded over the data axes on their largest replicated
+dim), as the dry run places them: each rank then updates its part of a
+parameter and the parts are gathered (:func:`_zero1_update`).
 """
 from __future__ import annotations
 
@@ -199,6 +200,22 @@ def adamw_update(cfg: OptConfig, params: Tree, grads: Tree, m: Tree, v: Tree,
     bc1, bc2 = _bias_corrections(cfg, step)
     for p, g, m_, v_ in zip(tree_leaves(params), tree_leaves(grads),
                             tree_leaves(m), tree_leaves(v)):
+        if is_dtensor(m_) and tuple(m_.placements) != tuple(p.placements):
+            _zero1_update(cfg, p, g, m_, v_, lr, bc1, bc2)
+            continue
         _update_leaf(cfg, _local(p), _local(g), _local(m_), _local(v_), lr,
                      bc1, bc2)
     return params, m, v, gnorm
+
+
+def _zero1_update(cfg: OptConfig, p, g, m, v, lr: float, bc1: float,
+                  bc2: float) -> None:
+    """A leaf whose moments are sharded further than the parameter (ZeRO-1,
+    ``opt_state_specs``: over the data axes): each rank updates its part of
+    the parameter against its part of the moments, and the parts are
+    gathered back into every rank's copy."""
+    dm, pl = m.device_mesh, m.placements
+    part = p.redistribute(dm, pl)
+    _update_leaf(cfg, part.to_local(), g.redistribute(dm, pl).to_local(),
+                 m.to_local(), v.to_local(), lr, bc1, bc2)
+    p.to_local().copy_(part.redistribute(dm, p.placements).to_local())

@@ -15,7 +15,7 @@ from repro_torch.data.pipeline import shard_batch
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import build
 from repro_torch.models.sharding import (distribute_tree, make_rules,
-                                         tree_map, use_mesh)
+                                         tree_leaves, tree_map, use_mesh)
 
 AXES = ("data", "model")
 
@@ -362,3 +362,47 @@ def _flat_names(tree, prefix=""):
         return [n for k, v in tree.items()
                 for n in _flat_names(v, f"{prefix}{k}/")]
     return [prefix[:-1]]
+
+
+def zero1_rank(rank, shape, name, cfg_kw, params_np, batch_np, steps):
+    """``steps`` train steps of a reduced config on the mesh, float32, with
+    the moments placed as the parameters (``init_state``) and by the
+    ZeRO-1 specs (``opt_state_specs`` under ``zero_rules``): each run's
+    losses, norms and final parameters (full tensors)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models.sharding import placements, resolve
+    from repro_torch.train.optimizer import (OptConfig, opt_state_specs,
+                                             zero_rules)
+    from repro_torch.train.train_loop import init_state, make_train_step
+    cfg = small_cfg(name, **cfg_kw)
+    model = build(cfg)
+    mesh = make_mesh(shape, AXES, "cpu")
+    rules = make_rules(cfg, mesh, "train")
+    out = []
+    for zero1 in (False, True):
+        params = _params(model, params_np, True)
+        with use_mesh(mesh, rules):
+            state = init_state(distribute_tree(params, model.param_specs,
+                                               mesh, rules))
+            if zero1:
+                zr = zero_rules(rules, mesh)
+                ospecs = opt_state_specs(model.param_specs, mesh, rules)
+                place = (lambda t, s: distribute_tensor(
+                    t.full_tensor(), mesh.device_mesh,
+                    placements(resolve(s.axes, zr), mesh),
+                    src_data_rank=None))
+                state.m = tree_map(place, state.m, ospecs)
+                state.v = tree_map(place, state.v, ospecs)
+            batch = shard_batch(batch_np, mesh, rules)
+            step = make_train_step(model, OptConfig(lr=1e-3,
+                                                    warmup_steps=1))
+            losses, norms = [], []
+            for _ in range(steps):
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(_full(m["grad_norm"])))
+            moved = sum(int(a.placements != b.placements) for a, b in zip(
+                tree_leaves(state.m), tree_leaves(state.params)))
+            out.append((losses, norms, tree_map(_full, state.params),
+                        moved))
+    return out

@@ -32,6 +32,10 @@ def _jobs():
                                                  c["params_np"],
                                                  FC.decode_batch(name),
                                                  FC.DECODE_STEPS))))
+    c = FC.case(FC.SSM)
+    jobs.append((("zero1",), ("zero1_rank", ((2, 2), FC.SSM, c["kw"],
+                                             c["params_np"], c["batch"],
+                                             2))))
     return jobs
 
 
@@ -76,3 +80,18 @@ def test_greedy_decode_equals_one_rank(ranks, name, shape):
         FC.assert_decode_matches(toks, logits, name)
         assert seen == _heads_seen(cfg, shape, FC.DECODE_PROMPT,
                                    cfg.n_layers)
+
+
+def test_zero1_moments_give_the_same_steps(ranks):
+    """Moments placed by the ZeRO-1 specs (``opt_state_specs`` under
+    ``zero_rules``, sharded over data as the dry run places them): each
+    rank updates its part of a parameter and the parts are gathered, and
+    two steps give the losses, norms and parameters of moments placed as
+    the parameters, bit for bit."""
+    import torch
+    from repro_torch.models.sharding import tree_leaves
+    for plain, zero1 in ranks["zero1",]:
+        assert zero1[3] > 0 and plain[3] == 0
+        assert zero1[0] == plain[0] and zero1[1] == plain[1]
+        for a, b in zip(tree_leaves(zero1[2]), tree_leaves(plain[2])):
+            assert torch.equal(a, b)
