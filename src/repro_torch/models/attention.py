@@ -199,11 +199,45 @@ def _qkv(cfg, p, x):
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     B, S = x.shape[:2]
-    q = shard(q.reshape(B, S, H, hd), "batch", "seq", "act_heads", None)
+    q = _split_heads(q, H, hd)
     if is_dtensor(k) and bound_mesh() is not None and not _model_divides(KV):
         # a rank's columns of K/V are not whole heads: replicate them
         k, v = (shard(t, "batch", "seq", None) for t in (k, v))
     return q, k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
+
+
+def _uneven_heads(H: int) -> bool:
+    return bound_mesh() is not None and H % act_shards("act_heads") != 0
+
+
+def _split_heads(t: torch.Tensor, H: int, hd: int) -> torch.Tensor:
+    """(B, S, H*hd) -> (B, S, H, hd), sharded on heads over the rules'
+    ``act_heads`` axis.  Where that axis does not divide H a rank's columns
+    are not whole heads: the columns are gathered, and the heads padded
+    with zero heads to a multiple of the shards, as the JAX package's
+    partitioner pads them (:func:`_merge_heads` drops the pad)."""
+    B, S = t.shape[:2]
+    if is_dtensor(t) and _uneven_heads(H):
+        t = shard(t, "batch", "seq", None).reshape(B, S, H, hd)
+        n = act_shards("act_heads")
+        pad = torch.zeros((B, S, -(-H // n) * n - H, hd), dtype=t.dtype,
+                          device=t.device)
+        t = torch.cat([t, pad], dim=2)
+        return shard(t, "batch", "seq", "act_heads", None)
+    return shard(t.reshape(B, S, H, hd), "batch", "seq", "act_heads", None)
+
+
+def _merge_heads(out: torch.Tensor, H: int) -> torch.Tensor:
+    """(B, S, H', hd) -> (B, S, H*hd) for the output projection: heads
+    padded by :func:`_split_heads` are gathered and the pad dropped."""
+    B, S, _, hd = out.shape
+    if is_dtensor(out) and _uneven_heads(H):
+        # the pad dropped after the flatten: the flatten's gradient then
+        # meets whole padded heads, which divide over the ranks
+        out = shard(out, "batch", "seq", None, None)
+        return out.reshape(B, S, -1)[:, :, :H * hd]
+    out = shard(out, "batch", "seq", "act_heads", None)
+    return out.reshape(B, S, -1)
 
 
 def _out_proj(out2d: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -220,10 +254,11 @@ def _batch_rule():
 def _local_kv_heads(k: torch.Tensor, H: int, KV: int, Hl: int
                     ) -> torch.Tensor:
     """The K/V heads (dim 2 of a full-head ``(B, T, KV, hd)`` tensor) that
-    this rank's ``Hl`` query heads read, one per query head."""
-    r = bound_mesh().local_rank("model")
-    idx = (r * Hl + torch.arange(Hl, device=k.device)) // (H // KV)
-    return k.index_select(2, idx)
+    this rank's ``Hl`` query heads read, one per query head (a pad head,
+    past the ``H`` real ones, reads the last)."""
+    start = bound_mesh().local_rank("model") * Hl
+    idx = (start + torch.arange(Hl, device=k.device)) // (H // KV)
+    return k.index_select(2, idx.clamp(max=KV - 1))
 
 
 def _model_divides(n_heads: int) -> bool:
@@ -242,20 +277,19 @@ def _attend(q, k, v, *, causal=False, q_pos=None):
                  q_pos=q_pos)
 
 
-def _sdpa_local(q, k, v, *, causal=False, q_pos=None):
+def _sdpa_local(q, k, v, H, *, causal=False, q_pos=None):
     """:func:`_attend` (plain products: the non-causal self attention of
     the ViT and the encoder, and cross attention) in a region on each
     rank's query heads, as :func:`_flash_local` runs B5: q (B, S, H, D)
     and k/v (B, T, KV, D) DTensors -> (B, S, H, Dv) sharded on heads over
-    the rules' ``act_heads`` axis.  Where that axis does not divide KV each
-    rank is handed the K/V heads its own query heads read.  Softmax,
+    the rules' ``act_heads`` axis (``H`` the real heads, q's padded as
+    :func:`_split_heads` pads them).  Where that axis does not divide KV
+    each rank is handed the K/V heads its own query heads read.  Softmax,
     masking and the K/V expansion run on local tensors: DTensor's own
     propagation through them is where a 2 x 2 mesh of CUDA ranks gave
     wrong gradients with the right forward (``ROADMAP.md`` C7)."""
-    H, KV = q.shape[2], k.shape[2]
+    KV = k.shape[2]
     ax, n = act_axis("act_heads"), act_shards("act_heads")
-    if H % n:
-        raise ValueError(f"{H} query heads do not shard over {ax}={n}")
     b = _batch_rule()
     even = KV % n == 0
     kv_spec = P(b, None, ax if even else None, None)
@@ -275,11 +309,9 @@ def _sdpa_local(q, k, v, *, causal=False, q_pos=None):
 def _flash_local(cfg, q, k, v):
     """Causal flash attention (B5) on each rank's heads: q (B, S, H, D), k/v
     (B, S, KV, D) DTensors -> (B, S, H, Dv) sharded on heads over
-    ``model``."""
-    H, KV = q.shape[2], k.shape[2]
-    if not _model_divides(H):
-        raise ValueError(f"{H} query heads do not shard over "
-                         f"model={bound_mesh().shape['model']}")
+    ``model`` (``torch.chunk``'s split where ``model`` does not divide
+    H)."""
+    H, KV = cfg.n_heads, k.shape[2]
     b = _batch_rule()
     even = _model_divides(KV)
     kv_spec = P(b, None, "model" if even else None, None)
@@ -315,11 +347,11 @@ def attn_forward(cfg, p, x, positions, *, causal=True, rope=True,
     else:
         q_pos = positions[0] if positions.dim() == 2 else positions
         if on_mesh:
-            out = _sdpa_local(q, k, v, causal=causal, q_pos=q_pos)
+            out = _sdpa_local(q, k, v, cfg.n_heads, causal=causal,
+                              q_pos=q_pos)
         else:
             out = _attend(q, k, v, causal=causal, q_pos=q_pos)
-    out = shard(out, "batch", "seq", "act_heads", None)
-    y = _out_proj(out.reshape(B, S, -1), p["wo"])
+    y = _out_proj(_merge_heads(out, cfg.n_heads), p["wo"])
     if return_kv:
         cax = "cache_seq_sp" if cfg.decode_attn == "sp" else None
         kax = None if cax else "kv_heads"
@@ -354,8 +386,8 @@ def attn_decode(cfg, p, x, pos, cache: Dict):
         step = _sp_flash_decode if cfg.decode_attn == "sp" else _tp_decode
         out = step(cfg, q, kc, vc, k.reshape(B, 1, KV * hd),
                    v.reshape(B, 1, KV * hd), positions)
-        out = shard(out, "batch", "seq", "act_heads", None)
-        return _out_proj(out.reshape(B, 1, -1), p["wo"]), {"k": kc, "v": vc}
+        return _out_proj(_merge_heads(out, cfg.n_heads), p["wo"]), \
+            {"k": kc, "v": vc}
     kc.index_copy_(1, positions, k.reshape(B, 1, KV * hd).to(kc.dtype))
     vc.index_copy_(1, positions, v.reshape(B, 1, KV * hd).to(vc.dtype))
     T = kc.shape[1]
@@ -383,11 +415,8 @@ def _tp_decode(cfg, q, kc, vc, k_new, v_new, positions):
     query heads.  Where ``model`` does not divide KV a rank's columns are
     not whole heads: the shards are gathered over ``model`` and each rank
     takes the K/V heads its query heads read."""
-    B, _, H, hd = q.shape
-    KV = cfg.n_kv_heads
-    if not _model_divides(H):
-        raise ValueError(f"{H} query heads do not shard over "
-                         f"model={bound_mesh().shape['model']}")
+    B, hd = q.shape[0], q.shape[3]
+    H, KV = cfg.n_heads, cfg.n_kv_heads
     m = bound_mesh()
     b = _batch_rule()
     cs, qs = P(b, None, "model"), P(b, None, "model", None)
@@ -409,8 +438,7 @@ def _tp_decode(cfg, q, kc, vc, k_new, v_new, positions):
             vf = all_gather(vc_, 2, "model").view(Bl, T, KV, hd)
             k4 = _local_kv_heads(kf, H, KV, Hl).permute(0, 2, 1, 3)
             v4 = _local_kv_heads(vf, H, KV, Hl).permute(0, 2, 1, 3)
-        return da_ops.decode_attention(q_[:, 0], k4, v4,
-                                       positions + 1)[:, None]
+        return da_ops.decode_attention(q_[:, 0], k4, v4, positions + 1)
 
     return local_region(local, qs, (qs, cs, cs, cs, cs))(
         q, k_new, v_new, kc, vc)
@@ -425,8 +453,8 @@ def _sp_flash_decode(cfg, q, kc, vc, k_new, v_new, positions):
     plain products) and the ranks combine with an online-softmax
     reduction: one ``pmax`` and two ``psum`` s of (B, H)-sized statistics
     and outputs a layer."""
-    B, _, H, hd = q.shape
-    KV = cfg.n_kv_heads
+    B, hd = q.shape[0], q.shape[3]
+    H, KV = cfg.n_heads, cfg.n_kv_heads
     m = bound_mesh()
     b = _batch_rule()
     cs = P(b, "model", None)
@@ -438,6 +466,7 @@ def _sp_flash_decode(cfg, q, kc, vc, k_new, v_new, positions):
     T_rank = -(-kc.shape[1] // m.shape["model"])
 
     def local(q_, kn, vn, kc_, vc_):
+        q_ = q_[:, :, :H]                   # without _split_heads' pad
         Bl, Tl = kc_.shape[0], kc_.shape[1]
         t0 = m.local_rank("model") * T_rank
         tglob = t0 + torch.arange(Tl, device=kc_.device)
@@ -486,8 +515,7 @@ def cross_attn_forward(cfg, p, x, kv_x=None, kv_cache: Optional[Dict] = None):
     cache it was given, or the one made from ``kv_x``."""
     B, S, _ = x.shape
     hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = shard(dense(x, p["wq"]).reshape(B, S, H, hd),
-              "batch", "seq", "act_heads", None)
+    q = _split_heads(dense(x, p["wq"]), H, hd)
     if kv_cache is None:
         kv_cache = {n: shard(dense(kv_x, p[w]), "batch", None, "kv_heads")
                     for n, w in (("k", "wk"), ("v", "wv"))}
@@ -498,11 +526,10 @@ def cross_attn_forward(cfg, p, x, kv_x=None, kv_cache: Optional[Dict] = None):
             # a rank's columns of K/V are not whole heads: replicate them
             kc, vc = (shard(t, "batch", None, None) for t in (kc, vc))
         out = _sdpa_local(q, kc.reshape(B, T, KV, hd),
-                          vc.reshape(B, T, KV, hd))
+                          vc.reshape(B, T, KV, hd), H)
     else:
         out = _attend(q, kc.reshape(B, T, KV, hd), vc.reshape(B, T, KV, hd))
-    out = shard(out, "batch", "seq", "act_heads", None)
-    return dense(out.reshape(B, S, -1), p["wo"]), kv_cache
+    return dense(_merge_heads(out, H), p["wo"]), kv_cache
 
 
 # ============================================================== MLA (deepseek)
@@ -517,7 +544,7 @@ def _mla_q(cfg, p, x, positions):
     B, S, _ = x.shape
     H = cfg.n_heads
     qn, qr = cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = dense(x, p["wq"]).reshape(B, S, H, qn + qr)
+    q = _split_heads(dense(x, p["wq"]), H, qn + qr)
     q_nope, q_pe = q[..., :qn], q[..., qn:]
     q_pe = apply_rope(q_pe, positions, cfg.rope_theta)
     return q_nope, q_pe
@@ -541,50 +568,81 @@ def mla_forward(cfg, p, x, positions, *, causal=True, return_kv=False):
     qn, vd = cfg.qk_nope_dim, cfg.v_head_dim
     q_nope, q_pe = _mla_q(cfg, p, x, positions)
     c_kv, k_pe = _mla_latent(cfg, p, x, positions)
-    k_nope = dense(c_kv, p["wk_b"]).reshape(B, S, H, qn)
-    v = dense(c_kv, p["wv_b"]).reshape(B, S, H, vd)
+    k_nope = _split_heads(dense(c_kv, p["wk_b"]), H, qn)
+    v = _split_heads(dense(c_kv, p["wv_b"]), H, vd)
     q = torch.cat([q_nope, q_pe], dim=-1)
-    k = torch.cat([k_nope, k_pe[:, :, None, :].expand(
-        B, S, H, cfg.qk_rope_dim)], dim=-1)
+    k = torch.cat([k_nope, shard(k_pe[:, :, None, :].expand(
+        B, S, H, cfg.qk_rope_dim), "batch", "seq", "act_heads", None)],
+        dim=-1)
+    on_mesh = is_dtensor(q) and bound_mesh() is not None
     if causal and S > 1:
-        out = fa_ops.flash_attention(q, k, v, causal=True)
+        if on_mesh:
+            out = _flash_local(cfg, q, k, v)
+        else:
+            out = fa_ops.flash_attention(q, k, v, causal=True)
+    elif on_mesh:
+        out = _sdpa_local(q, k, v, H, causal=causal, q_pos=positions)
     else:
         out = _sdpa(q, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
                     causal=causal,
                     q_pos=positions[0] if positions.dim() == 2 else positions)
-    y = dense(out.reshape(B, S, -1), p["wo"])
+    y = dense(_merge_heads(out, H), p["wo"])
     if return_kv:
         return y, {"c_kv": c_kv, "k_pe": k_pe}
     return y
 
 
+def _mla_attend(cfg, q_nope, q_pe, c_new, kpe_new, ckv, kpe, wk_b, wv_b,
+                positions):
+    """The absorbed MLA step over the heads it is given (all, or one
+    rank's): the new latent and RoPE key written into ``ckv`` / ``kpe`` in
+    place, attention in the latent space -> (B, 1, H, v_head_dim)."""
+    qn, qr, vd, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                     cfg.kv_lora_rank)
+    H = q_nope.shape[2]
+    ckv.index_copy_(1, positions, c_new.to(ckv.dtype))
+    kpe.index_copy_(1, positions, kpe_new.to(kpe.dtype))
+    # absorb W_kb into q: q_lat (B,1,H,r)
+    q_lat = _einsum("bshn,rhn->bshr", q_nope, wk_b.reshape(r, H, qn))
+    logits = (torch.einsum("bshr,btr->bhst", q_lat.float(), ckv.float())
+              + torch.einsum("bshr,btr->bhst", q_pe.float(), kpe.float()))
+    logits = logits * ((qn + qr) ** -0.5)
+    mask = torch.arange(ckv.shape[1], device=ckv.device) < positions + 1
+    logits = torch.where(mask, logits, torch.full_like(logits, _NEG))
+    w = torch.softmax(logits, dim=-1).to(q_nope.dtype)
+    ctx = _einsum("bhst,btr->bshr", w, ckv)               # (B,1,H,r)
+    return _einsum("bshr,rhv->bshv", ctx, wv_b.reshape(r, H, vd))
+
+
 def mla_decode(cfg, p, x, pos, cache: Dict):
     """Absorbed-form MLA decode: attention in the compressed latent space.
     The new latent and RoPE key are written into ``cache`` in place and
-    the same tensors are returned."""
+    the same tensors are returned.  On a mesh the step runs in a region on
+    each rank's heads, the (replicated) latent cache written through each
+    rank's local copy."""
     B, S, _ = x.shape
     if S != 1:
         raise ValueError(f"mla_decode takes one token, got {S}")
-    H = cfg.n_heads
-    qn, qr, vd, r = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
-                     cfg.kv_lora_rank)
     positions = _position(pos, x.device)
     q_nope, q_pe = _mla_q(cfg, p, x, positions)          # (B,1,H,qn),(B,1,H,qr)
     c_new, kpe_new = _mla_latent(cfg, p, x, positions)   # (B,1,r),(B,1,qr)
     ckv, kpe = cache["c_kv"], cache["k_pe"]
-    ckv.index_copy_(1, positions, c_new.to(ckv.dtype))
-    kpe.index_copy_(1, positions, kpe_new.to(kpe.dtype))
-    # absorb W_kb into q: q_lat (B,1,H,r)
-    q_lat = _einsum("bshn,rhn->bshr", q_nope, p["wk_b"].reshape(r, H, qn))
-    logits = (torch.einsum("bshr,btr->bhst", q_lat.float(), ckv.float())
-              + torch.einsum("bshr,btr->bhst", q_pe.float(), kpe.float()))
-    logits = logits * ((qn + qr) ** -0.5)
-    mask = torch.arange(ckv.shape[1], device=x.device) < positions + 1
-    logits = torch.where(mask, logits, torch.full_like(logits, _NEG))
-    w = torch.softmax(logits, dim=-1).to(x.dtype)
-    ctx = _einsum("bhst,btr->bshr", w, ckv)               # (B,1,H,r)
-    out = _einsum("bshr,rhv->bshv", ctx, p["wv_b"].reshape(r, H, vd))
-    y = dense(out.reshape(B, 1, -1), p["wo"])
+    args = (q_nope, q_pe, c_new, kpe_new, ckv, kpe, p["wk_b"], p["wv_b"])
+    if is_dtensor(ckv) and bound_mesh() is not None:
+        if _uneven_heads(cfg.n_heads):
+            raise ValueError(f"{cfg.n_heads} MLA heads do not shard over "
+                             f"{act_axis('act_heads')}")
+        m, b, ax = bound_mesh(), _batch_rule(), act_axis("act_heads")
+        cs = P(b, None, None)
+        _check_cache(ckv, placements(cs, m))
+        _check_cache(kpe, placements(cs, m))
+        qs, ws = P(b, None, ax, None), P(None, ax)
+        out = local_region(
+            lambda *a: _mla_attend(cfg, *a, positions), qs,
+            (qs, qs, cs, cs, cs, cs, ws, ws))(*args)
+    else:
+        out = _mla_attend(cfg, *args, positions)
+    y = dense(_merge_heads(out, cfg.n_heads), p["wo"])
     return y, {"c_kv": ckv, "k_pe": kpe}
 
 

@@ -25,9 +25,16 @@ from repro_torch.train.train_loop import loss_and_grads
 SSM, HYBRID = "mamba2-1.3b", "zamba2-1.2b"
 VLM, ENCDEC = "llama-3.2-vision-11b", "seamless-m4t-large-v2"
 OPENVLA, COGACT = "openvla-7b", "cogact-7b"
+# six query heads over two K/V heads: model 4 divides neither, so the
+# heads are padded to 8 and each rank handed the K/V heads its own read
+UNEVEN = "llama3.2-3b"
+# MLA: its causal prefill through B5 on each rank's heads
+MLA = "deepseek-v2-lite-16b"
 # the reduced VLAs' ViT has one head of 32; at width 256 it has 4 of 64,
 # which every mesh below divides
-KW = {OPENVLA: {"vit_dim": 256}, COGACT: {"vit_dim": 256}}
+KW = {OPENVLA: {"vit_dim": 256}, COGACT: {"vit_dim": 256},
+      UNEVEN: {"n_heads": 6, "n_kv_heads": 2},
+      MLA: {"moe_capacity_factor": 8.0}}     # no choice dropped
 MESHES = ((2, 2), (1, 4), (4, 1))
 BATCH, DECODE_PROMPT, DECODE_STEPS = 4, 8, 8
 GRAD_REL, LOGIT_REL = 1e-5, 1e-4

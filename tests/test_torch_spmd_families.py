@@ -32,6 +32,22 @@ def _jobs():
                                                  c["params_np"],
                                                  FC.decode_batch(name),
                                                  FC.DECODE_STEPS))))
+    c = FC.case(FC.UNEVEN)
+    jobs.append((("grad", FC.UNEVEN, (1, 4)),
+                 ("family_grad_rank", ((1, 4), FC.UNEVEN, c["kw"],
+                                       c["params_np"], c["batch"]))))
+    jobs.append((("decode", FC.UNEVEN, (1, 4)),
+                 ("family_decode_rank", ((1, 4), FC.UNEVEN, c["kw"],
+                                         c["params_np"],
+                                         FC.decode_batch(FC.UNEVEN),
+                                         FC.DECODE_STEPS))))
+    c = FC.case(FC.MLA)
+    for key, fn, args in (("grad", "family_grad_rank", (c["batch"],)),
+                          ("decode", "family_decode_rank",
+                           (FC.decode_batch(FC.MLA), FC.DECODE_STEPS))):
+        jobs.append(((key, FC.MLA, (2, 2)),
+                     (fn, ((2, 2), FC.MLA, c["kw"], c["params_np"],
+                           *args))))
     c = FC.case(FC.SSM)
     jobs.append((("zero1",), ("zero1_rank", ((2, 2), FC.SSM, c["kw"],
                                              c["params_np"], c["batch"],
@@ -95,3 +111,25 @@ def test_zero1_moments_give_the_same_steps(ranks):
         assert zero1[0] == plain[0] and zero1[1] == plain[1]
         for a, b in zip(tree_leaves(zero1[2]), tree_leaves(plain[2])):
             assert torch.equal(a, b)
+
+
+def test_heads_model_does_not_divide(ranks):
+    """Six query heads and two K/V heads over model 4 (as Llama-3.2-3B's 24
+    over a 16-wide axis): the heads padded to 8, two a rank, each rank
+    handed the K/V heads its own read; the loss, every gradient, and greedy
+    decode equal one rank's."""
+    for loss, grads, _ in ranks["grad", FC.UNEVEN, (1, 4)]:
+        FC.assert_grads_match(loss, grads, FC.UNEVEN)
+    for toks, logits, _ in ranks["decode", FC.UNEVEN, (1, 4)]:
+        FC.assert_decode_matches(toks, logits, FC.UNEVEN)
+
+
+def test_mla_on_local_heads(ranks):
+    """deepseek-v2-lite-16b's MLA on 2 x 2: its causal prefill through B5's
+    path on each rank's heads (not DTensors handed to the kernel), the
+    absorbed decode on DTensors; the loss, every gradient and greedy decode
+    equal one rank's (capacity factor 8: no choice dropped)."""
+    for loss, grads, _ in ranks["grad", FC.MLA, (2, 2)]:
+        FC.assert_grads_match(loss, grads, FC.MLA)
+    for toks, logits, _ in ranks["decode", FC.MLA, (2, 2)]:
+        FC.assert_decode_matches(toks, logits, FC.MLA)
