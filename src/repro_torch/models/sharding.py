@@ -335,6 +335,12 @@ def contiguous_grad(x: torch.Tensor) -> torch.Tensor:
     return _ContiguousGrad.apply(x) if x.requires_grad else x
 
 
+# Callables handed (device mesh, in placements, out placements) of every
+# region as it is made: the dry run reads from them how many ranks split a
+# region's work (``launch/dryrun.py``).  Empty otherwise.
+REGION_OBSERVERS: list = []
+
+
 def local_region(fn: Callable, out_pspecs, in_pspecs,
                  partial_grad: Tuple[str, ...] = (),
                  partial_out: Tuple[str, ...] = ()) -> Callable:
@@ -360,8 +366,10 @@ def local_region(fn: Callable, out_pspecs, in_pspecs,
 
     out = (tuple(pl(s, partial_out) for s in out_pspecs)
            if isinstance(out_pspecs, list) else pl(out_pspecs, partial_out))
-    return local_map(fn, out_placements=out,
-                     in_placements=tuple(pl(s) for s in in_pspecs),
+    ins = tuple(pl(s) for s in in_pspecs)
+    for observe in REGION_OBSERVERS:
+        observe(m.device_mesh, ins, out)
+    return local_map(fn, out_placements=out, in_placements=ins,
                      in_grad_placements=tuple(pl(s, partial_grad)
                                               for s in in_pspecs),
                      device_mesh=m.device_mesh, redistribute_inputs=True)

@@ -101,6 +101,7 @@ def test_the_package_lists_every_module_of_the_slice():
                  "train.compression", "checkpoint", "checkpoint.ckpt",
                  "data", "data.pipeline", "runtime.fault", "launch.train",
                  "launch.mesh", "launch.ranks", "launch.host_group",
+                 "launch.dryrun", "launch.comm_analysis", "launch.devices",
                  *(f"configs.{m}" for m in (
                      "command_r_35b", "deepseek_v2_lite_16b", "glm4_9b",
                      "granite_moe_3b_a800m", "llama_3_2_vision_11b",
@@ -209,13 +210,25 @@ def test_no_try_except_around_kernels_or_entry_points():
     one; the event engine of the fleet simulator holds one ``try`` with
     only a ``finally``, which unhooks it from the simulator; the training
     supervisor (``runtime/fault.py``) holds one that catches only
-    ``InjectedFailure``, the drill it restores a checkpoint for."""
+    ``InjectedFailure``, the drill it restores a checkpoint for; the dry
+    run (``launch/dryrun.py``) holds two, no kernel or entry point in
+    either: ``main`` records a cell that raised as ``error`` (the
+    reference's driver does the same) and ``_PeakBytes`` runs the step
+    untracked where torch's private ``MemTracker`` does not run."""
     registries = ("configs/__init__.py", "core/codec.py", "core/adjustment.py",
                   "core/scene.py")
     for path in FILES:
         rel = str(path.relative_to(ROOT))
-        tries = [n for n in ast.walk(ast.parse(path.read_text()))
-                 if isinstance(n, ast.Try)]
+        tree = ast.parse(path.read_text())
+        tries = [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+        if rel.endswith("launch/dryrun.py"):
+            owners = sorted(f.name for f in ast.walk(tree)
+                            if isinstance(f, ast.FunctionDef)
+                            and any(isinstance(n, ast.Try)
+                                    for n in ast.walk(f)))
+            assert len(tries) == 2 and owners == ["__call__", "main"], \
+                (rel, owners)
+            continue
         if rel.endswith("runtime/fault.py"):
             assert len(tries) == 1 and len(tries[0].handlers) == 1, rel
             assert ast.unparse(tries[0].handlers[0].type) == \
