@@ -1265,17 +1265,18 @@ def ssd_bound(B, T, H, P, N, chunk, dtype) -> tuple:
     return bound(nbytes, 2.0 * macs, dtype) + (nbytes, 2.0 * macs)
 
 
-def time_ssd(B, T, H, P, N, chunk, max_err) -> dict:
-    """Times of the SSD scan kernel in bf16 at a served shape: the kernel,
-    its host time and the plain version; no single PyTorch call computes
-    the scan, so there is no library time."""
-    bf = torch.bfloat16
-    x, dt, A, Bm, Cm = _ssd_inputs(B, T, H, P, N, bf, 600 + B + N)
-    b_ms, b_by, nbytes, flops = ssd_bound(B, T, H, P, N, chunk, bf)
+def time_ssd(B, T, H, P, N, chunk, max_err, dtype=torch.bfloat16) -> dict:
+    """Times of the SSD scan kernel at a served shape (bf16 unless
+    ``dtype`` says otherwise): the kernel, its host time and the plain
+    version; no single PyTorch call computes the scan, so there is no
+    library time."""
+    x, dt, A, Bm, Cm = _ssd_inputs(B, T, H, P, N, dtype, 600 + B + N)
+    b_ms, b_by, nbytes, flops = ssd_bound(B, T, H, P, N, chunk, dtype)
     return {"route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:74",
-            "shape": [B, T, H, P, N], "chunk": chunk, "dtype": "bfloat16",
+            "shape": [B, T, H, P, N], "chunk": chunk,
+            "dtype": str(dtype).split(".")[-1],
             "plan": _ssd_plan(B, T, H, P, N, chunk),
             "max_abs_err": max_err,
             "ms": time_ms(lambda: ssd_ops.ssd_scan(x, dt, A, Bm, Cm,
@@ -1577,10 +1578,16 @@ def phase_kernels(cfg, lcfg, mcfg, zcfg, pcfg) -> dict:
                        c.ssm_state, c.ssm_chunk, ssd_err)
               for c in (mcfg, zcfg) for B in LM_BATCHES]
     rec["ssd_scan"] = dict(served[0])
+    fam = family_kernel_cases(ssd_err, attn_cases, dec_cases)
+    served += fam["ssd_times"]
     rec["ssd_scan"]["served"] = [
         {k: v for k, v in r.items() if k in (
-            "shape", "plan", "ms", "host_ms", "plain_ms", "bound_ms",
-            "bound_by", "bytes", "flops", "library_ms")} for r in served]
+            "shape", "dtype", "plan", "ms", "host_ms", "plain_ms",
+            "bound_ms", "bound_by", "bytes", "flops", "library_ms")}
+        for r in served]
+    for name in ("flash_attention", "decode_attention"):
+        rec[name]["served"] += [{k: r[k] for k in SERVED_KEYS if k in r}
+                                for r in fam[name + "_times"]]
     emit({"phase": "kernels",
           "tolerances": {"quantize_int8": "bit-equal",
                          "dequantize_int8": "bit-equal",
@@ -1607,6 +1614,7 @@ def phase_kernels(cfg, lcfg, mcfg, zcfg, pcfg) -> dict:
           "attention_cases": attn_cases,
           "decode_cases": dec_cases,
           "ssd_cases": ssd,
+          "spmd_family_cases": fam["cases"],
           "at_main_shapes": rec})
     return rec
 
@@ -4068,11 +4076,10 @@ def phase_train_vla() -> dict:
     return info
 
 
-def _family_batch(cfg, seed: int) -> dict:
-    """A batch of 2 x 16 tokens for ``cfg``'s family (8 text tokens after
+def _family_batch(cfg, seed: int, B: int = 2, S: int = 16) -> dict:
+    """A batch of B x S tokens for ``cfg``'s family (8 text tokens after
     the patches for a VLA), numpy from a seed."""
     rng = np.random.default_rng(seed)
-    B, S = 2, 16
     tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     batch = {"tokens": tokens, "labels": rng.integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)}
@@ -4324,7 +4331,7 @@ SPMD_INT8_LOGIT_REL = 2e-2
 DECODE_MODES = ("sp", "tp", "tp_int8_ring")
 SPMD_CONSTS = ("SPMD_WORLD", "SPMD_BACKEND", "SPMD_TRAIN_BATCH",
                "SPMD_TRAIN_SEQ", "SPMD_TRAIN_STEPS", "SPMD_PROMPT",
-               "SPMD_STEPS", "SPMD_MOE_TOKENS", "SPMD_RING_ODD")
+               "SPMD_STEPS", "SPMD_MOE_TOKENS", "SPMD_RING_ODD", "FAM_STEPS")
 
 
 def _spmd_sync(dev) -> None:
@@ -4439,6 +4446,31 @@ def _sync_check(model, params, batch, mesh) -> dict:
     return rows
 
 
+class _recording_shapes:
+    """For the length of a ``with`` block, the shapes each B5 launch takes
+    (q, k) and each B7 launch (x), by kernel; a raise ends the rank."""
+
+    def __enter__(self):
+        self.seen = {"b5": [], "b7": []}
+        self.fa, self.ssd = fa_ops._launch, ssd_ops._launch
+        fa, ssd, seen = self.fa, self.ssd, self.seen
+
+        def b5(q, k, v, causal):
+            seen["b5"].append((tuple(q.shape), tuple(k.shape)))
+            return fa(q, k, v, causal)
+
+        def b7(x, *args):
+            seen["b7"].append(tuple(x.shape))
+            return ssd(x, *args)
+
+        fa_ops._launch, ssd_ops._launch = b5, b7
+        return self.seen
+
+    def __exit__(self, *exc):
+        fa_ops._launch, ssd_ops._launch = self.fa, self.ssd
+        return False
+
+
 def _spmd_train_run(spec, mesh, cfg, params, batch_np, steps, compression,
                     ref, opt, want_shapes=False) -> dict:
     """``steps`` train steps of ``cfg`` on ``mesh`` from ``params`` (full,
@@ -4454,7 +4486,6 @@ def _spmd_train_run(spec, mesh, cfg, params, batch_np, steps, compression,
     dev = spec["dev"]
     model = build(cfg)
     rules = make_rules(cfg, mesh, "train")
-    seen = []
     with use_mesh(mesh, rules):
         state = init_state(distribute_tree(params, model.param_specs, mesh,
                                            rules))
@@ -4464,22 +4495,15 @@ def _spmd_train_run(spec, mesh, cfg, params, batch_np, steps, compression,
         sync = None if compression is None else _sync_check(
             model, state.params, batch, mesh)
         step = make_train_step(model, opt, grad_compression=compression)
-        launch = fa_ops._launch
-
-        def record(q, k, v, causal):        # the shapes each launch takes
-            seen.append((tuple(q.shape), tuple(k.shape)))
-            return launch(q, k, v, causal)
-
-        fa_ops._launch = record             # a raise ends the rank
         _reset_counts()
         losses, norms, walls = [], [], []
-        for _ in range(steps):
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            losses.append(float(m["loss"]))
-            norms.append(float(m["grad_norm"]))
-            walls.append(_spmd_barrier_wall(dev, t0))
-        fa_ops._launch = launch
+        with _recording_shapes() as seen:
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                walls.append(_spmd_barrier_wall(dev, t0))
         counts = _counts()
         errs, num, den = {}, 0.0, 0.0
         for name, p in _flat(state.params).items():
@@ -4490,7 +4514,8 @@ def _spmd_train_run(spec, mesh, cfg, params, batch_np, steps, compression,
             den += float(((want - start).double() ** 2).sum())
     return {"losses": losses, "norms": norms, "walls_ms": walls,
             "launches": counts,
-            "b5_shapes": sorted(set(seen)) if want_shapes else None,
+            "b5_shapes": sorted(set(seen["b5"])) if want_shapes else None,
+            "b7_shapes": sorted(set(seen["b7"])) if want_shapes else None,
             "param_max_abs_err": max(errs.values()),
             "param_worst": max(errs, key=errs.get),
             "delta_sq": num, "ref_delta_sq": den, "sync": sync}
@@ -4641,7 +4666,8 @@ def spmd_rank(rank, spec) -> dict:
     for name, fn in (("spmd_ring", spmd_ring_rank),
                      ("spmd_train", spmd_train_rank),
                      ("spmd_moe", spmd_moe_rank),
-                     ("spmd_decode", spmd_decode_rank)):
+                     ("spmd_decode", spmd_decode_rank),
+                     ("spmd_families", spmd_families_rank)):
         host_group.reset_staged()
         t0 = time.perf_counter()
         out[name] = fn(rank, spec)
@@ -4729,6 +4755,48 @@ def _spmd_references(lcfg, scfg, workdir) -> dict:
             "decode_ref_logits": torch.stack(last, 1).cpu()}
 
 
+def _hold_train_runs(key, runs_k, ref_l, ref_n, f32: bool, exact: bool
+                     ) -> float:
+    """Every rank's train run ``key`` against the one-rank run's losses
+    ``ref_l`` and norms ``ref_n`` (see SPMD_DELTA_RATIO's comment; the
+    exact float32 gate to SPMD_F32_TOL); returns the parameters' change
+    ratio over the ranks."""
+    for run in runs_k:
+        losses, norms = run["losses"], run["norms"]
+        if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+            raise AssertionError(f"{key}: losses {losses} norms {norms}")
+        if exact:
+            np.testing.assert_allclose(losses, ref_l, rtol=SPMD_F32_TOL)
+            np.testing.assert_allclose(norms, ref_n, rtol=SPMD_F32_TOL)
+            if not run["param_max_abs_err"] <= SPMD_F32_TOL:
+                raise AssertionError(f"float32 gate {key}: {run}")
+            continue
+        np.testing.assert_allclose(
+            losses[:1], ref_l[:1],
+            rtol=SPMD_F32_TOL if f32 else SPMD_LOSS_REL)
+        np.testing.assert_allclose(losses, ref_l, rtol=SPMD_LOSS_REL)
+        dl = SPMD_F32_DLOSS_REL if f32 else SPMD_DLOSS_REL
+        for k in range(1, len(losses)):
+            want = ref_l[k] - ref_l[0]
+            if not abs(losses[k] - losses[0] - want) <= dl * abs(want):
+                raise AssertionError(f"{key}: loss change at step {k}: "
+                                     f"{losses} vs {ref_l}")
+        np.testing.assert_allclose(norms, ref_n, rtol=SPMD_NORM_REL)
+        if f32:
+            np.testing.assert_allclose(norms[:1], ref_n[:1],
+                                       rtol=SPMD_F32_NORM_REL)
+        for name, row in (run["sync"] or {}).items():
+            if not (row["partial"] and row["err"] <= row["bound"]
+                    < row["max_abs"]):
+                raise AssertionError(f"{key}: sync of {name}: {row}")
+    ratio = math.sqrt(sum(r["delta_sq"] for r in runs_k)
+                      / sum(r["ref_delta_sq"] for r in runs_k))
+    if not exact and not ratio <= SPMD_DELTA_RATIO:
+        raise AssertionError(f"{key}: the parameters' change is "
+                             f"{ratio} off one rank's")
+    return ratio
+
+
 def _sum_ranks(ranks, get) -> dict:
     return {k: sum(get(r)[k] for r in ranks) for k in WRAPPERS}
 
@@ -4804,6 +4872,12 @@ def phase_spmd(lcfg=None, scfg=None, gcfg=None, workdir=None) -> dict:
     spec = _spmd_references(lcfg, scfg, workdir)
     spec["gcfg"] = gcfg or get_config(GRANITE)
     spec["consts"] = {k: globals()[k] for k in SPMD_CONSTS}
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    spec["families"] = _fam_references(workdir)
+    fam_ref_s = time.perf_counter() - t1
     ref_s = time.perf_counter() - t0
     gc.collect()
     if DEV == "cuda":
@@ -4851,40 +4925,8 @@ def phase_spmd(lcfg=None, scfg=None, gcfg=None, workdir=None) -> dict:
         runs_k = [r[key] for r in tr]
         ref_l, ref_n = one[key]
         f32 = key.startswith("f32")
-        exact = key == "f32_reduced"
-        for run in runs_k:
-            losses, norms = run["losses"], run["norms"]
-            if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
-                raise AssertionError(f"{key}: losses {losses} norms {norms}")
-            if exact:
-                np.testing.assert_allclose(losses, ref_l, rtol=SPMD_F32_TOL)
-                np.testing.assert_allclose(norms, ref_n, rtol=SPMD_F32_TOL)
-                if not run["param_max_abs_err"] <= SPMD_F32_TOL:
-                    raise AssertionError(f"float32 gate: {run}")
-                continue
-            np.testing.assert_allclose(
-                losses[:1], ref_l[:1],
-                rtol=SPMD_F32_TOL if f32 else SPMD_LOSS_REL)
-            np.testing.assert_allclose(losses, ref_l, rtol=SPMD_LOSS_REL)
-            dl = SPMD_F32_DLOSS_REL if f32 else SPMD_DLOSS_REL
-            for k in range(1, len(losses)):
-                want = ref_l[k] - ref_l[0]
-                if not abs(losses[k] - losses[0] - want) <= dl * abs(want):
-                    raise AssertionError(f"{key}: loss change at step {k}: "
-                                         f"{losses} vs {ref_l}")
-            np.testing.assert_allclose(norms, ref_n, rtol=SPMD_NORM_REL)
-            if f32:
-                np.testing.assert_allclose(norms[:1], ref_n[:1],
-                                           rtol=SPMD_F32_NORM_REL)
-            for name, row in (run["sync"] or {}).items():
-                if not (row["partial"] and row["err"] <= row["bound"]
-                        < row["max_abs"]):
-                    raise AssertionError(f"{key}: sync of {name}: {row}")
-        ratio = math.sqrt(sum(r["delta_sq"] for r in runs_k)
-                          / sum(r["ref_delta_sq"] for r in runs_k))
-        if not exact and not ratio <= SPMD_DELTA_RATIO:
-            raise AssertionError(f"{key}: the parameters' change is "
-                                 f"{ratio} off one rank's")
+        ratio = _hold_train_runs(key, runs_k, ref_l, ref_n, f32,
+                                 key == "f32_reduced")
         want = want_b5 if not f32 else SPMD_TRAIN_STEPS * \
             spec["small_cfg"].n_layers
         for run in runs_k:
@@ -5017,10 +5059,536 @@ def phase_spmd(lcfg=None, scfg=None, gcfg=None, workdir=None) -> dict:
                    for m in DECODE_MODES},
           "wall_s": ranks[0]["spmd_decode"]["wall_s"],
           "staged": ranks[0]["spmd_decode"]["staged"], **common})
+    # ---- the other five families
+    summary, runs["spmd_families"] = _hold_families(spec, ranks)
+    emit({"phase": "spmd_families", "mesh": {"train": {"data": 2,
+                                                       "model": 2},
+                                             "serve": ["data 2 x model 2, "
+                                                       "the batch replicated",
+                                                       f"model {SPMD_WORLD}"]},
+          "train": {"batch": FAM_TRAIN_BATCH, "seq": FAM_TRAIN_SEQ,
+                    "steps": SPMD_TRAIN_STEPS, "opt": {
+                        "lr": SPMD_OPT.lr,
+                        "warmup_steps": SPMD_OPT.warmup_steps},
+                    "f32_reduced": {"batch": FAM_F32_BATCH,
+                                    "seq": FAM_F32_SEQ}},
+          "serve": {"dtype": "float32", "prompt": FAM_PROMPT,
+                    "encdec_prefix": FAM_ENCDEC_PREFIX, "steps": FAM_STEPS,
+                    "batch": 1},
+          "tolerances": {"train": "as spmd_train (bf16), f32_reduced "
+                                  f"{SPMD_F32_TOL}",
+                         "tokens": "equal to one rank's",
+                         "logits": f"{FAM_LOGIT_REL} x max|logit|"},
+          "families": summary, "references_s": fam_ref_s,
+          "wall_s": ranks[0]["spmd_families"]["wall_s"],
+          "staged": ranks[0]["spmd_families"]["staged"],
+          "peak_gb_rank0": ranks[0]["spmd_families"].get("peak_gb"),
+          **common})
     emit({"phase": "spmd_walls", "total_s": time.perf_counter() - t_all,
           "references_s": ref_s, "ranks_s": ranks_s,
           "by_phase_s": {p: ranks[0][p]["wall_s"] for p in ranks[0]}})
     return runs
+
+
+# =========================================================== spmd_families
+# The SSM, hybrid, VLM, encoder-decoder and VLA families on the same ranks
+# (after the spmd_* phases above, in the same spawn), each at full width
+# with its depth cut (FAM_DEPTH; the VLA keeps its whole ViT): data 2 x
+# model 2, SPMD_TRAIN_STEPS bf16 ``make_train_step`` steps at SPMD_OPT
+# held against one rank every step as spmd_train is, and the reduced
+# config's float32 gate; then for the served families (FAM_SERVED) a
+# float32 prefill of FAM_PROMPT tokens (seamless: FAM_PROMPT frames and a
+# FAM_ENCDEC_PREFIX-token prefix) and FAM_STEPS greedy steps with model 2
+# (data 2, the batch of 1 replicated) and model 4: tokens equal to one
+# rank's, logits within FAM_LOGIT_REL of the largest.  B5, B6 and B7 run
+# on each rank's heads, counted exactly on every rank.
+FAM_DEPTH = {"mamba2-1.3b": {"n_layers": 4},
+             "zamba2-1.2b": {"n_layers": 7},        # 2 shared sites
+             VLM: {"n_layers": 5},                   # 5 dense + 1 cross
+             ENCDEC: {"n_layers": 4, "n_enc_layers": 2, "n_dec_layers": 2},
+             "openvla-7b": {"n_layers": 4},
+             "cogact-7b": {"n_layers": 4}}
+FAM_SERVED = ("mamba2-1.3b", "zamba2-1.2b", VLM, ENCDEC)
+FAM_TRAIN_BATCH, FAM_TRAIN_SEQ = 2, 256
+FAM_F32_BATCH, FAM_F32_SEQ = 2, 16
+FAM_PROMPT, FAM_ENCDEC_PREFIX, FAM_STEPS = 128, 16, 16
+FAM_LOGIT_REL = 1e-4
+# the reduced VLAs' ViT has one head, which model 2 does not divide; at
+# width 128 it has two of 64
+FAM_GATE_KW = {"openvla-7b": {"vit_dim": 128}, "cogact-7b": {"vit_dim": 128}}
+
+
+def _fam_cfg(name: str):
+    return get_config(name).replace(**FAM_DEPTH[name])
+
+
+def _fam_gate_cfg(name: str):
+    return get_config(name).reduced().replace(dtype="float32",
+                                              **FAM_GATE_KW.get(name, {}))
+
+
+def _fam_depth(name: str, cfg) -> str:
+    full = get_config(name)
+    if cfg.family == "ssm":
+        return f"{cfg.n_layers} of {full.n_layers} Mamba2 layers"
+    if cfg.family == "hybrid":
+        return (f"{cfg.n_layers} of {full.n_layers} Mamba2 layers, "
+                f"{n_sites(cfg)} of {n_sites(full)} shared-attention sites")
+    if cfg.family == "vlm":
+        return (f"{cfg.n_layers} of {full.n_layers} dense blocks, "
+                f"{cfg.n_layers // cfg.cross_attn_every} of "
+                f"{full.n_layers // full.cross_attn_every} cross blocks")
+    if cfg.family == "audio":
+        return (f"{cfg.n_enc_layers} + {cfg.n_dec_layers} of "
+                f"{full.n_enc_layers} + {full.n_dec_layers} encoder and "
+                f"decoder layers")
+    return (f"{cfg.n_layers} of {full.n_layers} LLM blocks, the ViT's "
+            f"{cfg.vit_layers}")
+
+
+def _fam_params(model, cfg, seed: int, dev, f32: bool = False):
+    """``cfg``'s parameters from a seed on ``dev``, the VLM's cross gates
+    drawn from CROSS_GATES and the DiT's zero leaves filled."""
+    params = init_params(model.param_specs, gen(seed), dev)
+    if f32:
+        params = tree_map(lambda t: t.float(), params)
+    if cfg.family == "vlm":
+        _draw_gates(params, gen(seed + 1))
+    if cfg.vla_action_head == "dit":
+        _fill_zero_leaves(params["action"], gen(seed + 2))
+    return params
+
+
+def _fam_launches(cfg, train: bool, remat: bool = False) -> dict:
+    """B5 and B7 launches a train step (with ``remat`` the layers that
+    recompute twice) or a prefill makes on each rank."""
+    want = dict.fromkeys(WRAPPERS, 0)
+    twice = 2 if remat else 1
+    if cfg.family in ("ssm", "hybrid"):
+        want["ssd_scan"] = cfg.n_layers * twice
+    if cfg.family == "hybrid":
+        want["flash_attention"] = n_sites(cfg)      # the shared block: no remat
+    if cfg.family in ("vlm", "vla"):
+        want["flash_attention"] = cfg.n_layers * twice
+    if cfg.family == "audio":
+        want["flash_attention"] = cfg.n_dec_layers * twice
+    return want
+
+
+def _fam_attn_layers(cfg) -> int:
+    """Layers whose decode step runs B6."""
+    if cfg.family == "hybrid":
+        return n_sites(cfg)
+    if cfg.family == "vlm":
+        return cfg.n_layers
+    return cfg.n_dec_layers if cfg.family == "audio" else 0
+
+
+def family_shapes() -> dict:
+    """The local shapes spmd_families gives B5 (B, S, H, KV, D, dtype), B6
+    (B, H, KV, T, D, dtype) and B7 (B, T, H, P, N, chunk, dtype) on one
+    rank: the bf16 train steps on data 2 x model 2, the float32 decode
+    with model 2 and 4."""
+    bf, f32 = torch.bfloat16, torch.float32
+    fa, da, ssd = [], [], []
+    for name in FAM_DEPTH:
+        c = _fam_cfg(name)
+        runs = [(FAM_TRAIN_BATCH // 2, 2, bf, FAM_TRAIN_SEQ)]
+        if name in FAM_SERVED:
+            runs += [(1, n, f32, FAM_PROMPT) for n in (2, SPMD_WORLD)]
+        for B, n, dt, S in runs:
+            if c.family in ("ssm", "hybrid"):
+                ssd.append((B, S, c.ssm_nheads // n, c.ssm_headdim,
+                            c.ssm_state, c.ssm_chunk, dt))
+            if c.family == "ssm":
+                continue
+            H, KV, hd = c.n_heads, c.n_kv_heads, c.resolved_head_dim
+            if c.family == "vla":
+                S = c.n_patches + 8
+            if c.family == "audio" and dt == f32:
+                S = FAM_ENCDEC_PREFIX
+            fa.append((B, S, H // n, KV // n, hd, dt))
+            if dt == f32:
+                da.append((B, H // n, KV // n, S + FAM_STEPS, hd, dt))
+    return {k: list(dict.fromkeys(v)) for k, v in (
+        ("flash_attention", fa), ("decode_attention", da), ("ssd_scan", ssd))}
+
+
+def family_kernel_cases(ssd_err, attn_cases, dec_cases) -> dict:
+    """B5, B6 and B7 against their plain versions at spmd_families' local
+    shapes (``family_shapes``), and timed there."""
+    sh = family_shapes()
+    cases = {"flash_attention": [check_attn(B, S, S, H, KV, D, dt, True,
+                                            700 + i)
+                                 for i, (B, S, H, KV, D, dt) in enumerate(
+                                     sh["flash_attention"])],
+             "decode_attention": [check_decode(B, H, KV, T, D, T, dt,
+                                               730 + i)
+                                  for i, (B, H, KV, T, D, dt) in enumerate(
+                                      sh["decode_attention"])],
+             "ssd_scan": [check_ssd(B, T, H, P, N, Q, dt, 760 + i)
+                          for i, (B, T, H, P, N, Q, dt) in enumerate(
+                              sh["ssd_scan"])]}
+
+    def err(name, dt, also=()):
+        return max(c.get("max_err", 0.0) for c in list(cases[name]) + list(
+            also) if c.get("dtype", str(dt).split(".")[-1]) ==
+            str(dt).split(".")[-1])
+
+    return {"cases": cases,
+            "flash_attention_times": [
+                time_attn(B, S, H, KV, D, err("flash_attention", dt,
+                                              attn_cases), dtype=dt)
+                for B, S, H, KV, D, dt in sh["flash_attention"]],
+            "decode_attention_times": [
+                time_decode(B, H, KV, T, D, T, err("decode_attention", dt,
+                                                   dec_cases), dtype=dt)
+                for B, H, KV, T, D, dt in sh["decode_attention"]],
+            "ssd_times": [time_ssd(B, T, H, P, N, Q, max(ssd_err, err(
+                "ssd_scan", dt)), dtype=dt)
+                for B, T, H, P, N, Q, dt in sh["ssd_scan"]]}
+
+
+def _fam_decode_batch(cfg, seed: int) -> dict:
+    """A float32 decode request of batch 1: FAM_PROMPT tokens (and the
+    VLM's vision embeddings), or seamless's FAM_PROMPT frames and a
+    FAM_ENCDEC_PREFIX-token prefix."""
+    rng = np.random.default_rng(seed)
+    S = FAM_ENCDEC_PREFIX if cfg.family == "audio" else FAM_PROMPT
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (1, S)).astype(
+        np.int32)}
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal(
+            (1, FAM_PROMPT, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        out["vision"] = rng.standard_normal(
+            (1, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _fam_greedy(model, params, batch, prefill, step, wall=None):
+    """Prefill ``batch`` and FAM_STEPS greedy steps (``prefill`` /
+    ``step`` run them, on the mesh or not): the tokens, each step's last
+    logits, the step walls and the prefill's and the steps' launches."""
+    S = batch["tokens"].shape[1]
+    _reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(batch, S + FAM_STEPS)
+    prefill_ms = wall(t0) if wall else None
+    prefill_counts = _counts()
+    _reset_counts()
+    last, toks, walls = [logits[:, -1].float()], [], []
+    for i in range(FAM_STEPS):
+        cur = torch.argmax(last[-1], -1)[:, None].to(torch.int32).cpu()
+        toks.append(cur)
+        t0 = time.perf_counter()
+        logits, cache = step(cache, cur, S + i)
+        last.append(logits[:, -1].float())
+        if wall:
+            walls.append(wall(t0))
+    return {"tokens": torch.cat(toks, 1), "logits": torch.stack(last, 1),
+            "prefill_ms": prefill_ms, "step_ms": walls,
+            "prefill_launches": prefill_counts, "launches": _counts()}
+
+
+def _fam_decode_run(spec, mesh, cfg, rules, f) -> dict:
+    """The float32 greedy decode of spmd_families on ``mesh``."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.models.sharding import distribute_tree, use_mesh
+    dev = spec["dev"]
+    dcfg = cfg.replace(dtype="float32")
+    model = build(dcfg)
+    params = _fam_params(model, dcfg, f["decode_seed"], dev, f32=True)
+    batch_np = f["decode_batch"]
+    kw = ({"src_len": batch_np["frames"].shape[1]} if "frames" in batch_np
+          else {})
+    with use_mesh(mesh, rules), torch.no_grad(), _recording_shapes() as seen:
+        pd = distribute_tree(params, model.param_specs, mesh, rules)
+        del params
+
+        def prefill(batch, max_len):
+            logits, cache = prefill_and_pad(
+                model, pd, shard_batch(batch, mesh, rules), max_len, **kw)
+            return logits.full_tensor(), cache
+
+        def step(cache, cur, pos):
+            logits, cache = model.decode(pd, cache, shard_batch(
+                {"tokens": cur.numpy()}, mesh, rules)["tokens"], pos)
+            return logits.full_tensor(), cache
+
+        out = _fam_greedy(model, pd, batch_np, prefill, step,
+                          lambda t0: _spmd_barrier_wall(dev, t0))
+    out["logits"] = out["logits"].cpu() if mesh.device_mesh.get_rank() == 0 \
+        else None
+    out["b5_shapes"] = sorted(set(seen["b5"]))
+    out["b7_shapes"] = sorted(set(seen["b7"]))
+    return out
+
+
+def spmd_families_rank(rank, spec) -> dict:
+    """spmd_families on this rank: every family's bf16 train steps and its
+    float32 gate on data 2 x model 2; the served families' float32 decode
+    with model 2 (data 2, the batch replicated) and model SPMD_WORLD."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import make_rules
+    dev = spec["dev"]
+    m22 = make_mesh((2, 2), ("data", "model"), dev)
+    m14 = make_mesh((1, SPMD_WORLD), ("data", "model"), dev)
+    out = {}
+    for name, f in spec["families"].items():
+        cfg = f["cfg"]
+        r = {}
+        ref = torch.load(f["train_ref"], mmap=True)
+        r["train"] = _spmd_train_run(
+            spec, m22, cfg, _fam_params(build(cfg), cfg, f["seed"], dev),
+            f["train_batch"], SPMD_TRAIN_STEPS, None, ref, SPMD_OPT,
+            want_shapes=True)
+        del ref
+        gc.collect()
+        small = tree_map(lambda a: torch.from_numpy(a).to(dev, copy=True),
+                         f["small_params"])
+        r["f32_reduced"] = _spmd_train_run(
+            spec, m22, f["small_cfg"], small, f["small_batch"],
+            SPMD_TRAIN_STEPS, None, tree_map(torch.from_numpy,
+                                             f["small_ref"]), SPMD_F32_OPT)
+        if name in FAM_SERVED:
+            for key, mesh in (("model2", m22), ("model4", m14)):
+                r[key] = _fam_decode_run(spec, mesh, cfg, make_rules(
+                    cfg, mesh, "long_decode"), f)
+        out[name] = r
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _fam_references(workdir) -> dict:
+    """The one-rank runs spmd_families holds the ranks against, on this
+    process, family by family: SPMD_TRAIN_STEPS bf16 steps (the parameters
+    saved for the ranks to slice), the reduced float32 gate, and the
+    float32 greedy decode of the served families."""
+    out = {}
+    for i, name in enumerate(FAM_DEPTH):
+        cfg = _fam_cfg(name)
+        model = build(cfg)
+        seed = SEED + 300 + 10 * i
+        f = {"cfg": cfg, "seed": seed, "decode_seed": seed + 5,
+             "depth": _fam_depth(name, cfg),
+             "train_batch": _family_batch(cfg, seed + 3, FAM_TRAIN_BATCH,
+                                          FAM_TRAIN_SEQ)}
+        state = init_state(_fam_params(model, cfg, seed, DEV))
+        step = make_train_step(model, SPMD_OPT)
+        b = to_device(f["train_batch"], DEV)
+        f["ref_losses"], f["ref_norms"] = [], []
+        for _ in range(SPMD_TRAIN_STEPS):
+            state, m = step(state, b)
+            f["ref_losses"].append(float(m["loss"]))
+            f["ref_norms"].append(float(m["grad_norm"]))
+        f["train_ref"] = os.path.join(workdir, f"family{i}_ref.pt")
+        torch.save({k: v.cpu() for k, v in _flat(state.params).items()},
+                   f["train_ref"])
+        del state, step, b
+        scfg = _fam_gate_cfg(name)
+        smodel = build(scfg)
+        small = _fam_params(smodel, scfg, seed + 4, DEV, f32=True)
+        f["small_cfg"] = scfg
+        f["small_params"] = tree_map(lambda t: t.cpu().numpy().copy(), small)
+        f["small_batch"] = _family_batch(scfg, seed + 6, FAM_F32_BATCH,
+                                         FAM_F32_SEQ)
+        sstate = init_state(small)
+        sstep = make_train_step(smodel, SPMD_F32_OPT)
+        f["small_losses"], f["small_norms"] = [], []
+        for _ in range(SPMD_TRAIN_STEPS):
+            sstate, m = sstep(sstate, to_device(f["small_batch"], DEV))
+            f["small_losses"].append(float(m["loss"]))
+            f["small_norms"].append(float(m["grad_norm"]))
+        f["small_ref"] = {k: v.cpu().numpy().copy()
+                          for k, v in _flat(sstate.params).items()}
+        del sstate, sstep, small
+        if name in FAM_SERVED:
+            dcfg = cfg.replace(dtype="float32")
+            dmodel = build(dcfg)
+            params = _fam_params(dmodel, dcfg, f["decode_seed"], DEV,
+                                 f32=True)
+            f["decode_batch"] = _fam_decode_batch(dcfg, seed + 7)
+            kw = ({"src_len": FAM_PROMPT} if dcfg.family == "audio"
+                  else {})
+            with torch.no_grad():
+                ref = _fam_greedy(
+                    dmodel, params, f["decode_batch"],
+                    lambda batch, n: prefill_and_pad(
+                        dmodel, params, to_device(batch, DEV), n, **kw),
+                    lambda cache, cur, pos: dmodel.decode(
+                        params, cache, cur.to(DEV), pos))
+            f["ref_tokens"], f["ref_logits"] = ref["tokens"], \
+                ref["logits"].cpu()
+            del params
+        out[name] = f
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _hold_families(spec, ranks) -> tuple:
+    """The checks of spmd_families against the one-rank runs; returns (the
+    phase's summary, its launches summed over the ranks)."""
+    summary, launches = {}, dict.fromkeys(WRAPPERS, 0)
+    for name, f in spec["families"].items():
+        cfg = f["cfg"]
+        runs = [r["spmd_families"][name] for r in ranks]
+        tr = [r["train"] for r in runs]
+        ratio = _hold_train_runs(f"{name} train", tr, f["ref_losses"],
+                                 f["ref_norms"], False, False)
+        want = _fam_launches(cfg, True, cfg.remat)
+        want = {k: v * SPMD_TRAIN_STEPS for k, v in want.items()}
+        gate = [r["f32_reduced"] for r in runs]
+        _hold_train_runs(f"{name} f32_reduced", gate, f["small_losses"],
+                         f["small_norms"], True, True)
+        want_gate = {k: v * SPMD_TRAIN_STEPS for k, v in _fam_launches(
+            f["small_cfg"], True).items()}
+        for r in runs:
+            if r["train"]["launches"] != want:
+                raise AssertionError(f"{name} train launches "
+                                     f"{r['train']['launches']} != {want}")
+            if r["f32_reduced"]["launches"] != want_gate:
+                raise AssertionError(f"{name} f32 gate launches "
+                                     f"{r['f32_reduced']['launches']}")
+        heads = {"b5": {(q[2], k[2]) for r in tr for q, k in r["b5_shapes"]},
+                 "b7": {x[2] for r in tr for x in r["b7_shapes"]}}
+        want_heads = {
+            "b5": {(cfg.n_heads // 2, cfg.n_kv_heads // 2)}
+            if want["flash_attention"] else set(),
+            "b7": {cfg.ssm_nheads // 2} if want["ssd_scan"] else set()}
+        if DEV == "cuda" and heads != want_heads:
+            raise AssertionError(f"{name} local heads {heads} != "
+                                 f"{want_heads}")
+        out = {"depth": f["depth"],
+               "train": {"losses": tr[0]["losses"],
+                         "one_rank_losses": f["ref_losses"],
+                         "grad_norms": tr[0]["norms"],
+                         "one_rank_grad_norms": f["ref_norms"],
+                         "delta_ratio": ratio,
+                         "step_ms": tr[0]["walls_ms"],
+                         "tokens_per_s": FAM_TRAIN_BATCH * (
+                             cfg.n_patches + 8 if cfg.family == "vla"
+                             else FAM_TRAIN_SEQ)
+                         / statistics.median(tr[0]["walls_ms"]) * 1e3,
+                         "launches_per_rank": [
+                             {k: v for k, v in r["launches"].items() if v}
+                             for r in tr],
+                         "b5_local": tr[0]["b5_shapes"],
+                         "b7_local": tr[0]["b7_shapes"]},
+               "f32_reduced": {"losses": gate[0]["losses"],
+                               "one_rank_losses": f["small_losses"],
+                               "param_max_abs_err": max(
+                                   g["param_max_abs_err"] for g in gate)}}
+        for r in runs:
+            for k in launches:
+                launches[k] += r["train"]["launches"][k] + \
+                    r["f32_reduced"]["launches"][k]
+        if name in FAM_SERVED:
+            pre = _fam_launches(cfg, False)
+            n_attn = _fam_attn_layers(cfg)
+            step_want = dict.fromkeys(WRAPPERS, 0)
+            step_want["decode_attention"] = FAM_STEPS * n_attn
+            serve = {}
+            for key in ("model2", "model4"):
+                dec = [r[key] for r in runs]
+                for d in dec:
+                    if not torch.equal(d["tokens"], f["ref_tokens"]):
+                        raise AssertionError(
+                            f"{name} {key} tokens {d['tokens']} != "
+                            f"{f['ref_tokens']}")
+                    if d["prefill_launches"] != pre or \
+                            d["launches"] != step_want:
+                        raise AssertionError(
+                            f"{name} {key} launches {d['prefill_launches']}"
+                            f" / {d['launches']}")
+                    for k in launches:
+                        launches[k] += d["prefill_launches"][k] + \
+                            d["launches"][k]
+                scale = float(f["ref_logits"].abs().max())
+                err = float((dec[0]["logits"] - f["ref_logits"]).abs().max())
+                if not err <= FAM_LOGIT_REL * scale:
+                    raise AssertionError(f"{name} {key} logits {err} of "
+                                         f"{scale}")
+                serve[key] = {"logits_max_abs_err": err,
+                              "logits_max_abs": scale,
+                              "prefill_ms": dec[0]["prefill_ms"],
+                              "step_ms_median": statistics.median(
+                                  dec[0]["step_ms"]),
+                              "prefill_launches": {
+                                  k: v for k, v in dec[0][
+                                      "prefill_launches"].items() if v},
+                              "step_launches_per_rank": [
+                                  d["launches"]["decode_attention"]
+                                  for d in dec],
+                              "b5_local": dec[0]["b5_shapes"],
+                              "b7_local": dec[0]["b7_shapes"]}
+            out["serve"] = serve
+        summary[name] = out
+    return summary, launches
+
+
+# ================================================================= dryrun
+# The dry run (``launch/dryrun.py``): one step of a cell on fake tensors
+# over a fake process group of the production mesh's size, on this
+# machine's CPU (no card), each cell its own process, the three at once.
+# What it prices are estimates from the H100 SXM data sheet, not
+# measurements; it runs here for this torch's DTensor.
+DRYRUN_CELLS = (("mamba2-1.3b", "long_500k", "multi"),
+                ("llama3.2-3b", "train_4k", "single"),
+                (DEEPSEEK, "decode_32k", "single"))
+
+
+def phase_dryrun() -> dict:
+    """Each of DRYRUN_CELLS through ``python -m repro_torch.launch.dryrun``:
+    status ``ok``, rank 0's parameter bytes on the fake mesh (and a train
+    cell's ZeRO-1 moments) equal to the analytic residency's; one line with
+    each cell's residency, roofline terms and collectives."""
+    t0 = time.perf_counter()
+    out_dir = os.path.join(_build.build_dir(), "dryrun")
+    env = dict(os.environ, PYTHONPATH=_src_dir(), CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+         "--shape", sh, "--mesh", m, "--out", out_dir, "--force"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for a, sh, m in DRYRUN_CELLS]
+    logs = [p.communicate(timeout=900)[0] for p in procs]
+    cells = []
+    for (a, sh, m), p, log in zip(DRYRUN_CELLS, procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"dryrun {a} {sh} {m}: exit "
+                                 f"{p.returncode}\n{log[-3000:]}")
+        mesh = "2x16x16" if m == "multi" else "16x16"
+        with open(os.path.join(out_dir, f"{a}__{sh}__{mesh}.json")) as f:
+            res = json.load(f)
+        if res["status"] != "ok":
+            raise AssertionError(f"dryrun {a} {sh} {mesh}: {res}")
+        have = res["per_device"]["resident_bytes"]
+        want = res["analytic_residency_per_device"]
+        if not res["per_device"]["every_sharded_dim_divides"] or any(
+                have[k] != want[k] for k in ("params", "adam_moments")
+                if k in want):
+            raise AssertionError(f"dryrun {a} {sh} {mesh}: rank 0 holds "
+                                 f"{have}, the analytic residency {want}")
+        cells.append({k: res[k] for k in (
+            "arch", "shape", "mesh", "n_devices", "status", "step_s",
+            "analytic_residency_per_device", "roofline", "model_flops",
+            "useful_flops_ratio")} | {
+            "per_device": {k: res["per_device"][k] for k in (
+                "op_flops", "op_bytes", "collective_wire_bytes",
+                "resident_bytes", "peak_bytes")},
+            "global_op_flops": res["global"]["op_flops"],
+            "collectives": {k: v["count"] for k, v in
+                            res["collectives"]["by_kind"].items()}})
+    info = {"phase": "dryrun", "estimates": "H100 SXM data-sheet rates "
+            "(launch/devices.py), not measurements",
+            "torch": torch.__version__, "cells": cells,
+            "wall_s": time.perf_counter() - t0}
+    emit(info)
+    return info
 
 
 # ==================================================================== main
@@ -5044,7 +5612,11 @@ def main() -> None:
                          "train_families")
     ap.add_argument("--spmd-only", action="store_true",
                     help="run only the SPMD phases: spmd_ring, spmd_train, "
-                         "spmd_moe and spmd_decode on SPMD_WORLD ranks")
+                         "spmd_moe, spmd_decode and spmd_families on "
+                         "SPMD_WORLD ranks")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="run only the dry run's cells (DRYRUN_CELLS) on "
+                         "fake process groups")
     ap.add_argument("--spmd-lr-probe", action="store_true",
                     help="run only the one-rank training probe that chose "
                          "spmd_train's learning rate")
@@ -5055,6 +5627,13 @@ def main() -> None:
 
     env = phase_env()
     torch.cuda.set_device(0)
+    if args.dryrun_only:
+        phase_dryrun()
+        print(env["nvidia_smi"], flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     if args.spmd_only or args.spmd_lr_probe:
         phase_build()
         spmd_lr_probe() if args.spmd_lr_probe else phase_spmd()
@@ -5165,6 +5744,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(phase_spmd())
+    phase_dryrun()
     phase_examples()
 
     print(env["nvidia_smi"], flush=True)
