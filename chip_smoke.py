@@ -4472,25 +4472,44 @@ class _recording_shapes:
 
 
 def _spmd_train_run(spec, mesh, cfg, params, batch_np, steps, compression,
-                    ref, opt, want_shapes=False) -> dict:
+                    ref, opt, want_shapes=False, zero1=False) -> dict:
     """``steps`` train steps of ``cfg`` on ``mesh`` from ``params`` (full,
     on every rank): losses, gradient norms, walls and B5 launches; against
     ``ref`` (the one-rank run's final parameters, flat names) the largest
     distance of this rank's shard of every parameter, and the sums of
     squares of (p - p0) - (p_ref - p0) and of p_ref - p0 over the shard;
     with the int8 ring, the sync check of the step-0 gradients first
-    (not counted)."""
+    (not counted).  With ``zero1`` the moments take the ZeRO-1 specs
+    (``opt_state_specs`` under ``zero_rules``: sharded over data too)."""
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.models.sharding import (distribute_tree, make_rules,
                                              use_mesh)
+    from repro_torch.train.optimizer import opt_state_specs, zero_rules
     dev = spec["dev"]
     model = build(cfg)
     rules = make_rules(cfg, mesh, "train")
     with use_mesh(mesh, rules):
-        state = init_state(distribute_tree(params, model.param_specs, mesh,
-                                           rules))
+        pd = distribute_tree(params, model.param_specs, mesh, rules)
         del params
-        p0 = {k: p.to_local().clone() for k, p in _flat(state.params).items()}
+        if zero1:
+            from torch.distributed.tensor import zeros
+            from repro_torch.models.sharding import placements, resolve
+            from repro_torch.train.train_loop import TrainState
+            zr = zero_rules(rules, mesh)
+
+            def moments():              # each rank makes only its shard
+                return tree_map(lambda s: zeros(
+                    s.shape, dtype=torch.float32,
+                    device_mesh=mesh.device_mesh,
+                    placements=placements(resolve(s.axes, zr), mesh)),
+                    opt_state_specs(model.param_specs, mesh, rules))
+
+            state = TrainState(0, pd, moments(), moments())
+        else:
+            state = init_state(pd)
+        del pd
+        # on the host: a card shared by the ranks holds their states
+        p0 = {k: p.to_local().cpu() for k, p in _flat(state.params).items()}
         batch = shard_batch(batch_np, mesh, rules)
         sync = None if compression is None else _sync_check(
             model, state.params, batch, mesh)
@@ -4508,7 +4527,7 @@ def _spmd_train_run(spec, mesh, cfg, params, batch_np, steps, compression,
         errs, num, den = {}, 0.0, 0.0
         for name, p in _flat(state.params).items():
             want = _local_slice(ref[name], p).to(dev).float()
-            got, start = p.to_local().float(), p0[name].float()
+            got, start = p.to_local().float(), p0[name].to(dev).float()
             errs[name] = float((got - want).abs().max())
             num += float(((got - want).double() ** 2).sum())
             den += float(((want - start).double() ** 2).sum())
@@ -5342,7 +5361,7 @@ def spmd_families_rank(rank, spec) -> dict:
         r["train"] = _spmd_train_run(
             spec, m22, cfg, _fam_params(build(cfg), cfg, f["seed"], dev),
             f["train_batch"], SPMD_TRAIN_STEPS, None, ref, SPMD_OPT,
-            want_shapes=True)
+            want_shapes=True, zero1=True)
         del ref
         gc.collect()
         small = tree_map(lambda a: torch.from_numpy(a).to(dev, copy=True),
@@ -5359,6 +5378,10 @@ def spmd_families_rank(rank, spec) -> dict:
         gc.collect()
         if dev == "cuda":
             torch.cuda.empty_cache()
+            r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+        if rank == 0:                   # progress, before the phase's line
+            print(json.dumps({"rank0_family_done": name}), flush=True)
     return out
 
 

@@ -291,19 +291,24 @@ def _clip_without_host_read() -> _Swapped:
 
 
 def _strided_offsets_on_real_tensors():
-    """DTensor works out a strided shard's offsets from a small index tensor
-    that it reads back (``tolist``), which a fake tensor cannot give: that
-    arithmetic runs on real tensors (where this torch has it)."""
+    """DTensor works out a strided shard's offsets from an index tensor as
+    long as the dim that it reads back (``tolist``), which a fake tensor
+    cannot give: that arithmetic runs on real tensors, once for each set of
+    arguments (where this torch has it)."""
     from torch.distributed.tensor import placement_types as pt
     strided = getattr(pt, "_StridedShard", None)
     real = getattr(strided, "local_shard_size_and_offset", None)
     if real is None:
         return contextlib.nullcontext()
     from torch._subclasses.fake_tensor import unset_fake_temporarily
+    done = {}
 
     def on_real(*args, **kwargs):
-        with unset_fake_temporarily():
-            return real(*args, **kwargs)
+        key = (args, tuple(sorted(kwargs.items())))
+        if key not in done:
+            with unset_fake_temporarily():
+                done[key] = real(*args, **kwargs)
+        return done[key]
 
     return _Swapped(strided, "local_shard_size_and_offset", on_real)
 
