@@ -4774,12 +4774,12 @@ def _spmd_references(lcfg, scfg, workdir) -> dict:
             "decode_ref_logits": torch.stack(last, 1).cpu()}
 
 
-def _hold_train_runs(key, runs_k, ref_l, ref_n, f32: bool, exact: bool
-                     ) -> float:
+def _hold_train_runs(key, runs_k, ref_l, ref_n, f32: bool, exact: bool,
+                     later_norm_rel: float = SPMD_NORM_REL) -> float:
     """Every rank's train run ``key`` against the one-rank run's losses
     ``ref_l`` and norms ``ref_n`` (see SPMD_DELTA_RATIO's comment; the
-    exact float32 gate to SPMD_F32_TOL); returns the parameters' change
-    ratio over the ranks."""
+    norms after the first to ``later_norm_rel``; the exact float32 gate to
+    SPMD_F32_TOL); returns the parameters' change ratio over the ranks."""
     for run in runs_k:
         losses, norms = run["losses"], run["norms"]
         if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
@@ -4800,7 +4800,8 @@ def _hold_train_runs(key, runs_k, ref_l, ref_n, f32: bool, exact: bool
             if not abs(losses[k] - losses[0] - want) <= dl * abs(want):
                 raise AssertionError(f"{key}: loss change at step {k}: "
                                      f"{losses} vs {ref_l}")
-        np.testing.assert_allclose(norms, ref_n, rtol=SPMD_NORM_REL)
+        np.testing.assert_allclose(norms[:1], ref_n[:1], rtol=SPMD_NORM_REL)
+        np.testing.assert_allclose(norms, ref_n, rtol=later_norm_rel)
         if f32:
             np.testing.assert_allclose(norms[:1], ref_n[:1],
                                        rtol=SPMD_F32_NORM_REL)
@@ -4808,8 +4809,7 @@ def _hold_train_runs(key, runs_k, ref_l, ref_n, f32: bool, exact: bool
             if not (row["partial"] and row["err"] <= row["bound"]
                     < row["max_abs"]):
                 raise AssertionError(f"{key}: sync of {name}: {row}")
-    ratio = math.sqrt(sum(r["delta_sq"] for r in runs_k)
-                      / sum(r["ref_delta_sq"] for r in runs_k))
+    ratio = _change_ratio(runs_k)
     if not exact and not ratio <= SPMD_DELTA_RATIO:
         raise AssertionError(f"{key}: the parameters' change is "
                              f"{ratio} off one rank's")
@@ -5078,8 +5078,13 @@ def phase_spmd(lcfg=None, scfg=None, gcfg=None, workdir=None) -> dict:
                    for m in DECODE_MODES},
           "wall_s": ranks[0]["spmd_decode"]["wall_s"],
           "staged": ranks[0]["spmd_decode"]["staged"], **common})
-    # ---- the other five families
-    summary, runs["spmd_families"] = _hold_families(spec, ranks)
+    # ---- the other five families: every family's numbers on the line,
+    # then the checks
+    runs["spmd_families"] = dict.fromkeys(WRAPPERS, 0)
+    summary = {name: _family_summary(f, [r["spmd_families"][name]
+                                         for r in ranks],
+                                     runs["spmd_families"])
+               for name, f in spec["families"].items()}
     emit({"phase": "spmd_families", "mesh": {"train": {"data": 2,
                                                        "model": 2},
                                              "serve": ["data 2 x model 2, "
@@ -5094,8 +5099,9 @@ def phase_spmd(lcfg=None, scfg=None, gcfg=None, workdir=None) -> dict:
           "serve": {"dtype": "float32", "prompt": FAM_PROMPT,
                     "encdec_prefix": FAM_ENCDEC_PREFIX, "steps": FAM_STEPS,
                     "batch": 1},
-          "tolerances": {"train": "as spmd_train (bf16), f32_reduced "
-                                  f"{SPMD_F32_TOL}",
+          "tolerances": {"train": "as spmd_train (bf16; the norms after "
+                                  f"the first to {FAM_LATER_NORM_REL}), "
+                                  f"f32_reduced {SPMD_F32_TOL}",
                          "tokens": "equal to one rank's",
                          "logits": f"{FAM_LOGIT_REL} x max|logit|"},
           "families": summary, "references_s": fam_ref_s,
@@ -5103,6 +5109,8 @@ def phase_spmd(lcfg=None, scfg=None, gcfg=None, workdir=None) -> dict:
           "staged": ranks[0]["spmd_families"]["staged"],
           "peak_gb_rank0": ranks[0]["spmd_families"].get("peak_gb"),
           **common})
+    for name, f in spec["families"].items():
+        _hold_family(name, f, [r["spmd_families"][name] for r in ranks])
     emit({"phase": "spmd_walls", "total_s": time.perf_counter() - t_all,
           "references_s": ref_s, "ranks_s": ranks_s,
           "by_phase_s": {p: ranks[0][p]["wall_s"] for p in ranks[0]}})
@@ -5132,6 +5140,11 @@ FAM_TRAIN_BATCH, FAM_TRAIN_SEQ = 2, 256
 FAM_F32_BATCH, FAM_F32_SEQ = 2, 16
 FAM_PROMPT, FAM_ENCDEC_PREFIX, FAM_STEPS = 128, 16, 16
 FAM_LOGIT_REL = 1e-4
+# the bf16 gradient norms after the first step: a 4-layer Mamba2's parted
+# from one rank's by 2.8 % at step 3 (0.34 % at step 1) on the H100, the
+# trajectories of two summation orders; a sync that drops, halves or
+# doubles the sum is 50 % off
+FAM_LATER_NORM_REL = 0.1
 # the reduced VLAs' ViT has one head, which model 2 does not divide; at
 # width 128 it has two of 64
 FAM_GATE_KW = {"openvla-7b": {"vit_dim": 128}, "cogact-7b": {"vit_dim": 128}}
@@ -5453,105 +5466,116 @@ def _fam_references(workdir) -> dict:
     return out
 
 
-def _hold_families(spec, ranks) -> tuple:
-    """The checks of spmd_families against the one-rank runs; returns (the
-    phase's summary, its launches summed over the ranks)."""
-    summary, launches = {}, dict.fromkeys(WRAPPERS, 0)
-    for name, f in spec["families"].items():
-        cfg = f["cfg"]
-        runs = [r["spmd_families"][name] for r in ranks]
-        tr = [r["train"] for r in runs]
-        ratio = _hold_train_runs(f"{name} train", tr, f["ref_losses"],
-                                 f["ref_norms"], False, False)
-        want = _fam_launches(cfg, True, cfg.remat)
-        want = {k: v * SPMD_TRAIN_STEPS for k, v in want.items()}
-        gate = [r["f32_reduced"] for r in runs]
-        _hold_train_runs(f"{name} f32_reduced", gate, f["small_losses"],
-                         f["small_norms"], True, True)
-        want_gate = {k: v * SPMD_TRAIN_STEPS for k, v in _fam_launches(
-            f["small_cfg"], True).items()}
+def _change_ratio(runs) -> float:
+    return math.sqrt(sum(r["delta_sq"] for r in runs)
+                     / sum(r["ref_delta_sq"] for r in runs))
+
+
+def _family_summary(f, runs, launches) -> dict:
+    """One family's numbers in spmd_families (rank 0's, and every rank's
+    launches), its launches added to ``launches``."""
+    cfg = f["cfg"]
+    tr = [r["train"] for r in runs]
+    gate = [r["f32_reduced"] for r in runs]
+    out = {"depth": f["depth"],
+           "train": {"losses": tr[0]["losses"],
+                     "one_rank_losses": f["ref_losses"],
+                     "grad_norms": tr[0]["norms"],
+                     "one_rank_grad_norms": f["ref_norms"],
+                     "delta_ratio": _change_ratio(tr),
+                     "step_ms": tr[0]["walls_ms"],
+                     "tokens_per_s": FAM_TRAIN_BATCH * (
+                         cfg.n_patches + 8 if cfg.family == "vla"
+                         else FAM_TRAIN_SEQ)
+                     / statistics.median(tr[0]["walls_ms"]) * 1e3,
+                     "launches_per_rank": [
+                         {k: v for k, v in r["launches"].items() if v}
+                         for r in tr],
+                     "b5_local": tr[0]["b5_shapes"],
+                     "b7_local": tr[0]["b7_shapes"],
+                     "peak_gb_rank0": runs[0].get("peak_gb")},
+           "f32_reduced": {"losses": gate[0]["losses"],
+                           "one_rank_losses": f["small_losses"],
+                           "param_max_abs_err": max(
+                               g["param_max_abs_err"] for g in gate)}}
+    serve = {}
+    for key in ("model2", "model4"):
+        if key not in runs[0]:
+            continue
+        d = runs[0][key]
+        serve[key] = {"tokens_equal": [torch.equal(r[key]["tokens"],
+                                                   f["ref_tokens"])
+                                       for r in runs],
+                      "logits_max_abs_err": float(
+                          (d["logits"] - f["ref_logits"]).abs().max()),
+                      "logits_max_abs": float(f["ref_logits"].abs().max()),
+                      "prefill_ms": d["prefill_ms"],
+                      "step_ms_median": statistics.median(d["step_ms"]),
+                      "prefill_launches": {
+                          k: v for k, v in d["prefill_launches"].items()
+                          if v},
+                      "step_b6_per_rank": [r[key]["launches"][
+                          "decode_attention"] for r in runs],
+                      "b5_local": d["b5_shapes"], "b7_local": d["b7_shapes"]}
+    if serve:
+        out["serve"] = serve
+    for r in runs:
+        for k in launches:
+            launches[k] += r["train"]["launches"][k] + \
+                r["f32_reduced"]["launches"][k] + sum(
+                    r[key]["prefill_launches"][k] + r[key]["launches"][k]
+                    for key in serve)
+    return out
+
+
+def _hold_family(name, f, runs) -> None:
+    """One family's checks in spmd_families against the one-rank runs: the
+    train steps as spmd_train's (the norms after the first to
+    FAM_LATER_NORM_REL), the float32 gate, exact launches and local heads
+    on every rank, and the served decode's tokens and logits."""
+    cfg = f["cfg"]
+    tr = [r["train"] for r in runs]
+    _hold_train_runs(f"{name} train", tr, f["ref_losses"], f["ref_norms"],
+                     False, False, FAM_LATER_NORM_REL)
+    _hold_train_runs(f"{name} f32_reduced", [r["f32_reduced"] for r in runs],
+                     f["small_losses"], f["small_norms"], True, True)
+    want = {k: v * SPMD_TRAIN_STEPS
+            for k, v in _fam_launches(cfg, True, cfg.remat).items()}
+    want_gate = {k: v * SPMD_TRAIN_STEPS
+                 for k, v in _fam_launches(f["small_cfg"], True).items()}
+    for r in runs:
+        if r["train"]["launches"] != want:
+            raise AssertionError(f"{name} train launches "
+                                 f"{r['train']['launches']} != {want}")
+        if r["f32_reduced"]["launches"] != want_gate:
+            raise AssertionError(f"{name} f32 gate launches "
+                                 f"{r['f32_reduced']['launches']}")
+    heads = {"b5": {(q[2], k[2]) for r in tr for q, k in r["b5_shapes"]},
+             "b7": {x[2] for r in tr for x in r["b7_shapes"]}}
+    want_heads = {"b5": {(cfg.n_heads // 2, cfg.n_kv_heads // 2)}
+                  if want["flash_attention"] else set(),
+                  "b7": {cfg.ssm_nheads // 2} if want["ssd_scan"] else set()}
+    if DEV == "cuda" and heads != want_heads:
+        raise AssertionError(f"{name} local heads {heads} != {want_heads}")
+    if name not in FAM_SERVED:
+        return
+    pre = _fam_launches(cfg, False)
+    steps = dict.fromkeys(WRAPPERS, 0)
+    steps["decode_attention"] = FAM_STEPS * _fam_attn_layers(cfg)
+    scale = float(f["ref_logits"].abs().max())
+    for key in ("model2", "model4"):
         for r in runs:
-            if r["train"]["launches"] != want:
-                raise AssertionError(f"{name} train launches "
-                                     f"{r['train']['launches']} != {want}")
-            if r["f32_reduced"]["launches"] != want_gate:
-                raise AssertionError(f"{name} f32 gate launches "
-                                     f"{r['f32_reduced']['launches']}")
-        heads = {"b5": {(q[2], k[2]) for r in tr for q, k in r["b5_shapes"]},
-                 "b7": {x[2] for r in tr for x in r["b7_shapes"]}}
-        want_heads = {
-            "b5": {(cfg.n_heads // 2, cfg.n_kv_heads // 2)}
-            if want["flash_attention"] else set(),
-            "b7": {cfg.ssm_nheads // 2} if want["ssd_scan"] else set()}
-        if DEV == "cuda" and heads != want_heads:
-            raise AssertionError(f"{name} local heads {heads} != "
-                                 f"{want_heads}")
-        out = {"depth": f["depth"],
-               "train": {"losses": tr[0]["losses"],
-                         "one_rank_losses": f["ref_losses"],
-                         "grad_norms": tr[0]["norms"],
-                         "one_rank_grad_norms": f["ref_norms"],
-                         "delta_ratio": ratio,
-                         "step_ms": tr[0]["walls_ms"],
-                         "tokens_per_s": FAM_TRAIN_BATCH * (
-                             cfg.n_patches + 8 if cfg.family == "vla"
-                             else FAM_TRAIN_SEQ)
-                         / statistics.median(tr[0]["walls_ms"]) * 1e3,
-                         "launches_per_rank": [
-                             {k: v for k, v in r["launches"].items() if v}
-                             for r in tr],
-                         "b5_local": tr[0]["b5_shapes"],
-                         "b7_local": tr[0]["b7_shapes"]},
-               "f32_reduced": {"losses": gate[0]["losses"],
-                               "one_rank_losses": f["small_losses"],
-                               "param_max_abs_err": max(
-                                   g["param_max_abs_err"] for g in gate)}}
-        for r in runs:
-            for k in launches:
-                launches[k] += r["train"]["launches"][k] + \
-                    r["f32_reduced"]["launches"][k]
-        if name in FAM_SERVED:
-            pre = _fam_launches(cfg, False)
-            n_attn = _fam_attn_layers(cfg)
-            step_want = dict.fromkeys(WRAPPERS, 0)
-            step_want["decode_attention"] = FAM_STEPS * n_attn
-            serve = {}
-            for key in ("model2", "model4"):
-                dec = [r[key] for r in runs]
-                for d in dec:
-                    if not torch.equal(d["tokens"], f["ref_tokens"]):
-                        raise AssertionError(
-                            f"{name} {key} tokens {d['tokens']} != "
-                            f"{f['ref_tokens']}")
-                    if d["prefill_launches"] != pre or \
-                            d["launches"] != step_want:
-                        raise AssertionError(
-                            f"{name} {key} launches {d['prefill_launches']}"
-                            f" / {d['launches']}")
-                    for k in launches:
-                        launches[k] += d["prefill_launches"][k] + \
-                            d["launches"][k]
-                scale = float(f["ref_logits"].abs().max())
-                err = float((dec[0]["logits"] - f["ref_logits"]).abs().max())
-                if not err <= FAM_LOGIT_REL * scale:
-                    raise AssertionError(f"{name} {key} logits {err} of "
-                                         f"{scale}")
-                serve[key] = {"logits_max_abs_err": err,
-                              "logits_max_abs": scale,
-                              "prefill_ms": dec[0]["prefill_ms"],
-                              "step_ms_median": statistics.median(
-                                  dec[0]["step_ms"]),
-                              "prefill_launches": {
-                                  k: v for k, v in dec[0][
-                                      "prefill_launches"].items() if v},
-                              "step_launches_per_rank": [
-                                  d["launches"]["decode_attention"]
-                                  for d in dec],
-                              "b5_local": dec[0]["b5_shapes"],
-                              "b7_local": dec[0]["b7_shapes"]}
-            out["serve"] = serve
-        summary[name] = out
-    return summary, launches
+            d = r[key]
+            if not torch.equal(d["tokens"], f["ref_tokens"]):
+                raise AssertionError(f"{name} {key} tokens {d['tokens']} "
+                                     f"!= {f['ref_tokens']}")
+            if d["prefill_launches"] != pre or d["launches"] != steps:
+                raise AssertionError(f"{name} {key} launches "
+                                     f"{d['prefill_launches']} / "
+                                     f"{d['launches']}")
+        err = float((runs[0][key]["logits"] - f["ref_logits"]).abs().max())
+        if not err <= FAM_LOGIT_REL * scale:
+            raise AssertionError(f"{name} {key} logits {err} of {scale}")
 
 
 # ================================================================= dryrun
