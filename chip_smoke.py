@@ -4775,11 +4775,13 @@ def _spmd_references(lcfg, scfg, workdir) -> dict:
 
 
 def _hold_train_runs(key, runs_k, ref_l, ref_n, f32: bool, exact: bool,
-                     later_norm_rel: float = SPMD_NORM_REL) -> float:
+                     later_norm_rel: float = SPMD_NORM_REL,
+                     loss_rel: float = SPMD_LOSS_REL) -> float:
     """Every rank's train run ``key`` against the one-rank run's losses
     ``ref_l`` and norms ``ref_n`` (see SPMD_DELTA_RATIO's comment; the
-    norms after the first to ``later_norm_rel``; the exact float32 gate to
-    SPMD_F32_TOL); returns the parameters' change ratio over the ranks."""
+    losses to ``loss_rel``, the norms after the first to
+    ``later_norm_rel``; the exact float32 gate to SPMD_F32_TOL); returns
+    the parameters' change ratio over the ranks."""
     for run in runs_k:
         losses, norms = run["losses"], run["norms"]
         if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
@@ -4791,9 +4793,8 @@ def _hold_train_runs(key, runs_k, ref_l, ref_n, f32: bool, exact: bool,
                 raise AssertionError(f"float32 gate {key}: {run}")
             continue
         np.testing.assert_allclose(
-            losses[:1], ref_l[:1],
-            rtol=SPMD_F32_TOL if f32 else SPMD_LOSS_REL)
-        np.testing.assert_allclose(losses, ref_l, rtol=SPMD_LOSS_REL)
+            losses[:1], ref_l[:1], rtol=SPMD_F32_TOL if f32 else loss_rel)
+        np.testing.assert_allclose(losses, ref_l, rtol=loss_rel)
         dl = SPMD_F32_DLOSS_REL if f32 else SPMD_DLOSS_REL
         for k in range(1, len(losses)):
             want = ref_l[k] - ref_l[0]
@@ -5099,8 +5100,9 @@ def phase_spmd(lcfg=None, scfg=None, gcfg=None, workdir=None) -> dict:
           "serve": {"dtype": "float32", "prompt": FAM_PROMPT,
                     "encdec_prefix": FAM_ENCDEC_PREFIX, "steps": FAM_STEPS,
                     "batch": 1},
-          "tolerances": {"train": "as spmd_train (bf16; the norms after "
-                                  f"the first to {FAM_LATER_NORM_REL}), "
+          "tolerances": {"train": "as spmd_train (bf16; losses to "
+                                  f"{FAM_LOSS_REL}, the norms after the "
+                                  f"first to {FAM_LATER_NORM_REL}), "
                                   f"f32_reduced {SPMD_F32_TOL}",
                          "tokens": "equal to one rank's",
                          "logits": f"{FAM_LOGIT_REL} x max|logit|"},
@@ -5140,11 +5142,17 @@ FAM_TRAIN_BATCH, FAM_TRAIN_SEQ = 2, 256
 FAM_F32_BATCH, FAM_F32_SEQ = 2, 16
 FAM_PROMPT, FAM_ENCDEC_PREFIX, FAM_STEPS = 128, 16, 16
 FAM_LOGIT_REL = 1e-4
-# the bf16 gradient norms after the first step: a 4-layer Mamba2's parted
-# from one rank's by 2.8 % at step 3 (0.34 % at step 1) on the H100, the
-# trajectories of two summation orders; a sync that drops, halves or
-# doubles the sum is 50 % off
+# the bf16 runs against one rank, where spmd_train's limits do not fit
+# (all measured on the H100): the gradient norms after the first step to
+# FAM_LATER_NORM_REL (a 7-layer Zamba2's parted by 2.8 % at step 3, 0.34 %
+# at step 1: two summation orders' trajectories); the losses to
+# FAM_LOSS_REL (CogACT's DiT noise MSE, 6.8 on 2 x 16 x 7 actions, was
+# 1.1 % off before any update and 3.1 % at step 3; the VLM's 2.2 % at step
+# 3 after its loss fell from 281 to 14.5, its change within 0.09 %).  A
+# sync that drops, halves or doubles the sum is 50 % off in the norms; a
+# missing update fails the loss change and the change ratio
 FAM_LATER_NORM_REL = 0.1
+FAM_LOSS_REL = 5e-2
 # the reduced VLAs' ViT has one head, which model 2 does not divide; at
 # width 128 it has two of 64
 FAM_GATE_KW = {"openvla-7b": {"vit_dim": 128}, "cogact-7b": {"vit_dim": 128}}
@@ -5302,20 +5310,21 @@ def _fam_greedy(model, params, batch, prefill, step, wall=None):
     """Prefill ``batch`` and FAM_STEPS greedy steps (``prefill`` /
     ``step`` run them, on the mesh or not): the tokens, each step's last
     logits, the step walls and the prefill's and the steps' launches."""
-    S = batch["tokens"].shape[1]
+    S, V = batch["tokens"].shape[1], model.cfg.vocab_size
     _reset_counts()
     t0 = time.perf_counter()
     logits, cache = prefill(batch, S + FAM_STEPS)
     prefill_ms = wall(t0) if wall else None
     prefill_counts = _counts()
     _reset_counts()
-    last, toks, walls = [logits[:, -1].float()], [], []
+    # the real vocabulary: the table's pad rows are masked to -1e30
+    last, toks, walls = [logits[:, -1, :V].float()], [], []
     for i in range(FAM_STEPS):
         cur = torch.argmax(last[-1], -1)[:, None].to(torch.int32).cpu()
         toks.append(cur)
         t0 = time.perf_counter()
         logits, cache = step(cache, cur, S + i)
-        last.append(logits[:, -1].float())
+        last.append(logits[:, -1, :V].float())
         if wall:
             walls.append(wall(t0))
     return {"tokens": torch.cat(toks, 1), "logits": torch.stack(last, 1),
@@ -5536,7 +5545,7 @@ def _hold_family(name, f, runs) -> None:
     cfg = f["cfg"]
     tr = [r["train"] for r in runs]
     _hold_train_runs(f"{name} train", tr, f["ref_losses"], f["ref_norms"],
-                     False, False, FAM_LATER_NORM_REL)
+                     False, False, FAM_LATER_NORM_REL, FAM_LOSS_REL)
     _hold_train_runs(f"{name} f32_reduced", [r["f32_reduced"] for r in runs],
                      f["small_losses"], f["small_norms"], True, True)
     want = {k: v * SPMD_TRAIN_STEPS
