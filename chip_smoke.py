@@ -5306,7 +5306,7 @@ def _fam_decode_batch(cfg, seed: int) -> dict:
     return out
 
 
-def _fam_greedy(model, params, batch, prefill, step, wall=None):
+def _fam_greedy(model, batch, prefill, step, wall=None):
     """Prefill ``batch`` and FAM_STEPS greedy steps (``prefill`` /
     ``step`` run them, on the mesh or not): the tokens, each step's last
     logits, the step walls and the prefill's and the steps' launches."""
@@ -5357,7 +5357,7 @@ def _fam_decode_run(spec, mesh, cfg, rules, f) -> dict:
                 {"tokens": cur.numpy()}, mesh, rules)["tokens"], pos)
             return logits.full_tensor(), cache
 
-        out = _fam_greedy(model, pd, batch_np, prefill, step,
+        out = _fam_greedy(model, batch_np, prefill, step,
                           lambda t0: _spmd_barrier_wall(dev, t0))
     out["logits"] = out["logits"].cpu() if mesh.device_mesh.get_rank() == 0 \
         else None
@@ -5460,7 +5460,7 @@ def _fam_references(workdir) -> dict:
                   else {})
             with torch.no_grad():
                 ref = _fam_greedy(
-                    dmodel, params, f["decode_batch"],
+                    dmodel, f["decode_batch"],
                     lambda batch, n: prefill_and_pad(
                         dmodel, params, to_device(batch, DEV), n, **kw),
                     lambda cache, cur, pos: dmodel.decode(

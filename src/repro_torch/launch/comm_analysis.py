@@ -96,10 +96,13 @@ NAMESPACES = ("_c10d_functional", "c10d_functional", "c10d")
 
 
 def _tensors(x) -> list:
+    """The tensors in nested lists, tuples and dicts, in order."""
     if isinstance(x, torch.Tensor):
         return [x]
     if isinstance(x, (list, tuple)):
         return [t for e in x for t in _tensors(e)]
+    if isinstance(x, dict):
+        return [t for e in x.values() for t in _tensors(e)]
     return []
 
 

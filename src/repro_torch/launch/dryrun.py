@@ -62,7 +62,7 @@ from ..models.sharding import make_rules, resolve, use_mesh
 from ..train import optimizer as opt_mod
 from ..train.optimizer import OptConfig, opt_state_specs, zero_rules
 from ..train.train_loop import TrainState, make_train_step
-from .comm_analysis import CollectiveRecorder, summarize
+from .comm_analysis import CollectiveRecorder, _tensors, summarize
 from .devices import H100_SXM
 from .mesh import Mesh, make_production_mesh
 
@@ -158,16 +158,6 @@ def _pieces(dm, placement_lists) -> int:
                for pl in placement_lists):
             n *= dm.size(i)
     return n
-
-
-def _tensors(x) -> list:
-    if isinstance(x, torch.Tensor):
-        return [x]
-    if isinstance(x, (list, tuple)):
-        return [t for e in x for t in _tensors(e)]
-    if isinstance(x, dict):
-        return [t for e in x.values() for t in _tensors(e)]
-    return []
 
 
 def _local_bytes(ts) -> int:

@@ -57,9 +57,10 @@ from ..kernels.decode_attention import ops as da_ops
 from ..kernels.flash_attention import ops as fa_ops
 from .layers import (_common, _use_int8_ring, apply_rope, dense,
                      int8_ring_proj, linear_spec, rmsnorm)
-from .sharding import (P, act_axis, act_shards, bound_mesh, contiguous_grad,
-                       is_dtensor, local_region, placements, pmax, psum,
-                       resolve, shard, spec)
+from .sharding import (P, act_axis, act_shards, bound_mesh,
+                       check_placements, contiguous_grad, is_dtensor,
+                       local_region, placements, pmax, psum, resolve, shard,
+                       spec)
 
 
 # ============================================================== specs
@@ -398,16 +399,6 @@ def attn_decode(cfg, p, x, pos, cache: Dict):
     return y, {"k": kc, "v": vc}
 
 
-def _check_cache(c: torch.Tensor, pl: tuple) -> None:
-    """A cache is written in place through its local shard: it must already
-    have the placements the region takes (a redistributed copy would take
-    the write and be thrown away)."""
-    if tuple(c.placements) != pl:
-        raise ValueError(f"cache placements {tuple(c.placements)} are not "
-                         f"the decode's {pl}; make the cache with "
-                         "kv_cache_specs under the same rules")
-
-
 def _tp_decode(cfg, q, kc, vc, k_new, v_new, positions):
     """One token against a cache sharded on its flat KV*hd dim over
     ``model`` (``decode_attn="tp"``): each rank writes its columns of the
@@ -420,8 +411,8 @@ def _tp_decode(cfg, q, kc, vc, k_new, v_new, positions):
     m = bound_mesh()
     b = _batch_rule()
     cs, qs = P(b, None, "model"), P(b, None, "model", None)
-    _check_cache(kc, placements(cs, m))
-    _check_cache(vc, placements(cs, m))
+    check_placements(kc, placements(cs, m), "cache")
+    check_placements(vc, placements(cs, m), "cache")
     even = _model_divides(KV)
 
     def local(q_, kn, vn, kc_, vc_):
@@ -458,8 +449,8 @@ def _sp_flash_decode(cfg, q, kc, vc, k_new, v_new, positions):
     m = bound_mesh()
     b = _batch_rule()
     cs = P(b, "model", None)
-    _check_cache(kc, placements(cs, m))
-    _check_cache(vc, placements(cs, m))
+    check_placements(kc, placements(cs, m), "cache")
+    check_placements(vc, placements(cs, m), "cache")
 
     # a sequence that does not divide over the ranks is split as
     # torch.chunk splits it, the last rank short
@@ -634,8 +625,8 @@ def mla_decode(cfg, p, x, pos, cache: Dict):
                              f"{act_axis('act_heads')}")
         m, b, ax = bound_mesh(), _batch_rule(), act_axis("act_heads")
         cs = P(b, None, None)
-        _check_cache(ckv, placements(cs, m))
-        _check_cache(kpe, placements(cs, m))
+        check_placements(ckv, placements(cs, m), "cache")
+        check_placements(kpe, placements(cs, m), "cache")
         qs, ws = P(b, None, ax, None), P(None, ax)
         out = local_region(
             lambda *a: _mla_attend(cfg, *a, positions), qs,

@@ -295,6 +295,16 @@ def placements(pspec, mesh) -> tuple:
     return tuple(out)
 
 
+def check_placements(t, pl: tuple, what: str) -> None:
+    """A cache or state written in place through its local shard must
+    already have the placements ``pl`` its region takes (a redistributed
+    copy would take the write and be thrown away)."""
+    if tuple(t.placements) != pl:
+        raise ValueError(f"{what} placements {tuple(t.placements)} are not "
+                         f"the decode's {pl}; make it from its specs under "
+                         "the same rules")
+
+
 def is_dtensor(x) -> bool:
     if not torch.distributed.is_available():
         return False

@@ -42,8 +42,9 @@ from ..kernels.ssd_scan import ops as ssd_ops
 from .layers import dense, embed, embed_spec, linear_spec, rmsnorm, \
     rmsnorm_spec, softmax_xent, unembed
 from .sharding import (P, act_axis, act_shards, batch_axes, bound_mesh,
-                       contiguous_grad, is_dtensor, local_region, placements,
-                       resolve, shard, spec, tree_map)
+                       check_placements, contiguous_grad, is_dtensor,
+                       local_region, placements, resolve, shard, spec,
+                       tree_map)
 from .transformer import run_stack, run_stack_decode
 
 
@@ -354,20 +355,6 @@ def _step(cfg, z, xi, Bm, Cm, dt, conv_x, conv_B, conv_C, A_log, D, ssd,
     return y.reshape(B, di) * F.silu(z.float()).to(y.dtype)
 
 
-def _check_state(st: Dict, specs: Dict) -> None:
-    """A decode state is written in place through its local shard: it must
-    already have the placements the region takes (a redistributed copy
-    would take the write and be thrown away)."""
-    m = bound_mesh()
-    for name, s in specs.items():
-        pl = placements(s, m)
-        if tuple(st[name].placements) != pl:
-            raise ValueError(f"state {name!r} placements "
-                             f"{tuple(st[name].placements)} are not the "
-                             f"decode's {pl}; make the state with "
-                             "ssm_state_specs under the same rules")
-
-
 def mamba_decode(cfg, p: Dict, x: torch.Tensor, state: Dict):
     """One-token step. x: (B,1,d).  ``state`` (this layer's views of the
     stacked decode state) is updated in place and returned; on a mesh each
@@ -381,7 +368,9 @@ def mamba_decode(cfg, p: Dict, x: torch.Tensor, state: Dict):
         inner, rep = P(b, ax), P(b, None)
         sspecs = {"ssd": P(b, ax, None, None), "conv_x": P(b, None, ax),
                   "conv_B": P(b, None, None), "conv_C": P(b, None, None)}
-        _check_state(state, sspecs)
+        for name, spec_ in sspecs.items():
+            check_placements(state[name], placements(spec_, bound_mesh()),
+                             f"state {name!r}")
         y = local_region(
             functools.partial(_step, cfg), inner,
             (inner, inner, rep, rep, inner, P(None, ax), P(None, None),
