@@ -3,7 +3,7 @@
 Counterpart of ``src/repro/launch/hlo_analysis.py``.  The reference parses
 the collectives out of XLA's per-device HLO text; an eager PyTorch step has
 no such program, so :class:`CollectiveRecorder` records each collective as
-the step issues it — DTensor's redistributions (``_c10d_functional`` /
+the step runs it — DTensor's redistributions (``_c10d_functional`` /
 ``c10d_functional``) and the explicit ones of a ``local_map`` region
 (``c10d``) — with its kind, its result bytes on this rank and its group's
 size.  :class:`CollectiveOp`, :func:`_wire_factor` and :func:`summarize`
@@ -126,7 +126,7 @@ def _group_size(func, args, kwargs) -> int:
 
 
 class CollectiveRecorder(TorchDispatchMode):
-    """Records every collective issued while it is on, DTensor's included:
+    """Records every collective run while it is on, DTensor's included:
     an operation on DTensors is handed back (``NotImplemented``) so that
     DTensor runs it and the collectives it lowers to come back here, as
     ``torch.distributed.tensor.debug.CommDebugMode`` does."""

@@ -5,7 +5,7 @@ tensors, on a fake process group of the production mesh's size.
 
 Counterpart of ``src/repro/launch/dryrun.py``, which lowers and compiles
 each cell for 256 or 512 placeholder devices.  An eager PyTorch step has no
-program to compile, so this driver runs the step itself, in one process
+program to compile, so this module runs the step itself, in one process
 with no device: a ``torch.distributed`` group of the ``fake`` backend with
 the production mesh's size (rank 0 of 256 or 512; every collective returns
 at once), a ``DeviceMesh`` over it, and the parameters, batch, cache and
@@ -517,7 +517,7 @@ def _cell(arch: str, shape_name: str, multi_pod: bool,
     return out
 
 
-# ------------------------------------------------------------------ driver
+# ------------------------------------------------------------------ command line
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="all",

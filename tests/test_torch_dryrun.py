@@ -2,7 +2,7 @@
 on fake tensors over a fake process group of the mesh's size.
 
 The cells run in one subprocess (a process holds one fake group at a time;
-the driver makes it again at another size); the JAX package's analytic
+the dry run makes it again at another size); the JAX package's analytic
 numbers come from another, since importing ``repro.launch.dryrun`` sets
 ``XLA_FLAGS`` to 512 host devices."""
 from __future__ import annotations

@@ -212,8 +212,8 @@ def test_no_try_except_around_kernels_or_entry_points():
     supervisor (``runtime/fault.py``) holds one that catches only
     ``InjectedFailure``, the drill it restores a checkpoint for; the dry
     run (``launch/dryrun.py``) holds two, no kernel or entry point in
-    either: ``main`` records a cell that raised as ``error`` (the
-    reference's driver does the same) and ``_PeakBytes`` runs the step
+    either: ``main`` records a cell that raised as ``error`` (as the
+    reference's ``main`` does) and ``_PeakBytes`` runs the step
     untracked where torch's private ``MemTracker`` does not run."""
     registries = ("configs/__init__.py", "core/codec.py", "core/adjustment.py",
                   "core/scene.py")
