@@ -64,12 +64,27 @@ def _t(batch: dict) -> dict:
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
+class _one_thread:
+    """One CPU thread for the block, as each gloo rank runs
+    (``launch/ranks.py``): the one-rank sums then do not depend on how
+    many threads the test's process has."""
+
+    def __enter__(self):
+        self.n = torch.get_num_threads()
+        torch.set_num_threads(1)
+
+    def __exit__(self, *exc):
+        torch.set_num_threads(self.n)
+        return False
+
+
 @functools.lru_cache(maxsize=None)
 def one_rank_grads(name: str):
     c = case(name)
     p = tree_map(lambda t: t.clone(), c["params"])
-    loss, grads = loss_and_grads(c["model"], p, _t(c["batch"]),
-                                 **c["inject"])
+    with _one_thread():
+        loss, grads = loss_and_grads(c["model"], p, _t(c["batch"]),
+                                     **c["inject"])
     return float(loss), grads
 
 
@@ -105,7 +120,8 @@ def one_rank_decode(name: str):
 
     model.prefill = recording_prefill
     try:
-        toks = greedy_generate(model, p, _t(b), DECODE_STEPS, **kw)
+        with _one_thread():
+            toks = greedy_generate(model, p, _t(b), DECODE_STEPS, **kw)
     finally:
         model.decode, model.prefill = step, prefill
     return toks, torch.stack(logits, 1)
