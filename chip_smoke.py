@@ -29,6 +29,9 @@ Phases, one JSON line each:
 
   env           torch / CUDA versions, the card's name and power limit
   build         seconds the kernels took to build
+  dryrun        the dry run's four cells (``DRYRUN_CELLS``), each its own
+                process on this machine's CPU, started beside the build
+                (neither uses the card)
   kernels       each kernel against its plain version at the main paths'
                 shapes and at awkward ones, with times
   serve         8 OpenVLA-7B int8 requests with the cut walking the pool,
@@ -139,7 +142,19 @@ Phases, one JSON line each:
                 layer with experts over model = 4; float32 decode (512-token
                 prompt, 16 steps) with the cache over model = 4 on the
                 sequence (sp), over model = 2 on the KV heads (tp, B6 on
-                local heads) and tp with the int8 ring; then ``spmd_walls``
+                local heads) and tp with the int8 ring
+  spmd_families the SSM, hybrid, VLM, encoder-decoder and VLA families at
+                full width, depth cut, on the same ranks
+  spmd_fsdp     the same ranks under ``make_rules(..., strategy="fsdp")``
+                (ZeRO-3: every weight over data and model together on one
+                dim, the batch over all four ranks): Llama-3.2-3B at 4
+                layers, 3 bf16 steps without and 3 with the int8 ring on
+                4 x 512 tokens against one rank (B5 on each rank's batch
+                row with all 24 / 8 heads); every reduced config's float32
+                ``loss_and_grads`` against one rank; float32 greedy decode
+                of Llama-3.2-3B and Mamba2-1.3B at 4 layers (batch 4, a
+                128-token prompt, 16 steps, B5 / B6 / B7 on each rank's
+                row); then ``spmd_walls``
   examples      ``examples/quickstart_torch.py``, ``serve_vla_ecc_torch.py``,
                 ``train_lm_torch.py`` (300 steps of a ~100M Llama with a
                 failure injected half-way) and
@@ -171,7 +186,7 @@ beside the launch floor (an empty kernel queued the same way), what the
 quantise kernels' rounding division costs (inputs with no tie, random
 ones, all ties), and where the host time of an int4 call goes.  With
 ``--train-only`` runs the gradient cases and the four training paths, and
-``--spmd-only`` the four SPMD phases (``--spmd-lr-probe``: the one-rank
+``--spmd-only`` the SPMD phases (``--spmd-lr-probe``: the one-rank
 runs that chose ``spmd_train``'s learning rate).
 With ``--src DIR`` each does so for the ``repro_torch`` under ``DIR``, e.g. a
 parent commit unpacked beside this one, so that two versions are compared
@@ -4239,6 +4254,9 @@ TRAIN_CLI_ALSO = "done: 20 steps, 1 restarts"
 
 
 def _run_example(label: str, argv: list, last, also) -> dict:
+    """One example as its own process; its wall and the tail of its
+    output.  Raises unless it exits 0 with ``last`` as its last line and
+    ``also`` in its output."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": _src_dir()}
     t0 = time.perf_counter()
@@ -4420,7 +4438,9 @@ def _sync_check(model, params, batch, mesh) -> dict:
     (``_compressed_sync``) and exactly (``_reduce_to_params``) from one
     autograd output: by leaf, the largest distance on this rank's shard,
     the ring's bound there (see SPMD_DELTA_RATIO's comment), the largest
-    exact element and whether the gradient was a pending sum over data."""
+    exact element, whether the gradient was a pending sum over data, and
+    whether it came sharded over data, summed already (under ``fsdp``
+    autograd reduce-scatters a weight whose forward gathered it)."""
     import torch.distributed as dist
     from repro_torch.train.train_loop import (_compressed_sync,
                                               _reduce_to_params)
@@ -4442,18 +4462,21 @@ def _sync_check(model, params, batch, mesh) -> dict:
                       "bound": (2 * (N - 1) * 0.5 / 127 + 1.5 * eps)
                       * float(amax),
                       "max_abs": float(el.abs().max()),
-                      "partial": g.placements[d].is_partial()}
+                      "partial": g.placements[d].is_partial(),
+                      "summed": g.placements[d].is_shard()}
     return rows
 
 
 class _recording_shapes:
     """For the length of a ``with`` block, the shapes each B5 launch takes
-    (q, k) and each B7 launch (x), by kernel; a raise ends the rank."""
+    (q, k), each B7 launch (x) and each B6 call on the card (q, k), by
+    kernel; a raise ends the rank."""
 
     def __enter__(self):
-        self.seen = {"b5": [], "b7": []}
+        self.seen = {"b5": [], "b7": [], "b6": []}
         self.fa, self.ssd = fa_ops._launch, ssd_ops._launch
-        fa, ssd, seen = self.fa, self.ssd, self.seen
+        self.da = da_ops._device_kind
+        fa, ssd, da, seen = self.fa, self.ssd, self.da, self.seen
 
         def b5(q, k, v, causal):
             seen["b5"].append((tuple(q.shape), tuple(k.shape)))
@@ -4463,16 +4486,25 @@ class _recording_shapes:
             seen["b7"].append(tuple(x.shape))
             return ssd(x, *args)
 
+        def b6(tensors):                # B6 reads the kind of each call
+            q, k, _ = tensors
+            if q.is_cuda:
+                seen["b6"].append((tuple(q.shape), tuple(k.shape)))
+            return da(tensors)
+
         fa_ops._launch, ssd_ops._launch = b5, b7
+        da_ops._device_kind = b6
         return self.seen
 
     def __exit__(self, *exc):
         fa_ops._launch, ssd_ops._launch = self.fa, self.ssd
+        da_ops._device_kind = self.da
         return False
 
 
 def _spmd_train_run(spec, mesh, cfg, params, batch_np, steps, compression,
-                    ref, opt, want_shapes=False, zero1=False) -> dict:
+                    ref, opt, want_shapes=False, zero1=False,
+                    strategy="tp") -> dict:
     """``steps`` train steps of ``cfg`` on ``mesh`` from ``params`` (full,
     on every rank): losses, gradient norms, walls and B5 launches; against
     ``ref`` (the one-rank run's final parameters, flat names) the largest
@@ -4480,14 +4512,15 @@ def _spmd_train_run(spec, mesh, cfg, params, batch_np, steps, compression,
     squares of (p - p0) - (p_ref - p0) and of p_ref - p0 over the shard;
     with the int8 ring, the sync check of the step-0 gradients first
     (not counted).  With ``zero1`` the moments take the ZeRO-1 specs
-    (``opt_state_specs`` under ``zero_rules``: sharded over data too)."""
+    (``opt_state_specs`` under ``zero_rules``: sharded over data too).
+    ``strategy`` names ``make_rules``' strategy."""
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.models.sharding import (distribute_tree, make_rules,
                                              use_mesh)
     from repro_torch.train.optimizer import opt_state_specs, zero_rules
     dev = spec["dev"]
     model = build(cfg)
-    rules = make_rules(cfg, mesh, "train")
+    rules = make_rules(cfg, mesh, "train", strategy=strategy)
     with use_mesh(mesh, rules):
         pd = distribute_tree(params, model.param_specs, mesh, rules)
         del params
@@ -4509,7 +4542,8 @@ def _spmd_train_run(spec, mesh, cfg, params, batch_np, steps, compression,
             state = init_state(pd)
         del pd
         # on the host: a card shared by the ranks holds their states
-        p0 = {k: p.to_local().cpu() for k, p in _flat(state.params).items()}
+        p0 = {k: p.to_local().to("cpu", copy=True)
+              for k, p in _flat(state.params).items()}
         batch = shard_batch(batch_np, mesh, rules)
         sync = None if compression is None else _sync_check(
             model, state.params, batch, mesh)
@@ -4686,7 +4720,8 @@ def spmd_rank(rank, spec) -> dict:
                      ("spmd_train", spmd_train_rank),
                      ("spmd_moe", spmd_moe_rank),
                      ("spmd_decode", spmd_decode_rank),
-                     ("spmd_families", spmd_families_rank)):
+                     ("spmd_families", spmd_families_rank),
+                     ("spmd_fsdp", spmd_fsdp_rank)):
         host_group.reset_staged()
         t0 = time.perf_counter()
         out[name] = fn(rank, spec)
@@ -4806,10 +4841,16 @@ def _hold_train_runs(key, runs_k, ref_l, ref_n, f32: bool, exact: bool,
         if f32:
             np.testing.assert_allclose(norms[:1], ref_n[:1],
                                        rtol=SPMD_F32_NORM_REL)
+        # every leaf pending over data rung within its bound, every other
+        # one (fsdp) sharded over data, summed by autograd already; at
+        # least one leaf rung
         for name, row in (run["sync"] or {}).items():
             if not (row["partial"] and row["err"] <= row["bound"]
-                    < row["max_abs"]):
+                    < row["max_abs"] or row["summed"]):
                 raise AssertionError(f"{key}: sync of {name}: {row}")
+        if run["sync"] and not any(row["partial"]
+                                   for row in run["sync"].values()):
+            raise AssertionError(f"{key}: the ring rang no leaf")
     ratio = _change_ratio(runs_k)
     if not exact and not ratio <= SPMD_DELTA_RATIO:
         raise AssertionError(f"{key}: the parameters' change is "
@@ -4876,10 +4917,10 @@ def spmd_lr_probe(lcfg=None) -> None:
 
 
 def phase_spmd(lcfg=None, scfg=None, gcfg=None, workdir=None) -> dict:
-    """spmd_ring, spmd_train, spmd_moe and spmd_decode: the references on
-    this process, then SPMD_WORLD spawned ranks on the card running all
-    four; one line each.  Returns each phase's launches, summed over the
-    ranks."""
+    """spmd_ring, spmd_train, spmd_moe, spmd_decode, spmd_families and
+    spmd_fsdp: the references on this process, then SPMD_WORLD spawned
+    ranks on the card running them all; one line each.  Returns each
+    phase's launches, summed over the ranks."""
     from repro_torch.launch.ranks import run_ranks
     t_all = time.perf_counter()
     lcfg = lcfg or get_config("llama3.2-3b").replace(n_layers=SPMD_LAYERS)
@@ -4898,6 +4939,9 @@ def phase_spmd(lcfg=None, scfg=None, gcfg=None, workdir=None) -> dict:
     t1 = time.perf_counter()
     spec["families"] = _fam_references(workdir)
     fam_ref_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    spec["fsdp"] = _fsdp_references()
+    fsdp_ref_s = time.perf_counter() - t1
     ref_s = time.perf_counter() - t0
     gc.collect()
     if DEV == "cuda":
@@ -5113,6 +5157,7 @@ def phase_spmd(lcfg=None, scfg=None, gcfg=None, workdir=None) -> dict:
           **common})
     for name, f in spec["families"].items():
         _hold_family(name, f, [r["spmd_families"][name] for r in ranks])
+    runs["spmd_fsdp"] = _fsdp_phase(spec, ranks, fsdp_ref_s, common, depth)
     emit({"phase": "spmd_walls", "total_s": time.perf_counter() - t_all,
           "references_s": ref_s, "ranks_s": ranks_s,
           "by_phase_s": {p: ranks[0][p]["wall_s"] for p in ranks[0]}})
@@ -5208,7 +5253,7 @@ def _fam_launches(cfg, train: bool, remat: bool = False) -> dict:
         want["ssd_scan"] = cfg.n_layers * twice
     if cfg.family == "hybrid":
         want["flash_attention"] = n_sites(cfg)      # the shared block: no remat
-    if cfg.family in ("vlm", "vla"):
+    if cfg.family in ("dense", "vlm", "vla"):
         want["flash_attention"] = cfg.n_layers * twice
     if cfg.family == "audio":
         want["flash_attention"] = cfg.n_dec_layers * twice
@@ -5219,7 +5264,7 @@ def _fam_attn_layers(cfg) -> int:
     """Layers whose decode step runs B6."""
     if cfg.family == "hybrid":
         return n_sites(cfg)
-    if cfg.family == "vlm":
+    if cfg.family in ("dense", "vlm"):
         return cfg.n_layers
     return cfg.n_dec_layers if cfg.family == "audio" else 0
 
@@ -5228,7 +5273,7 @@ def family_shapes() -> dict:
     """The local shapes spmd_families gives B5 (B, S, H, KV, D, dtype), B6
     (B, H, KV, T, D, dtype) and B7 (B, T, H, P, N, chunk, dtype) on one
     rank: the bf16 train steps on data 2 x model 2, the float32 decode
-    with model 2 and 4."""
+    with model 2 and 4; and spmd_fsdp's (``fsdp_shapes``)."""
     bf, f32 = torch.bfloat16, torch.float32
     fa, da, ssd = [], [], []
     for name in FAM_DEPTH:
@@ -5250,6 +5295,10 @@ def family_shapes() -> dict:
             fa.append((B, S, H // n, KV // n, hd, dt))
             if dt == f32:
                 da.append((B, H // n, KV // n, S + FAM_STEPS, hd, dt))
+    fsdp = fsdp_shapes()
+    fa += fsdp["flash_attention"]
+    da += fsdp["decode_attention"]
+    ssd += fsdp["ssd_scan"]
     return {k: list(dict.fromkeys(v)) for k, v in (
         ("flash_attention", fa), ("decode_attention", da), ("ssd_scan", ssd))}
 
@@ -5289,37 +5338,37 @@ def family_kernel_cases(ssd_err, attn_cases, dec_cases) -> dict:
                 for B, T, H, P, N, Q, dt in sh["ssd_scan"]]}
 
 
-def _fam_decode_batch(cfg, seed: int) -> dict:
-    """A float32 decode request of batch 1: FAM_PROMPT tokens (and the
+def _fam_decode_batch(cfg, seed: int, rows: int = 1) -> dict:
+    """A float32 decode request of ``rows`` rows: FAM_PROMPT tokens (and the
     VLM's vision embeddings), or seamless's FAM_PROMPT frames and a
     FAM_ENCDEC_PREFIX-token prefix."""
     rng = np.random.default_rng(seed)
     S = FAM_ENCDEC_PREFIX if cfg.family == "audio" else FAM_PROMPT
-    out = {"tokens": rng.integers(0, cfg.vocab_size, (1, S)).astype(
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (rows, S)).astype(
         np.int32)}
     if cfg.family == "audio":
         out["frames"] = rng.standard_normal(
-            (1, FAM_PROMPT, cfg.d_model)).astype(np.float32)
+            (rows, FAM_PROMPT, cfg.d_model)).astype(np.float32)
     if cfg.family == "vlm":
         out["vision"] = rng.standard_normal(
-            (1, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+            (rows, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
     return out
 
 
-def _fam_greedy(model, batch, prefill, step, wall=None):
-    """Prefill ``batch`` and FAM_STEPS greedy steps (``prefill`` /
-    ``step`` run them, on the mesh or not): the tokens, each step's last
-    logits, the step walls and the prefill's and the steps' launches."""
+def _fam_greedy(model, batch, prefill, step, wall=None, steps=FAM_STEPS):
+    """Prefill ``batch`` and ``steps`` greedy steps (``prefill`` / ``step``
+    run them, on the mesh or not): the tokens, each step's last logits,
+    the step walls and the prefill's and the steps' launches."""
     S, V = batch["tokens"].shape[1], model.cfg.vocab_size
     _reset_counts()
     t0 = time.perf_counter()
-    logits, cache = prefill(batch, S + FAM_STEPS)
+    logits, cache = prefill(batch, S + steps)
     prefill_ms = wall(t0) if wall else None
     prefill_counts = _counts()
     _reset_counts()
     # the real vocabulary: the table's pad rows are masked to -1e30
     last, toks, walls = [logits[:, -1, :V].float()], [], []
-    for i in range(FAM_STEPS):
+    for i in range(steps):
         cur = torch.argmax(last[-1], -1)[:, None].to(torch.int32).cpu()
         toks.append(cur)
         t0 = time.perf_counter()
@@ -5332,8 +5381,30 @@ def _fam_greedy(model, batch, prefill, step, wall=None):
             "prefill_launches": prefill_counts, "launches": _counts()}
 
 
+def _fam_decode_ref(cfg, seed: int, batch: dict, steps: int = FAM_STEPS
+                    ) -> dict:
+    """One rank's float32 greedy decode of ``batch``, on this process, from
+    ``cfg``'s parameters drawn from ``seed``: what ``_fam_decode_run``
+    draws again on the ranks and is held against (``_hold_decode``)."""
+    dcfg = cfg.replace(dtype="float32")
+    model = build(dcfg)
+    params = _fam_params(model, dcfg, seed, DEV, f32=True)
+    kw = {"src_len": batch["frames"].shape[1]} if "frames" in batch else {}
+    with torch.no_grad():
+        ref = _fam_greedy(
+            model, batch,
+            lambda b, n: prefill_and_pad(model, params, to_device(b, DEV),
+                                         n, **kw),
+            lambda cache, cur, pos: model.decode(params, cache, cur.to(DEV),
+                                                 pos), steps=steps)
+    return {"decode_seed": seed, "decode_batch": batch,
+            "decode_steps": steps, "ref_tokens": ref["tokens"],
+            "ref_logits": ref["logits"].cpu()}
+
+
 def _fam_decode_run(spec, mesh, cfg, rules, f) -> dict:
-    """The float32 greedy decode of spmd_families on ``mesh``."""
+    """The float32 greedy decode of ``f`` (``_fam_decode_ref``) on
+    ``mesh`` under ``rules``."""
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.models.sharding import distribute_tree, use_mesh
     dev = spec["dev"]
@@ -5358,11 +5429,13 @@ def _fam_decode_run(spec, mesh, cfg, rules, f) -> dict:
             return logits.full_tensor(), cache
 
         out = _fam_greedy(model, batch_np, prefill, step,
-                          lambda t0: _spmd_barrier_wall(dev, t0))
+                          lambda t0: _spmd_barrier_wall(dev, t0),
+                          f["decode_steps"])
     out["logits"] = out["logits"].cpu() if mesh.device_mesh.get_rank() == 0 \
         else None
     out["b5_shapes"] = sorted(set(seen["b5"]))
     out["b7_shapes"] = sorted(set(seen["b7"]))
+    out["b6_shapes"] = sorted(set(seen["b6"]))
     return out
 
 
@@ -5417,8 +5490,7 @@ def _fam_references(workdir) -> dict:
         cfg = _fam_cfg(name)
         model = build(cfg)
         seed = SEED + 300 + 10 * i
-        f = {"cfg": cfg, "seed": seed, "decode_seed": seed + 5,
-             "depth": _fam_depth(name, cfg),
+        f = {"cfg": cfg, "seed": seed, "depth": _fam_depth(name, cfg),
              "train_batch": _family_batch(cfg, seed + 3, FAM_TRAIN_BATCH,
                                           FAM_TRAIN_SEQ)}
         state = init_state(_fam_params(model, cfg, seed, DEV))
@@ -5451,23 +5523,8 @@ def _fam_references(workdir) -> dict:
                           for k, v in _flat(sstate.params).items()}
         del sstate, sstep, small
         if name in FAM_SERVED:
-            dcfg = cfg.replace(dtype="float32")
-            dmodel = build(dcfg)
-            params = _fam_params(dmodel, dcfg, f["decode_seed"], DEV,
-                                 f32=True)
-            f["decode_batch"] = _fam_decode_batch(dcfg, seed + 7)
-            kw = ({"src_len": FAM_PROMPT} if dcfg.family == "audio"
-                  else {})
-            with torch.no_grad():
-                ref = _fam_greedy(
-                    dmodel, f["decode_batch"],
-                    lambda batch, n: prefill_and_pad(
-                        dmodel, params, to_device(batch, DEV), n, **kw),
-                    lambda cache, cur, pos: dmodel.decode(
-                        params, cache, cur.to(DEV), pos))
-            f["ref_tokens"], f["ref_logits"] = ref["tokens"], \
-                ref["logits"].cpu()
-            del params
+            f.update(_fam_decode_ref(cfg, seed + 5,
+                                     _fam_decode_batch(cfg, seed + 7)))
         out[name] = f
         gc.collect()
         if DEV == "cuda":
@@ -5507,25 +5564,8 @@ def _family_summary(f, runs, launches) -> dict:
                            "one_rank_losses": f["small_losses"],
                            "param_max_abs_err": max(
                                g["param_max_abs_err"] for g in gate)}}
-    serve = {}
-    for key in ("model2", "model4"):
-        if key not in runs[0]:
-            continue
-        d = runs[0][key]
-        serve[key] = {"tokens_equal": [torch.equal(r[key]["tokens"],
-                                                   f["ref_tokens"])
-                                       for r in runs],
-                      "logits_max_abs_err": float(
-                          (d["logits"] - f["ref_logits"]).abs().max()),
-                      "logits_max_abs": float(f["ref_logits"].abs().max()),
-                      "prefill_ms": d["prefill_ms"],
-                      "step_ms_median": statistics.median(d["step_ms"]),
-                      "prefill_launches": {
-                          k: v for k, v in d["prefill_launches"].items()
-                          if v},
-                      "step_b6_per_rank": [r[key]["launches"][
-                          "decode_attention"] for r in runs],
-                      "b5_local": d["b5_shapes"], "b7_local": d["b7_shapes"]}
+    serve = {key: _decode_summary(f, [r[key] for r in runs])
+             for key in ("model2", "model4") if key in runs[0]}
     if serve:
         out["serve"] = serve
     for r in runs:
@@ -5535,6 +5575,48 @@ def _family_summary(f, runs, launches) -> dict:
                     r[key]["prefill_launches"][k] + r[key]["launches"][k]
                     for key in serve)
     return out
+
+
+def _decode_summary(f, ds) -> dict:
+    """A decode's numbers on the ranks (``ds``, rank 0's first) against one
+    rank's (``f``): the tokens on every rank, rank 0's logits, walls,
+    launches and local shapes."""
+    d = ds[0]
+    return {"tokens_equal": [torch.equal(x["tokens"], f["ref_tokens"])
+                             for x in ds],
+            "logits_max_abs_err": float(
+                (d["logits"] - f["ref_logits"]).abs().max()),
+            "logits_max_abs": float(f["ref_logits"].abs().max()),
+            "prefill_ms": d["prefill_ms"],
+            "step_ms_median": statistics.median(d["step_ms"]),
+            "prefill_launches": {k: v for k, v in
+                                 d["prefill_launches"].items() if v},
+            "step_b6_per_rank": [x["launches"]["decode_attention"]
+                                 for x in ds],
+            "b5_local": d["b5_shapes"], "b7_local": d["b7_shapes"],
+            "b6_local": d["b6_shapes"]}
+
+
+def _hold_decode(label, ds, f, cfg) -> None:
+    """A decode on the ranks (``ds``, rank 0's first) against one rank's
+    (``f``): the tokens equal on every rank, the prefill's and the steps'
+    launches exact, rank 0's logits within FAM_LOGIT_REL of the
+    largest."""
+    pre = _fam_launches(cfg, False)
+    steps = dict.fromkeys(WRAPPERS, 0)
+    steps["decode_attention"] = f["decode_steps"] * _fam_attn_layers(cfg)
+    for d in ds:
+        if not torch.equal(d["tokens"], f["ref_tokens"]):
+            raise AssertionError(f"{label} tokens {d['tokens']} "
+                                 f"!= {f['ref_tokens']}")
+        if d["prefill_launches"] != pre or d["launches"] != steps:
+            raise AssertionError(f"{label} launches "
+                                 f"{d['prefill_launches']} / "
+                                 f"{d['launches']}")
+    scale = float(f["ref_logits"].abs().max())
+    err = float((ds[0]["logits"] - f["ref_logits"]).abs().max())
+    if not err <= FAM_LOGIT_REL * scale:
+        raise AssertionError(f"{label} logits {err} of {scale}")
 
 
 def _hold_family(name, f, runs) -> None:
@@ -5566,59 +5648,348 @@ def _hold_family(name, f, runs) -> None:
                   "b7": {cfg.ssm_nheads // 2} if want["ssd_scan"] else set()}
     if DEV == "cuda" and heads != want_heads:
         raise AssertionError(f"{name} local heads {heads} != {want_heads}")
-    if name not in FAM_SERVED:
-        return
-    pre = _fam_launches(cfg, False)
-    steps = dict.fromkeys(WRAPPERS, 0)
-    steps["decode_attention"] = FAM_STEPS * _fam_attn_layers(cfg)
-    scale = float(f["ref_logits"].abs().max())
-    for key in ("model2", "model4"):
-        for r in runs:
-            d = r[key]
-            if not torch.equal(d["tokens"], f["ref_tokens"]):
-                raise AssertionError(f"{name} {key} tokens {d['tokens']} "
-                                     f"!= {f['ref_tokens']}")
-            if d["prefill_launches"] != pre or d["launches"] != steps:
-                raise AssertionError(f"{name} {key} launches "
-                                     f"{d['prefill_launches']} / "
-                                     f"{d['launches']}")
-        err = float((runs[0][key]["logits"] - f["ref_logits"]).abs().max())
-        if not err <= FAM_LOGIT_REL * scale:
-            raise AssertionError(f"{name} {key} logits {err} of {scale}")
+    if name in FAM_SERVED:
+        for key in ("model2", "model4"):
+            _hold_decode(f"{name} {key}", [r[key] for r in runs], f, cfg)
+
+
+# =============================================================== spmd_fsdp
+# The ``fsdp`` rules (ZeRO-3: every weight over data and model together on
+# one dim, the batch over all four ranks, each region on its rank's batch
+# rows with the vocabulary, heads and experts whole) on the same ranks,
+# after spmd_families in the same spawn, data 2 x model 2:
+# - Llama-3.2-3B at spmd_train's depth, batch, steps, seed and SPMD_OPT:
+#   3 bf16 steps without and 3 with the int8 ring, held against spmd_train's
+#   one-rank run by ``_hold_train_runs`` at spmd_train's limits (its sync
+#   check passes the leaves that autograd already summed, sharded over
+#   data, which the ring leaves exact);
+#   B5 on each rank's batch row with all 24 / 8 heads, 24 launches a rank
+#   a run;
+# - every reduced config in float32 at FSDP_BATCH x FSDP_SEQ (a row a rank;
+#   MoE at capacity factor 8, so that no choice drops): one
+#   ``loss_and_grads`` against one rank on the card, the loss within
+#   FSDP_REL relative and every gradient within FSDP_REL of its leaf's
+#   largest; each rank launching what one rank's step launches (B5 / B7 on
+#   its row, all heads);
+# - Llama-3.2-3B and Mamba2-1.3B at 4 layers in float32: a prefill of
+#   FAM_PROMPT tokens and FSDP_DECODE's greedy steps at batch FSDP_BATCH,
+#   held as spmd_families' decode (``_hold_decode``), B5 / B7 / B6 on each
+#   rank's row with all heads.
+FSDP_BATCH, FSDP_SEQ, FSDP_REL = 4, 16, 1e-5
+# each decode's depth and greedy steps: Llama's cut from FAM_STEPS to 4 for
+# the run's time (each of its float32 steps gathers 3.7 GB of weights
+# through the host, 4-6 s on the H100)
+FSDP_DECODE = {"llama3.2-3b": ({"n_layers": 4}, 4),
+               "mamba2-1.3b": ({"n_layers": 4}, FAM_STEPS)}
+
+
+def fsdp_shapes() -> dict:
+    """The local shapes spmd_fsdp gives B5 (B, S, H, KV, D, dtype), B6 (B,
+    H, KV, T, D, dtype) and B7 (B, T, H, P, N, chunk, dtype) at full width
+    on one rank: a batch row, every head."""
+    lcfg, mcfg = get_config("llama3.2-3b"), get_config("mamba2-1.3b")
+    H, KV, hd = lcfg.n_heads, lcfg.n_kv_heads, lcfg.resolved_head_dim
+    f32 = torch.float32
+    return {"flash_attention": [(1, SPMD_TRAIN_SEQ, H, KV, hd,
+                                 torch.bfloat16),
+                                (1, FAM_PROMPT, H, KV, hd, f32)],
+            "decode_attention": [(1, H, KV, FAM_PROMPT
+                                  + FSDP_DECODE["llama3.2-3b"][1], hd, f32)],
+            "ssd_scan": [(1, FAM_PROMPT, mcfg.ssm_nheads, mcfg.ssm_headdim,
+                          mcfg.ssm_state, mcfg.ssm_chunk, f32)]}
+
+
+def _fsdp_reduced_cfg(arch: str):
+    cfg = get_config(arch).reduced().replace(dtype="float32")
+    return cfg.replace(moe_capacity_factor=8.0) if cfg.n_experts else cfg
+
+
+def _fsdp_references() -> dict:
+    """The one-rank runs spmd_fsdp holds the ranks against, on this
+    process: every reduced config's loss and gradients, and the float32
+    greedy decode of FSDP_DECODE."""
+    reduced = {}
+    for i, arch in enumerate(sorted(ARCHS)):
+        cfg = _fsdp_reduced_cfg(arch)
+        model = build(cfg)
+        seed = SEED + 400 + 10 * i
+        params = _fam_params(model, cfg, seed, DEV, f32=True)
+        batch = _family_batch(cfg, seed + 1, FSDP_BATCH, FSDP_SEQ)
+        inject = _dit_draws(cfg, FSDP_BATCH, seed + 2)
+        loss, grads = loss_and_grads(
+            model, params, to_device(batch, DEV),
+            **{k: v.to(DEV) for k, v in inject.items()})
+        reduced[arch] = {
+            "cfg": cfg, "batch": batch, "inject": inject,
+            "params": tree_map(lambda t: t.cpu().numpy().copy(), params),
+            "loss": float(loss),
+            "grads": {k: v.cpu() for k, v in _flat(grads).items()}}
+        del params, grads
+    decode = {}
+    for i, (name, (depth, steps)) in enumerate(FSDP_DECODE.items()):
+        cfg = get_config(name).replace(dtype="float32", **depth)
+        seed = SEED + 500 + 10 * i
+        decode[name] = {"cfg": cfg, **_fam_decode_ref(
+            cfg, seed, _fam_decode_batch(cfg, seed + 1, FSDP_BATCH), steps)}
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    return {"reduced": reduced, "decode": decode}
+
+
+def _fsdp_grad_run(spec, mesh, r) -> dict:
+    """One ``loss_and_grads`` of a reduced config under the fsdp rules:
+    the loss, by leaf the largest distance of this rank's shard of the
+    gradient (reduced to its parameter's placements) from one rank's, the
+    launches and the local shapes B5 and B7 took, and the wall."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.models.sharding import (distribute_tree, make_rules,
+                                             use_mesh)
+    from repro_torch.train.train_loop import _reduce_to_params
+    dev, cfg = spec["dev"], r["cfg"]
+    model = build(cfg)
+    rules = make_rules(cfg, mesh, "train", strategy="fsdp")
+    params = tree_map(lambda a: torch.from_numpy(a).to(dev, copy=True),
+                      r["params"])
+    with use_mesh(mesh, rules), _recording_shapes() as seen:
+        pd = distribute_tree(params, model.param_specs, mesh, rules)
+        del params
+        batch = shard_batch(r["batch"], mesh, rules)
+        _reset_counts()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(
+            model, pd, batch, **{k: v.to(dev) for k, v in r["inject"].items()})
+        grads = _reduce_to_params(grads, pd)
+        wall = _spmd_barrier_wall(dev, t0)
+        counts = _counts()
+        errs = {name: float((g.to_local() - _local_slice(
+            r["grads"][name], g).to(dev)).abs().max())
+            for name, g in _flat(grads).items()}
+    return {"loss": float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                          else loss), "errs": errs,
+            "launches": counts, "b5_shapes": sorted(set(seen["b5"])),
+            "b7_shapes": sorted(set(seen["b7"])), "wall_ms": wall}
+
+
+def spmd_fsdp_rank(rank, spec) -> dict:
+    """spmd_fsdp on this rank: data 2 x model 2 under the fsdp rules."""
+    from repro_torch.launch import host_group
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import make_rules
+    dev, lcfg, f = spec["dev"], spec["lcfg"], spec["fsdp"]
+    mesh = make_mesh((2, 2), ("data", "model"), dev)
+    model = build(lcfg)
+    out, staged = {}, {}
+
+    def counted(key, run):              # the host bytes each run stages
+        before = dict(host_group.STAGED)
+        result = run()
+        staged[key] = {k: v - before[k] for k, v in host_group.STAGED.items()}
+        gc.collect()
+        return result
+
+    ref = torch.load(spec["train_ref"], mmap=True)
+    for compression in (None, "int8_ring"):
+        out[str(compression)] = counted(str(compression), lambda: (
+            _spmd_train_run(spec, mesh, lcfg, init_params(
+                model.param_specs, gen(SEED + 210), dev),
+                spec["train_batch"], SPMD_TRAIN_STEPS, compression, ref,
+                SPMD_OPT, want_shapes=True, strategy="fsdp")))
+    del ref
+    out["reduced"] = counted("reduced", lambda: {
+        arch: _fsdp_grad_run(spec, mesh, r)
+        for arch, r in f["reduced"].items()})
+    out["decode"] = {name: counted("decode " + name, lambda: _fam_decode_run(
+        spec, mesh, d["cfg"], make_rules(d["cfg"], mesh, "prefill",
+                                         strategy="fsdp"), d))
+        for name, d in f["decode"].items()}
+    out["staged_by_run"] = staged
+    return out
+
+
+def _fsdp_phase(spec, ranks, ref_s, common, depth) -> dict:
+    """spmd_fsdp's line, then its checks; returns its launches summed over
+    the ranks."""
+    lcfg, f = spec["lcfg"], spec["fsdp"]
+    runs = [r["spmd_fsdp"] for r in ranks]
+    H, KV = lcfg.n_heads, lcfg.n_kv_heads
+    want_b5 = SPMD_TRAIN_STEPS * lcfg.n_layers * (2 if lcfg.remat else 1)
+    train = {}
+    for key in ("None", "int8_ring"):
+        rk = [r[key] for r in runs]
+        train[key] = {
+            "losses": rk[0]["losses"],
+            "one_rank_losses": spec["train_ref_losses"],
+            "grad_norms": rk[0]["norms"],
+            "one_rank_grad_norms": spec["train_ref_norms"],
+            "delta_ratio": _change_ratio(rk),
+            "param_max_abs_err": max(x["param_max_abs_err"] for x in rk),
+            "sync_rung_leaves": (sum(row["partial"] for row in
+                                     rk[0]["sync"].values())
+                                 if rk[0]["sync"] else None),
+            "sync_summed_leaves": (sum(row["summed"] for row in
+                                       rk[0]["sync"].values())
+                                   if rk[0]["sync"] else None),
+            "sync_err_over_bound_max": max(
+                (row["err"] / row["bound"] for x in rk if x["sync"]
+                 for row in x["sync"].values() if row["partial"]),
+                default=None),
+            "step_ms": rk[0]["walls_ms"],
+            "tokens_per_s": SPMD_TRAIN_BATCH * SPMD_TRAIN_SEQ
+            / statistics.median(rk[0]["walls_ms"]) * 1e3,
+            "b5_launches_per_rank": [x["launches"]["flash_attention"]
+                                     for x in rk],
+            "b5_local": rk[0]["b5_shapes"]}
+    reduced = {}
+    for arch, r in f["reduced"].items():
+        rr = [x["reduced"][arch] for x in runs]
+        scale = {k: float(g.abs().max()) for k, g in r["grads"].items()}
+        reduced[arch] = {
+            "loss": rr[0]["loss"], "one_rank_loss": r["loss"],
+            "grad_err_over_leaf_max": max(
+                x["errs"][k] / scale[k] for x in rr for k in scale
+                if scale[k] > 0),
+            "wall_ms": rr[0]["wall_ms"],
+            "launches_per_rank": {k: v for k, v in rr[0]["launches"].items()
+                                  if v},
+            "b5_local": rr[0]["b5_shapes"], "b7_local": rr[0]["b7_shapes"]}
+    decode = {name: dict(_decode_summary(d, [x["decode"][name]
+                                             for x in runs]),
+                         steps=d["decode_steps"])
+              for name, d in f["decode"].items()}
+    emit({"phase": "spmd_fsdp", "rules": "make_rules(strategy='fsdp')",
+          "mesh": {"data": 2, "model": 2}, "batch_over": ["data", "model"],
+          "train": {"model": "llama3.2-3b", "depth": depth,
+                    "reduced": ["n_layers 28 -> 4"],
+                    "batch": SPMD_TRAIN_BATCH, "seq": SPMD_TRAIN_SEQ,
+                    "steps": SPMD_TRAIN_STEPS,
+                    "opt": {"lr": SPMD_OPT.lr,
+                            "warmup_steps": SPMD_OPT.warmup_steps},
+                    "runs": train},
+          "reduced_f32": {"batch": FSDP_BATCH, "seq": FSDP_SEQ,
+                          "moe_capacity_factor": 8.0, "configs": reduced},
+          "decode": {"dtype": "float32", "depth": "4 layers",
+                     "batch": FSDP_BATCH, "prompt": FAM_PROMPT,
+                     "runs": decode},
+          "tolerances": {"train": "spmd_train's (_hold_train_runs); the "
+                                  "sync: rung leaves within the ring's "
+                                  "bound, the others sharded over data",
+                         "reduced_f32": f"loss {FSDP_REL} relative, each "
+                                        f"gradient {FSDP_REL} x its leaf's "
+                                        "max",
+                         "decode": "tokens equal to one rank's, logits "
+                                   f"{FAM_LOGIT_REL} x max|logit|"},
+          "staged_by_run_rank0": runs[0]["staged_by_run"],
+          "fsdp_references_s": ref_s,
+          "wall_s": ranks[0]["spmd_fsdp"]["wall_s"],
+          "staged": ranks[0]["spmd_fsdp"]["staged"],
+          "peak_gb_rank0": ranks[0]["spmd_fsdp"].get("peak_gb"), **common})
+
+    # ---- the checks: train
+    for key in ("None", "int8_ring"):
+        rk = [r[key] for r in runs]
+        _hold_train_runs(f"fsdp {key}", rk, spec["train_ref_losses"],
+                         spec["train_ref_norms"], False, False)
+        for x in rk:
+            if x["launches"]["flash_attention"] != want_b5 or any(
+                    v for k, v in x["launches"].items()
+                    if k != "flash_attention"):
+                raise AssertionError(f"fsdp {key}: launches {x['launches']}")
+        b5 = {s for x in rk for s in x["b5_shapes"]}
+        if DEV == "cuda" and b5 != {((1, SPMD_TRAIN_SEQ, H,
+                                      lcfg.resolved_head_dim),
+                                     (1, SPMD_TRAIN_SEQ, KV,
+                                      lcfg.resolved_head_dim))}:
+            raise AssertionError(f"fsdp {key}: B5 local shapes {b5}")
+    # ---- every reduced config
+    for arch, r in f["reduced"].items():
+        cfg = r["cfg"]
+        want = _train_want(cfg)
+        for x in [y["reduced"][arch] for y in runs]:
+            if not abs(x["loss"] - r["loss"]) <= FSDP_REL * abs(r["loss"]):
+                raise AssertionError(f"fsdp {arch}: loss {x['loss']} != "
+                                     f"{r['loss']}")
+            for k, g in r["grads"].items():
+                if not x["errs"][k] <= FSDP_REL * float(g.abs().max()):
+                    raise AssertionError(f"fsdp {arch}: gradient {k} "
+                                         f"{x['errs'][k]} off")
+            if x["launches"] != want:
+                raise AssertionError(f"fsdp {arch}: launches "
+                                     f"{x['launches']} != {want}")
+            rows_heads = all(q[0] == 1 and q[2] == cfg.n_heads
+                             for q, _ in x["b5_shapes"]) and all(
+                s[0] == 1 and s[2] == cfg.ssm_nheads for s in x["b7_shapes"])
+            if DEV == "cuda" and not rows_heads:
+                raise AssertionError(f"fsdp {arch}: local shapes "
+                                     f"{x['b5_shapes']} {x['b7_shapes']}")
+    # ---- decode: as spmd_families', and each rank on its row, all heads
+    for name, d in f["decode"].items():
+        cfg, ds = d["cfg"], [y["decode"][name] for y in runs]
+        _hold_decode(f"fsdp {name}", ds, d, cfg)
+        attn = cfg.family != "ssm"
+        want = ({(1, cfg.n_heads, cfg.n_kv_heads)} if attn
+                else {(1, cfg.ssm_nheads)})
+        for x in ds:
+            heads = ({(q[0], q[2], k[2]) for q, k in x["b5_shapes"]}
+                     | {(q[0], q[1], k[1]) for q, k in x["b6_shapes"]}
+                     if attn else {(s[0], s[2]) for s in x["b7_shapes"]})
+            if DEV == "cuda" and heads != want:
+                raise AssertionError(f"fsdp {name}: local heads {heads}")
+    return _sum_ranks(ranks, lambda r: {
+        k: sum(r["spmd_fsdp"][key]["launches"][k]
+               for key in ("None", "int8_ring"))
+        + sum(x["launches"][k] for x in r["spmd_fsdp"]["reduced"].values())
+        + sum(x["prefill_launches"][k] + x["launches"][k]
+              for x in r["spmd_fsdp"]["decode"].values())
+        for k in WRAPPERS})
 
 
 # ================================================================= dryrun
 # The dry run (``launch/dryrun.py``): one step of a cell on fake tensors
 # over a fake process group of the production mesh's size, on this
-# machine's CPU (no card), each cell its own process, the three at once.
+# machine's CPU (no card), each cell its own process, the four at once
+# and beside the kernels' build (``main``).
 # What it prices are estimates from the H100 SXM data sheet, not
-# measurements; it runs here for this torch's DTensor.
-DRYRUN_CELLS = (("mamba2-1.3b", "long_500k", "multi"),
-                ("llama3.2-3b", "train_4k", "single"),
-                (DEEPSEEK, "decode_32k", "single"))
+# measurements; it runs here for this torch's DTensor.  The fourth cell is
+# the second under the fsdp rules with the int8 ring on the gradients.
+# Each cell: (arch, shape, mesh, the CLI's other flags, the artifact tag).
+DRYRUN_CELLS = (("mamba2-1.3b", "long_500k", "multi", (), ""),
+                ("llama3.2-3b", "train_4k", "single", (), ""),
+                (DEEPSEEK, "decode_32k", "single", (), ""),
+                ("llama3.2-3b", "train_4k", "single",
+                 ("--strategy", "fsdp", "--grad-compression", "int8_ring"),
+                 "fsdp_int8_ring"))
 
 
-def phase_dryrun() -> dict:
-    """Each of DRYRUN_CELLS through ``python -m repro_torch.launch.dryrun``:
-    status ``ok``, rank 0's parameter bytes on the fake mesh (and a train
-    cell's ZeRO-1 moments) equal to the analytic residency's; one line with
-    each cell's residency, roofline terms and collectives."""
-    t0 = time.perf_counter()
+def start_dryrun() -> tuple:
+    """DRYRUN_CELLS' processes, started: (their start time, the processes,
+    the artifacts' directory)."""
     out_dir = os.path.join(_build.build_dir(), "dryrun")
     env = dict(os.environ, PYTHONPATH=_src_dir(), CUDA_VISIBLE_DEVICES="")
-    procs = [subprocess.Popen(
+    return time.perf_counter(), [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
-         "--shape", sh, "--mesh", m, "--out", out_dir, "--force"],
+         "--shape", sh, "--mesh", m, "--out", out_dir, "--force",
+         *flags, *(("--tag", tag) if tag else ())],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for a, sh, m in DRYRUN_CELLS]
+        text=True) for a, sh, m, flags, tag in DRYRUN_CELLS], out_dir
+
+
+def phase_dryrun(started: tuple = None) -> dict:
+    """Each of DRYRUN_CELLS through ``python -m repro_torch.launch.dryrun``
+    (``started`` by ``start_dryrun``, or here): status ``ok``, rank 0's
+    parameter bytes on the fake mesh (and a train cell's ZeRO-1 moments)
+    equal to the analytic residency's; one line with each cell's
+    residency, roofline terms and collectives."""
+    t0, procs, out_dir = started or start_dryrun()
     logs = [p.communicate(timeout=900)[0] for p in procs]
     cells = []
-    for (a, sh, m), p, log in zip(DRYRUN_CELLS, procs, logs):
+    for (a, sh, m, flags, tag), p, log in zip(DRYRUN_CELLS, procs, logs):
         if p.returncode != 0:
-            raise AssertionError(f"dryrun {a} {sh} {m}: exit "
+            raise AssertionError(f"dryrun {a} {sh} {m} {flags}: exit "
                                  f"{p.returncode}\n{log[-3000:]}")
         mesh = "2x16x16" if m == "multi" else "16x16"
-        with open(os.path.join(out_dir, f"{a}__{sh}__{mesh}.json")) as f:
+        name = f"{a}__{sh}__{mesh}" + (f"__{tag}" if tag else "")
+        with open(os.path.join(out_dir, name + ".json")) as f:
             res = json.load(f)
         if res["status"] != "ok":
             raise AssertionError(f"dryrun {a} {sh} {mesh}: {res}")
@@ -5629,8 +6000,9 @@ def phase_dryrun() -> dict:
                 if k in want):
             raise AssertionError(f"dryrun {a} {sh} {mesh}: rank 0 holds "
                                  f"{have}, the analytic residency {want}")
-        cells.append({k: res[k] for k in (
-            "arch", "shape", "mesh", "n_devices", "status", "step_s",
+        cells.append({"flags": list(flags)} | {k: res[k] for k in (
+            "arch", "shape", "mesh", "n_devices", "status", "strategy",
+            "step_s",
             "analytic_residency_per_device", "roofline", "model_flops",
             "useful_flops_ratio")} | {
             "per_device": {k: res["per_device"][k] for k in (
@@ -5668,8 +6040,8 @@ def main() -> None:
                          "train_families")
     ap.add_argument("--spmd-only", action="store_true",
                     help="run only the SPMD phases: spmd_ring, spmd_train, "
-                         "spmd_moe, spmd_decode and spmd_families on "
-                         "SPMD_WORLD ranks")
+                         "spmd_moe, spmd_decode, spmd_families and "
+                         "spmd_fsdp on SPMD_WORLD ranks")
     ap.add_argument("--dryrun-only", action="store_true",
                     help="run only the dry run's cells (DRYRUN_CELLS) on "
                          "fake process groups")
@@ -5731,7 +6103,9 @@ def main() -> None:
         cfg = cfg.replace(vit_layers=args.vit_layers)
         cogact = cogact.replace(vit_layers=args.vit_layers)
 
+    dryrun = start_dryrun()
     phase_build()
+    phase_dryrun(dryrun)
     kernels = phase_kernels(cfg, get_config("llama3.2-3b"),
                             get_config("mamba2-1.3b"),
                             get_config("zamba2-1.2b"),
@@ -5800,7 +6174,6 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     runs.update(phase_spmd())
-    phase_dryrun()
     phase_examples()
 
     print(env["nvidia_smi"], flush=True)

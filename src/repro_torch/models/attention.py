@@ -30,11 +30,14 @@ each rank's heads (:func:`_flash_local`, :func:`_tp_decode`), as do the
 plain products of non-causal and cross attention (:func:`_sdpa_local`;
 cross K/V and their caches sharded on the KV heads as the self caches
 are): q is
-``(B, S, H/n, hd)`` over a ``model`` axis of n ranks, K/V ``(B, S, KV/n,
-hd)`` where n divides KV — the kernels' query head h then reads K/V head
-``h // (H/KV)`` locally too — and otherwise each rank is handed the K/V
-heads its own query heads read (the JAX package pads instead).
-``cfg.decode_attn="sp"`` shards the cache on the sequence over ``model``
+``(B, S, H/n, hd)`` over the rules' head axis (``model`` under ``tp``)
+of n ranks, K/V ``(B, S, KV/n, hd)`` where n divides KV — the kernels'
+query head h then reads K/V head ``h // (H/KV)`` locally too — and
+otherwise each rank is handed the K/V heads its own query heads read (the
+JAX package pads instead).  Under ``fsdp`` the rules keep the heads whole
+and each rank runs all of them on its batch rows.
+``cfg.decode_attn="sp"`` shards the cache on the sequence over the rules'
+``cache_seq_sp`` axis
 (:func:`_sp_flash_decode`: local plain products, one ``pmax`` and two
 ``psum`` s a layer, as in the JAX package, which has no kernel there).
 
@@ -57,10 +60,10 @@ from ..kernels.decode_attention import ops as da_ops
 from ..kernels.flash_attention import ops as fa_ops
 from .layers import (_common, _use_int8_ring, apply_rope, dense,
                      int8_ring_proj, linear_spec, rmsnorm)
-from .sharding import (P, act_axis, act_shards, bound_mesh,
-                       check_placements, contiguous_grad, is_dtensor,
-                       local_region, placements, pmax, psum, resolve, shard,
-                       spec)
+from .sharding import (P, act_axis, act_shards, axis_rank, axis_size,
+                       bound_mesh, check_placements, contiguous_grad,
+                       is_dtensor, local_region, pending, placements, pmax,
+                       psum, resolve, shard, shard_both, spec)
 
 
 # ============================================================== specs
@@ -199,12 +202,23 @@ def _qkv(cfg, p, x):
     v = dense(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    B, S = x.shape[:2]
-    q = _split_heads(q, H, hd)
-    if is_dtensor(k) and bound_mesh() is not None and not _model_divides(KV):
-        # a rank's columns of K/V are not whole heads: replicate them
-        k, v = (shard(t, "batch", "seq", None) for t in (k, v))
-    return q, k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
+    # K/V on the query heads' axis where it divides them; where it does
+    # not, a rank's columns are not whole heads: replicate them
+    ax = "act_heads" if _heads_divide(KV) else None
+    return (_split_heads(q, H, hd), _to_heads(k, KV, hd, ax),
+            _to_heads(v, KV, hd, ax))
+
+
+def _to_heads(t: torch.Tensor, n: int, hd: int, ax: Optional[str]
+              ) -> torch.Tensor:
+    """(B, S, n*hd) -> (B, S, n, hd), the heads on the rules' activation
+    axis ``ax`` (``None``: whole).  The columns are placed before the
+    reshape and the gradient after it: a reshape cannot split a shard that
+    is not whole heads, and under ``fsdp`` a product may leave its columns,
+    or its gradient, sharded over every rank."""
+    B, S = t.shape[:2]
+    t = shard(t, "batch", "seq", ax)
+    return shard_both(t.reshape(B, S, n, hd), "batch", "seq", ax, None)
 
 
 def _uneven_heads(H: int) -> bool:
@@ -225,7 +239,7 @@ def _split_heads(t: torch.Tensor, H: int, hd: int) -> torch.Tensor:
                           device=t.device)
         t = torch.cat([t, pad], dim=2)
         return shard(t, "batch", "seq", "act_heads", None)
-    return shard(t.reshape(B, S, H, hd), "batch", "seq", "act_heads", None)
+    return _to_heads(t, H, hd, "act_heads")
 
 
 def _merge_heads(out: torch.Tensor, H: int) -> torch.Tensor:
@@ -238,13 +252,16 @@ def _merge_heads(out: torch.Tensor, H: int) -> torch.Tensor:
         out = shard(out, "batch", "seq", None, None)
         return out.reshape(B, S, -1)[:, :, :H * hd]
     out = shard(out, "batch", "seq", "act_heads", None)
-    return out.reshape(B, S, -1)
+    # placed after the flatten too, so that its gradient reaches the
+    # flatten in whole heads (the output projection's may come back
+    # sharded over every rank under ``fsdp``)
+    return shard_both(out.reshape(B, S, -1), "batch", "seq", "act_heads")
 
 
 def _out_proj(out2d: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """Attention output projection; int8-ring TP combine when enabled."""
-    if _use_int8_ring():
-        return int8_ring_proj(out2d, wo)
+    if _use_int8_ring("act_heads"):
+        return int8_ring_proj(out2d, wo, "act_heads")
     return dense(out2d, wo)
 
 
@@ -257,15 +274,14 @@ def _local_kv_heads(k: torch.Tensor, H: int, KV: int, Hl: int
     """The K/V heads (dim 2 of a full-head ``(B, T, KV, hd)`` tensor) that
     this rank's ``Hl`` query heads read, one per query head (a pad head,
     past the ``H`` real ones, reads the last)."""
-    start = bound_mesh().local_rank("model") * Hl
+    start = axis_rank(act_axis("act_heads")) * Hl
     idx = (start + torch.arange(Hl, device=k.device)) // (H // KV)
     return k.index_select(2, idx.clamp(max=KV - 1))
 
 
-def _model_divides(n_heads: int) -> bool:
-    m = bound_mesh()
-    n = m.shape.get("model", 1)
-    return n_heads % n == 0
+def _heads_divide(n_heads: int, name: str = "act_heads") -> bool:
+    """Whether the rules' mesh axis for ``name`` divides ``n_heads``."""
+    return n_heads % act_shards(name) == 0
 
 
 def _attend(q, k, v, *, causal=False, q_pos=None):
@@ -309,13 +325,14 @@ def _sdpa_local(q, k, v, H, *, causal=False, q_pos=None):
 
 def _flash_local(cfg, q, k, v):
     """Causal flash attention (B5) on each rank's heads: q (B, S, H, D), k/v
-    (B, S, KV, D) DTensors -> (B, S, H, Dv) sharded on heads over
-    ``model`` (``torch.chunk``'s split where ``model`` does not divide
-    H)."""
+    (B, S, KV, D) DTensors -> (B, S, H, Dv) sharded on heads over the
+    rules' ``act_heads`` axis (q's heads padded by :func:`_split_heads`
+    where it does not divide H).  Where the rules keep the heads whole
+    (``fsdp``) each rank runs all of them on its own batch rows."""
     H, KV = cfg.n_heads, k.shape[2]
-    b = _batch_rule()
-    even = _model_divides(KV)
-    kv_spec = P(b, None, "model" if even else None, None)
+    ax, b = act_axis("act_heads"), _batch_rule()
+    even = _heads_divide(KV)
+    kv_spec = P(b, None, ax if even else None, None)
 
     def local(q_, k_, v_):
         q_, k_, v_ = (contiguous_grad(t) for t in (q_, k_, v_))
@@ -325,9 +342,9 @@ def _flash_local(cfg, q, k, v):
         # contiguous: DTensor takes the local shard's strides as its own
         return fa_ops.flash_attention(q_, k_, v_, causal=True).contiguous()
 
-    qs = P(b, None, "model", None)
+    qs = P(b, None, ax, None)
     return local_region(local, qs, (qs, kv_spec, kv_spec),
-                        partial_grad=() if even else ("model",))(q, k, v)
+                        partial_grad=() if even else pending(ax))(q, k, v)
 
 
 def attn_forward(cfg, p, x, positions, *, causal=True, rope=True,
@@ -355,7 +372,7 @@ def attn_forward(cfg, p, x, positions, *, causal=True, rope=True,
     y = _out_proj(_merge_heads(out, cfg.n_heads), p["wo"])
     if return_kv:
         cax = "cache_seq_sp" if cfg.decode_attn == "sp" else None
-        kax = None if cax else "kv_heads"
+        kax = None if cax else "cache_kv_heads"
         return y, {"k": shard(k.reshape(B, S, -1), "batch", cax, kax),
                    "v": shard(v.reshape(B, S, -1), "batch", cax, kax)}
     return y
@@ -400,20 +417,22 @@ def attn_decode(cfg, p, x, pos, cache: Dict):
 
 
 def _tp_decode(cfg, q, kc, vc, k_new, v_new, positions):
-    """One token against a cache sharded on its flat KV*hd dim over
-    ``model`` (``decode_attn="tp"``): each rank writes its columns of the
-    new K/V into its shard in place and runs flash-decode (B6) on its
-    query heads.  Where ``model`` does not divide KV a rank's columns are
-    not whole heads: the shards are gathered over ``model`` and each rank
-    takes the K/V heads its query heads read."""
+    """One token against a cache sharded on its flat KV*hd dim over the
+    rules' ``cache_kv_heads`` axis (``decode_attn="tp"``): each rank writes
+    its columns of the new K/V into its shard in place and runs
+    flash-decode (B6) on its query heads (the rules' ``act_heads``).
+    Where that axis does not divide KV a rank's columns are not whole
+    heads: the shards are gathered over it and each rank takes the K/V
+    heads its query heads read.  Where the rules keep both whole
+    (``fsdp``) each rank runs all heads on its own batch rows."""
     B, hd = q.shape[0], q.shape[3]
     H, KV = cfg.n_heads, cfg.n_kv_heads
     m = bound_mesh()
-    b = _batch_rule()
-    cs, qs = P(b, None, "model"), P(b, None, "model", None)
+    b, cax = _batch_rule(), act_axis("cache_kv_heads")
+    cs, qs = P(b, None, cax), P(b, None, act_axis("act_heads"), None)
     check_placements(kc, placements(cs, m), "cache")
     check_placements(vc, placements(cs, m), "cache")
-    even = _model_divides(KV)
+    even = _heads_divide(KV, "cache_kv_heads")
 
     def local(q_, kn, vn, kc_, vc_):
         Bl, T, Hl = kc_.shape[0], kc_.shape[1], q_.shape[2]
@@ -425,8 +444,8 @@ def _tp_decode(cfg, q, kc, vc, k_new, v_new, positions):
             v4 = vc_.view(Bl, T, KVl, hd).permute(0, 2, 1, 3)
         else:
             from .sharding import all_gather
-            kf = all_gather(kc_, 2, "model").view(Bl, T, KV, hd)
-            vf = all_gather(vc_, 2, "model").view(Bl, T, KV, hd)
+            kf = all_gather(kc_, 2, cax).view(Bl, T, KV, hd)
+            vf = all_gather(vc_, 2, cax).view(Bl, T, KV, hd)
             k4 = _local_kv_heads(kf, H, KV, Hl).permute(0, 2, 1, 3)
             v4 = _local_kv_heads(vf, H, KV, Hl).permute(0, 2, 1, 3)
         return da_ops.decode_attention(q_[:, 0], k4, v4, positions + 1)
@@ -438,28 +457,29 @@ def _tp_decode(cfg, q, kc, vc, k_new, v_new, positions):
 def _sp_flash_decode(cfg, q, kc, vc, k_new, v_new, positions):
     """Sequence-parallel flash-decode (``cfg.decode_attn == "sp"``).
 
-    The cache is sharded along the SEQUENCE dim over ``model``; each rank
-    writes the new token into its own slice if the position falls there,
-    computes complete attention scores for its slice (all heads local, as
-    plain products) and the ranks combine with an online-softmax
-    reduction: one ``pmax`` and two ``psum`` s of (B, H)-sized statistics
-    and outputs a layer."""
+    The cache is sharded along the SEQUENCE dim over the rules'
+    ``cache_seq_sp`` axis; each rank writes the new token into its own
+    slice if the position falls there, computes complete attention scores
+    for its slice (all heads local, as plain products) and the ranks
+    combine with an online-softmax reduction: one ``pmax`` and two
+    ``psum`` s of (B, H)-sized statistics and outputs a layer (none where
+    the rules keep the sequence whole)."""
     B, hd = q.shape[0], q.shape[3]
     H, KV = cfg.n_heads, cfg.n_kv_heads
     m = bound_mesh()
-    b = _batch_rule()
-    cs = P(b, "model", None)
+    b, sax = _batch_rule(), act_axis("cache_seq_sp")
+    cs = P(b, sax, None)
     check_placements(kc, placements(cs, m), "cache")
     check_placements(vc, placements(cs, m), "cache")
 
     # a sequence that does not divide over the ranks is split as
     # torch.chunk splits it, the last rank short
-    T_rank = -(-kc.shape[1] // m.shape["model"])
+    T_rank = -(-kc.shape[1] // axis_size(sax))
 
     def local(q_, kn, vn, kc_, vc_):
         q_ = q_[:, :, :H]                   # without _split_heads' pad
         Bl, Tl = kc_.shape[0], kc_.shape[1]
-        t0 = m.local_rank("model") * T_rank
+        t0 = axis_rank(sax) * T_rank
         tglob = t0 + torch.arange(Tl, device=kc_.device)
         mine = (positions >= t0) & (positions < t0 + Tl)
         # only the owning rank lands the write (an empty index elsewhere)
@@ -472,11 +492,10 @@ def _sp_flash_decode(cfg, q, kc, vc, k_new, v_new, positions):
             * (hd ** -0.5)
         s = torch.where(tglob[None, None, None, :] < positions + 1, s,
                         torch.full_like(s, _NEG))
-        m_ = pmax(s.amax(dim=-1, keepdim=True), "model")     # (B,H,1,1)
+        m_ = pmax(s.amax(dim=-1, keepdim=True), sax)         # (B,H,1,1)
         p_ = torch.where(m_ <= -1e29, torch.zeros_like(s), torch.exp(s - m_))
-        l = psum(p_.sum(-1, keepdim=True), "model")
-        o = psum(torch.einsum("bhst,bhtd->bshd", p_.to(v4.dtype), v4),
-                 "model")
+        l = psum(p_.sum(-1, keepdim=True), sax)
+        o = psum(torch.einsum("bhst,bhtd->bshd", p_.to(v4.dtype), v4), sax)
         l = torch.where(l == 0.0, torch.ones_like(l), l)
         return (o / l.permute(0, 2, 1, 3).to(o.dtype)).to(q_.dtype)
 
@@ -508,7 +527,8 @@ def cross_attn_forward(cfg, p, x, kv_x=None, kv_cache: Optional[Dict] = None):
     hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     q = _split_heads(dense(x, p["wq"]), H, hd)
     if kv_cache is None:
-        kv_cache = {n: shard(dense(kv_x, p[w]), "batch", None, "kv_heads")
+        kv_cache = {n: shard(dense(kv_x, p[w]), "batch", None,
+                             "cache_kv_heads")
                     for n, w in (("k", "wk"), ("v", "wv"))}
     T = kv_cache["k"].shape[1]
     kc, vc = kv_cache["k"], kv_cache["v"]

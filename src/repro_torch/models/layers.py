@@ -93,39 +93,44 @@ def mlp_specs(d: int, ff: int, layers: Optional[int] = None) -> dict:
     }
 
 
-def int8_ring_proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def int8_ring_proj(h: torch.Tensor, w: torch.Tensor, act: str
+                   ) -> torch.Tensor:
     """Row-parallel projection whose TP combine runs as an int8 ring
     all-reduce (inference only, ``cfg.tp_collective="int8_ring"``): each
-    model rank computes its partial (..., d) product and the partials are
-    summed with int8 + scale chunks on the wire.
+    rank of the mesh axis the rules give the activation axis ``act``
+    computes its partial (..., d) product and the partials are summed with
+    int8 + scale chunks on the wire.
 
-    h: (..., F) sharded on F over ``model``; w: (F, d) sharded on F.  The
+    h: (..., F) sharded on F over that axis; w: (F, d) sharded on F.  The
     leading (batch) dim keeps its data sharding."""
     from ..train.compression import ring_allreduce_int8
-    from .sharding import P, local_region, resolve
-    b = resolve(("batch",))[0]
+    from .sharding import P, act_axis, local_region, resolve
+    b, ax = resolve(("batch",))[0], act_axis(act)
     lead = (b,) + (None,) * (h.dim() - 2)
 
     def local(h_, w_):
-        part = dense(h_, w_)
-        return ring_allreduce_int8(part, "model")
+        return ring_allreduce_int8(dense(h_, w_), ax)
 
     return local_region(local, P(*lead, None),
-                        (P(*lead, "model"), P("model", None)))(h, w)
+                        (P(*lead, ax), P(ax, None)))(h, w)
 
 
-def _use_int8_ring() -> bool:
-    from .sharding import bound_mesh, rule_flag
+def _use_int8_ring(act: str) -> bool:
+    """Whether a row-parallel projection over the activation axis ``act``
+    combines on the int8 ring: the rules' ``__tp_int8__`` flag, on a bound
+    mesh whose rules shard ``act`` (under ``fsdp`` they keep it whole, and
+    there is no combine)."""
+    from .sharding import act_axis, bound_mesh, rule_flag
     m = bound_mesh()
     return bool(rule_flag("__tp_int8__")) and m is not None \
-        and "model" in m.axis_names
+        and act_axis(act) in m.axis_names
 
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(dense(x, p["wg"])) * dense(x, p["wu"])
     h = shard(h, "batch", "seq", "act_ff")
-    if _use_int8_ring():
-        return int8_ring_proj(h, p["wd"])
+    if _use_int8_ring("act_ff"):
+        return int8_ring_proj(h, p["wd"], "act_ff")
     return dense(h, p["wd"])
 
 
@@ -152,26 +157,30 @@ def embed(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def _embed_vocab_sharded(w: torch.Tensor, tokens: torch.Tensor
                          ) -> torch.Tensor:
-    """The lookup in a table sharded on its rows over ``model``: each rank
-    looks up the tokens its rows hold and zeroes the rest, and the ranks'
-    rows sum to the lookup (left pending for :func:`shard`).  Written out
-    as a region, not left to DTensor's masked embedding, whose gradient
-    cannot meet the tied output head's in one sum (torch 2.11)."""
-    from .sharding import P, batch_axes, bound_mesh, local_region, resolve
-    m = bound_mesh()
-    rows = -(-w.shape[0] // m.shape.get("model", 1))  # torch.chunk's split
+    """The lookup in a table sharded on its rows over the mesh axis the
+    rules give ``act_vocab``: each rank looks up the tokens its rows hold
+    and zeroes the rest, and the ranks' rows sum to the lookup (left
+    pending for :func:`shard`).  Where the rules keep ``act_vocab`` whole
+    (``fsdp``) the table is gathered and each rank looks up its own batch
+    rows in all of it.  Written out as a region, not left to DTensor's
+    masked embedding, whose gradient cannot meet the tied output head's in
+    one sum (torch 2.11)."""
+    from .sharding import (P, act_axis, act_shards, axis_rank, batch_axes,
+                           local_region, pending, resolve)
+    ax = act_axis("act_vocab")
+    rows = -(-w.shape[0] // act_shards("act_vocab"))  # torch.chunk's split
     b = resolve(("batch",))[0]
 
     def local(w_, t_):
-        idx = t_.long() - m.local_rank("model") * rows
+        idx = t_.long() - axis_rank(ax) * rows
         keep = (idx >= 0) & (idx < w_.shape[0])
         out = F.embedding(idx.clamp(0, w_.shape[0] - 1), w_)
         return out * keep[..., None].to(out.dtype)
 
     return local_region(local, P(b, None, None),
-                        (P("model", None), P(b, None)),
+                        (P(ax, None), P(b, None)),
                         partial_grad=batch_axes(),
-                        partial_out=("model",))(w, tokens)
+                        partial_out=pending(ax))(w, tokens)
 
 
 def unembed(w: torch.Tensor, x: torch.Tensor, vocab: Optional[int] = None
@@ -213,23 +222,25 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def _xent_parts(logits, labels, mx):
     """(the label's logit, sum(exp(logit - mx))) of every row, each the sum
-    of the ranks' own columns.  A region with its sums left to
-    :func:`shard`: DTensor's own propagation through these reductions gave
-    wrong gradients on a 2-D mesh of CUDA ranks (torch 2.11), where this
-    form's gradients are the local ones."""
-    from .sharding import P, bound_mesh, local_region, resolve
-    m = bound_mesh()
-    cols = -(-logits.shape[-1] // m.shape.get("model", 1))
+    of the ranks' own columns over the mesh axis the rules give
+    ``act_vocab`` (all columns on each rank where they keep it whole).  A
+    region with its sums left to :func:`shard`: DTensor's own propagation
+    through these reductions gave wrong gradients on a 2-D mesh of CUDA
+    ranks (torch 2.11), where this form's gradients are the local ones."""
+    from .sharding import (P, act_axis, act_shards, axis_rank, local_region,
+                           pending, resolve)
+    ax = act_axis("act_vocab")
+    cols = -(-logits.shape[-1] // act_shards("act_vocab"))
     b = resolve(("batch",))[0]
 
     def local(lg, lab, mx_):
-        idx = lab.long() - m.local_rank("model") * cols
+        idx = lab.long() - axis_rank(ax) * cols
         keep = (idx >= 0) & (idx < lg.shape[-1])
         ll = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])
         return torch.stack([ll[..., 0] * keep, (lg - mx_).exp().sum(-1)])
 
     parts = local_region(local, P(None, b, None),
-                         (P(b, None, "model"), P(b, None), P(b, None, None)),
-                         partial_out=("model",))(logits, labels, mx)
+                         (P(b, None, ax), P(b, None), P(b, None, None)),
+                         partial_out=pending(ax))(logits, labels, mx)
     parts = shard(parts, None, "batch", "seq")
     return parts[0], parts[1]

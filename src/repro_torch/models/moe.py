@@ -1,14 +1,18 @@
 """Mixture-of-Experts FFN: top-k routing, GShard capacity and drops.
 
 Counterpart of ``src/repro/models/moe.py``.  With no mesh every expert
-runs here; on a bound mesh with a ``model`` axis (expert parallelism) each
-model rank owns ``E_tbl / model`` experts, ``[e0, e0 + E_loc)`` with ``e0 =
-rank * E_loc``: in a ``local_map`` region over the rank's tokens (sharded
-over the batch axes, replicated over ``model``) it routes, runs its own
+runs here.  On a bound mesh whose rules shard ``act_experts`` over an axis
+of more than one rank (expert parallelism, ``tp``) each rank of that axis
+owns ``E_tbl / shards`` experts, ``[e0, e0 + E_loc)`` with ``e0 = rank *
+E_loc``: in a ``local_map`` region over the rank's tokens (sharded over
+the batch axes, replicated over the expert axis) it routes, runs its own
 experts' queues and returns its partial output, which the ranks sum over
-``model`` (``shard`` of the output: one all-reduce, as the JAX package's one
-``psum``).  Capacity is per *local* token block, ``B*S // data_shards``, as
-in the JAX package.  An expert table that does not divide over ``model``
+the expert axis (``shard`` of the output: one all-reduce, as the JAX
+package's one ``psum``).  Where the rules keep ``act_experts`` whole
+(``fsdp``, the batch over every rank) the same region runs every expert on
+each rank's own tokens, the table gathered.  Capacity is per *local* token
+block, ``B*S // data_shards`` over the batch axes, as in the JAX
+package.  An expert table that does not divide over ``model``
 is split unevenly, the last rank short: the JAX package pads it with zero
 experts at run time, and a rank's missing experts are those pads (they
 receive no token).
@@ -38,7 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from .layers import dense, linear_spec, mlp
-from .sharding import batch_axes, bound_mesh, is_dtensor, shard, spec
+from .sharding import (act_axis, axis_rank, axis_size, batch_axes,
+                       bound_mesh, is_dtensor, shard, spec)
 
 
 def _pad_experts(n_experts: int, shards: int) -> int:
@@ -147,8 +152,10 @@ def moe_ffn(cfg, p: Dict, x: torch.Tensor
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     m = bound_mesh()
-    if m is not None and is_dtensor(x) and m.shape.get("model", 1) > 1:
-        return _moe_ep(cfg, p, x, m)
+    if m is not None and is_dtensor(x):
+        ax = act_axis("act_experts")
+        if ax is None or axis_size(ax) > 1:
+            return _moe_ep(cfg, p, x, m, ax)
     x2d = x.reshape(B * S, d)
     gates, eids, aux = _route(x2d, p["router"], k)
     C = capacity(B * S, E, k, cfg.moe_capacity_factor)
@@ -159,13 +166,14 @@ def moe_ffn(cfg, p: Dict, x: torch.Tensor
     return y, aux
 
 
-def _moe_ep(cfg, p: Dict, x: torch.Tensor, m):
-    """Expert parallelism over ``model`` (see the module docstring)."""
+def _moe_ep(cfg, p: Dict, x: torch.Tensor, m, ax: Optional[str]):
+    """Expert parallelism over the mesh axis ``ax`` (``None``: every expert
+    on each rank; see the module docstring)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
-    shards = m.shape["model"]
+    shards = axis_size(ax)
     batch = batch_axes()
     data_shards = 1
     for a in batch:
@@ -178,31 +186,31 @@ def _moe_ep(cfg, p: Dict, x: torch.Tensor, m):
         x2d = x_.reshape(Bl * Sl, d)
         gates, eids, _ = _route(x2d, router, k)
         probs = torch.softmax(torch.matmul(x2d.float(), router.float()), -1)
-        # the routing statistics of the aux loss: every model rank has the
-        # same ones; rank 0 gives them, so that their gradient reaches x and
-        # the router once
+        # the routing statistics of the aux loss: every rank of the expert
+        # axis has the same ones; rank 0 gives them, so that their
+        # gradient reaches x and the router once
         stats = torch.stack([probs.sum(0),
                              F.one_hot(eids[:, 0], E).float().sum(0)]) \
-            * float(m.local_rank("model") == 0)
-        e0 = m.local_rank("model") * E_loc
+            * float(axis_rank(ax) == 0)
+        e0 = axis_rank(ax) * E_loc
         y = _local_expert_ffn(x2d, gates, eids, wg, wu, wd, E=E, C=C, e0=e0)
         return y.reshape(Bl, Sl, d), stats
 
     names = m.axis_names
     x_pl = [Shard(0) if a in batch else Replicate() for a in names]
-    w_pl = [Shard(0) if a == "model" else Replicate() for a in names]
+    w_pl = [Shard(0) if a == ax else Replicate() for a in names]
     y_pl = [Shard(0) if a in batch else
-            Partial() if a == "model" else Replicate() for a in names]
-    st_pl = [Partial() if a in batch or a == "model" else Replicate()
+            Partial() if a == ax else Replicate() for a in names]
+    st_pl = [Partial() if a in batch or a == ax else Replicate()
              for a in names]
     rep = [Replicate()] * len(names)
-    # gradients: each model rank's tokens reach only its experts, and each
-    # data rank's weights meet only its tokens: sums pending over those
+    # gradients: each expert rank's tokens reach only its experts, and
+    # each data rank's weights meet only its tokens: sums pending over those
     x_g = [Shard(0) if a in batch else
-           Partial() if a == "model" else Replicate() for a in names]
-    r_g = [Partial() if a in batch or a == "model" else Replicate()
+           Partial() if a == ax else Replicate() for a in names]
+    r_g = [Partial() if a in batch or a == ax else Replicate()
            for a in names]
-    w_g = [Shard(0) if a == "model" else
+    w_g = [Shard(0) if a == ax else
            Partial() if a in batch else Replicate() for a in names]
     y, stats = local_map(local, out_placements=(y_pl, st_pl),
                          in_placements=(x_pl, rep, w_pl, w_pl, w_pl),

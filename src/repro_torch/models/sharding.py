@@ -19,7 +19,11 @@ mesh dims, in mesh order (:func:`placements`).  Off a mesh, and for a
 plain tensor, :func:`shard` returns its argument: every one-device path
 runs as it did.  ``shard_map`` regions are ``local_map`` regions
 (:func:`local_region`), with explicit collectives over a named mesh
-dimension inside (:func:`psum`, :func:`pmax`).
+dimension inside (:func:`psum`, :func:`pmax`).  A region takes the mesh
+axis it splits (the vocabulary, heads, experts) from the rules
+(:func:`act_axis`, :func:`axis_rank`, :func:`pending`): under ``fsdp`` the
+rules keep those axes whole and shard the batch over every mesh axis, and
+each rank runs its own batch rows with the axis whole.
 """
 from __future__ import annotations
 
@@ -253,6 +257,18 @@ def act_shards(name: str) -> int:
     return 1 if a is None else axis_size(a)
 
 
+def axis_rank(axis: Optional[str]) -> int:
+    """This rank's index along ``axis`` of the installed bound mesh (0 for
+    ``None``: a region whose rules keep the axis whole holds all of it)."""
+    return bound_mesh().local_rank(axis) if axis is not None else 0
+
+
+def pending(axis: Optional[str]) -> Tuple[str, ...]:
+    """The ``partial_out`` of a region that sums its ranks' parts over
+    ``axis``: nothing where the rules keep the axis whole."""
+    return () if axis is None else (axis,)
+
+
 def resolve(axes: Tuple[Optional[str], ...], rules=None) -> P:
     rules = rules if rules is not None else (_CTX.rules or {})
     out = []
@@ -274,8 +290,15 @@ def placements(pspec, mesh) -> tuple:
     per mesh dim: ``Shard(i)`` where tensor dim ``i``'s entry names the
     mesh axis, ``Replicate()`` where none does.  A tuple entry shards one
     tensor dim over several mesh dims, which must come in mesh order (the
-    order in which ``DTensor`` nests them, as JAX does)."""
+    order in which ``DTensor`` nests them, as JAX does).  A mesh axis named
+    by two tensor dims raises, as JAX's ``DuplicateSpecError`` does."""
     from torch.distributed.tensor import Replicate, Shard
+    named = [a for e in pspec
+             for a in ((e,) if isinstance(e, str) else tuple(e or ()))]
+    for a in set(named):
+        if named.count(a) > 1:
+            raise ValueError(f"spec {pspec} names mesh axis {a!r} in more "
+                             "than one tensor dim")
     out = []
     for name in mesh.axis_names:
         pl = Replicate()
@@ -324,6 +347,34 @@ def shard(x, *axes: Optional[str]):
     if tuple(x.placements) == pl:
         return x
     return x.redistribute(m.device_mesh, pl)
+
+
+class _GradPlaced(torch.autograd.Function):
+    """Identity whose backward redistributes the gradient to ``pl``."""
+
+    @staticmethod
+    def forward(ctx, x, pl):
+        ctx.pl = pl
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g) and tuple(g.placements) != ctx.pl:
+            g = g.redistribute(g.device_mesh, ctx.pl)
+        return g, None
+
+
+def shard_both(x, *axes: Optional[str]):
+    """:func:`shard` whose gradient is placed the same way, as JAX places
+    the cotangent of a ``with_sharding_constraint``.  Where a reshape
+    follows or precedes it, the gradient then meets the reshape in whole
+    heads, whatever placements the products behind it leave (under
+    ``fsdp`` a product's gradient may come back sharded over every rank on
+    a dim the reshape splits)."""
+    x = shard(x, *axes)
+    if not is_dtensor(x) or bound_mesh() is None or not x.requires_grad:
+        return x
+    return _GradPlaced.apply(x, tuple(x.placements))
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -401,7 +452,8 @@ def tree_leaves(tree: Tree) -> list:
 
 # The collectives of a region, over one named mesh axis of the installed
 # bound mesh, on the local tensors (``lax.psum`` / ``lax.pmax`` /
-# ``lax.all_gather`` inside ``shard_map``).  They are not differentiated:
+# ``lax.all_gather`` inside ``shard_map``); over ``None`` (an axis the
+# rules keep whole) each is its input.  They are not differentiated:
 # the regions that use them serve (flash-decode); a region on a training
 # path returns a pending sum for ``redistribute`` to reduce instead.
 def _axis_group(axis: str):
@@ -414,17 +466,24 @@ def _all_reduce(x: torch.Tensor, axis: str, op) -> torch.Tensor:
     return out
 
 
-def psum(x: torch.Tensor, axis: str) -> torch.Tensor:
+def psum(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
+    if axis is None:
+        return x
     return _all_reduce(x, axis, torch.distributed.ReduceOp.SUM)
 
 
-def pmax(x: torch.Tensor, axis: str) -> torch.Tensor:
+def pmax(x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
+    if axis is None:
+        return x
     return _all_reduce(x, axis, torch.distributed.ReduceOp.MAX)
 
 
-def all_gather(x: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+def all_gather(x: torch.Tensor, dim: int, axis: Optional[str]
+               ) -> torch.Tensor:
     """The ranks' ``x`` along ``axis`` concatenated on ``dim``, in rank
     order."""
+    if axis is None:
+        return x
     group = _axis_group(axis)
     x = x.contiguous()
     parts = [torch.empty_like(x)

@@ -125,19 +125,21 @@ def pad_cache(cache: Tree, specs: Tree) -> Tree:
     max_len-sized buffers.  Dims only ever differ along the sequence axis,
     so a generic per-dim pad is safe.  Each leaf is copied once into a new
     buffer of the spec's shape and dtype, on the leaf's device.  On a
-    bound mesh a ``DTensor`` leaf is gathered, padded and placed again with
-    its spec's placements under the installed rules (a sequence-sharded
-    cache's shards do not line up before and after the pad)."""
-    from ..models.sharding import (bound_mesh, is_dtensor, placements,
-                                   resolve)
+    bound mesh a ``DTensor`` leaf is gathered, padded and placed again as
+    the prefill placed it under the installed rules (a sequence-sharded
+    cache's shards do not line up before and after the pad).  Those are
+    its spec's placements under ``tp``; under ``fsdp`` a spec names the
+    batch's mesh axes twice, and the prefill places the cache on the batch
+    alone (the rules' ``cache_*`` axes)."""
+    from ..models.sharding import bound_mesh, is_dtensor
 
     def one(x, s):
         m = bound_mesh()
         if m is not None and is_dtensor(x):
-            from torch.distributed.tensor import distribute_tensor
+            from torch.distributed.tensor import Replicate, distribute_tensor
             full = one(x.full_tensor(), s)
-            return distribute_tensor(full, m.device_mesh,
-                                     placements(resolve(s.axes), m),
+            pl = [Replicate() if p.is_partial() else p for p in x.placements]
+            return distribute_tensor(full, m.device_mesh, pl,
                                      src_data_rank=None)
         for have, want in zip(x.shape, s.shape):
             if have > want:

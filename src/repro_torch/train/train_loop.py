@@ -23,7 +23,8 @@ batch placed by ``data/pipeline.py::shard_batch``, the step run under
 gradient as a sum still pending over the ranks that saw other tokens
 (``Partial``).  Without compression the gradients are reduced to their
 parameters' placements; with ``grad_compression="int8_ring"`` the pending
-sum over the data axes is the int8 ring's (:func:`_compressed_sync`).
+sum over the data axes is the int8 ring's (:func:`_compressed_sync`), under
+the ``fsdp`` rules too.
 """
 from __future__ import annotations
 
@@ -139,40 +140,55 @@ def _compressed_sync(grads: Tree, params: Tree) -> Tree:
 
     With no mesh, or plain tensors, there is nothing to reduce and the
     gradients come back unchanged, as the JAX package returns them with no
-    mesh.  The semantics differ from the JAX package's on purpose: under
-    pjit its gradients are already averaged over the data axes, so it
-    rings N equal copies and divides by N; a DTensor gradient is still a
-    pending sum (``Partial``) over the data axes, and ring-summing those
-    partials gives the global gradient without a division.  Both give the
-    global gradient plus the ring's noise.  The pending sums over the
-    other mesh axes are reduced first, by ``redistribute``; a gradient
-    already replicated over a data axis holds its sum there and is left
-    as it is.  A gradient sharded over a data axis (the ``fsdp`` rules)
-    raises: the ring sums whole tensors."""
+    mesh.  The JAX package rings every gradient whole: a ``shard_map``
+    whose specs are ``P()`` gathers each one, replicated on every device,
+    rings it over each data axis and places the result back as its
+    parameter.  So does this, leaf by leaf, for every gradient still
+    pending (``Partial``) over a data axis: it is gathered over the data
+    axes (the ``fsdp`` rules shard it there); its pending sums over the
+    other mesh axes are reduced, by ``redistribute``, and it keeps its
+    parameter's placements there; each data axis that still holds a
+    pending sum is rung; the sum is then placed as the parameter.  A
+    gradient already summed over every data axis (replicated there, or
+    sharded: under ``fsdp`` autograd reduce-scatters the gradient of a
+    weight that a product gathered) has nothing for the ring and is placed
+    as its parameter exact, where the JAX package rings that sum too.
+
+    The semantics differ from the JAX package's on purpose: under pjit its
+    gradients are already averaged over the data axes, so it rings N equal
+    copies and divides by N; a DTensor gradient is still a pending sum
+    over the data axes, and ring-summing those partials gives the global
+    gradient without a division.  Both give the global gradient plus the
+    ring's noise."""
+    from torch.distributed.tensor import DTensor, Replicate
     mesh = current_mesh()
     if mesh is None or mesh.device_mesh is None:
         return grads
     names = mesh.axis_names
     data = [i for i, ax in enumerate(names)
             if ax in _data_axes(mesh) and mesh.shape[ax] > 1]
-    for g, p in zip(tree_leaves(grads), tree_leaves(params)):
-        if is_dtensor(g) and any(t.placements[i].is_shard()
-                                 for t in (g, p) for i in data):
-            raise ValueError(                # before any rank starts a hop
-                f"grad_compression='int8_ring' rings whole gradients; "
-                f"{g.placements} / {p.placements} shard over the data axes")
 
     def one(g, p):
         if not is_dtensor(g):
             return g
-        mid = [g.placements[i] if i in data else p.placements[i]
+        dm = p.device_mesh
+        if not any(g.placements[i].is_partial() for i in data):
+            # summed over data already (sharded or replicated there):
+            # nothing for the ring
+            return g.redistribute(dm, p.placements)
+        mid = [(Replicate() if g.placements[i].is_shard() else
+                g.placements[i]) if i in data else p.placements[i]
                for i in range(len(names))]
-        local = g.redistribute(p.device_mesh, mid).to_local()
+        # (a data axis sharded here, beside one that is pending, is
+        # gathered: the ring sums whole tensors over each data axis)
+        local = g.redistribute(dm, mid).to_local()
         for i in data:
             if mid[i].is_partial():
                 local = ring_allreduce_int8(local, names[i])
-        from torch.distributed.tensor import DTensor
-        return DTensor.from_local(local, p.device_mesh, p.placements,
-                                  shape=p.shape, stride=p.stride())
+        summed = [Replicate() if i in data else mid[i]
+                  for i in range(len(names))]
+        return DTensor.from_local(local, dm, summed, shape=p.shape,
+                                  stride=p.stride()).redistribute(
+            dm, p.placements)
 
     return tree_map(one, grads, params)

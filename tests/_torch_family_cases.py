@@ -30,11 +30,15 @@ OPENVLA, COGACT = "openvla-7b", "cogact-7b"
 UNEVEN = "llama3.2-3b"
 # MLA: its causal prefill through B5 on each rank's heads
 MLA = "deepseek-v2-lite-16b"
+# the other MoE LM and the dense LMs at their reduced configs
+GRANITE, PHI3 = "granite-moe-3b-a800m", "phi3-mini-3.8b"
+COMMAND_R, GLM4 = "command-r-35b", "glm4-9b"
 # the reduced VLAs' ViT has one head of 32; at width 256 it has 4 of 64,
 # which every mesh below divides
 KW = {OPENVLA: {"vit_dim": 256}, COGACT: {"vit_dim": 256},
       UNEVEN: {"n_heads": 6, "n_kv_heads": 2},
-      MLA: {"moe_capacity_factor": 8.0}}     # no choice dropped
+      MLA: {"moe_capacity_factor": 8.0},     # no choice dropped
+      GRANITE: {"moe_capacity_factor": 8.0}}
 MESHES = ((2, 2), (1, 4), (4, 1))
 BATCH, DECODE_PROMPT, DECODE_STEPS = 4, 8, 8
 GRAD_REL, LOGIT_REL = 1e-5, 1e-4

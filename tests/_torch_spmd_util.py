@@ -52,15 +52,15 @@ def ring_rank(rank, shape, names, axis, xs):
 
 
 def train_rank(rank, shape, name, cfg_kw, params_np, batch_np, steps,
-               compression, lr, f32, warmup=100):
-    """``steps`` train steps on the mesh; (losses, grad norms, the final
-    parameters as full tensors)."""
+               compression, lr, f32, warmup=100, strategy="tp"):
+    """``steps`` train steps on the mesh under the rules of ``strategy``;
+    (losses, grad norms, the final parameters as full tensors)."""
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_loop import init_state, make_train_step
     cfg = small_cfg(name, **cfg_kw)
     model = build(cfg)
     mesh = make_mesh(shape, AXES, "cpu")
-    rules = make_rules(cfg, mesh, "train")
+    rules = make_rules(cfg, mesh, "train", strategy=strategy)
     params = _params(model, params_np, f32)
     with use_mesh(mesh, rules):
         state = init_state(distribute_tree(params, model.param_specs, mesh,
@@ -76,7 +76,8 @@ def train_rank(rank, shape, name, cfg_kw, params_np, batch_np, steps,
         return losses, norms, tree_map(_full, state.params)
 
 
-def sync_rank(rank, shape, name, cfg_kw, params_np, batch_np):
+def sync_rank(rank, shape, name, cfg_kw, params_np, batch_np,
+              strategy="tp"):
     """One step's gradients on the mesh, synced twice from the same
     autograd output: by the int8 ring (``_compressed_sync``) and exactly
     (``_reduce_to_params``), as full tensors; and each leaf's ring bound,
@@ -90,7 +91,7 @@ def sync_rank(rank, shape, name, cfg_kw, params_np, batch_np):
     cfg = small_cfg(name, **cfg_kw)
     model = build(cfg)
     mesh = make_mesh(shape, AXES, "cpu")
-    rules = make_rules(cfg, mesh, "train")
+    rules = make_rules(cfg, mesh, "train", strategy=strategy)
     params = _params(model, params_np, True)
     N = mesh.shape["data"]
     d = AXES.index("data")
@@ -112,27 +113,57 @@ def sync_rank(rank, shape, name, cfg_kw, params_np, batch_np):
                 [str(g.placements) for g in tree_leaves(grads)])
 
 
-def data_sharded_sync_rank(rank, shape):
-    """``_compressed_sync`` of a parameter and gradient sharded over data
-    (as the ``fsdp`` rules place them) beside a replicated pair: the error
-    it raises, as text."""
-    from torch.distributed.tensor import distribute_tensor
+def fsdp_sync_rank(rank, shape):
+    """``_compressed_sync`` and the exact sync (``_reduce_to_params``) of
+    gradients beside parameters placed as the ``fsdp`` rules place them:
+    "a" replicated, its gradient pending over both axes; "b" sharded over
+    (data, model) on dim 0, its gradient pending over data and sharded over
+    model; "c" the same parameter with its gradient already summed and
+    sharded as it is (as autograd leaves one whose forward gathered it).
+    Each rank's local parts are drawn from its rank.  Returns, by leaf, the
+    two syncs as full tensors, their placements, and the ring's bound: 2(N-1)
+    x 0.5/127 x the sum over the data ranks of the abs-max of what each
+    hands the ring, the largest over the model ranks."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, distribute_tensor
     from repro_torch.models.sharding import P, placements
-    from repro_torch.train.train_loop import _compressed_sync
+    from repro_torch.train.train_loop import (_compressed_sync,
+                                              _reduce_to_params)
     mesh = make_mesh(shape, AXES, "cpu")
+    dm, N = mesh.device_mesh, mesh.shape["data"]
+    gen = torch.Generator().manual_seed(100 + rank)
     with use_mesh(mesh, make_rules(None, mesh, "train", strategy="fsdp")):
-        def put(spec):
-            return distribute_tensor(torch.ones(8, 4), mesh.device_mesh,
-                                     placements(spec, mesh))
-        params = {"a": put(P(None, None)), "b": put(P(("data", "model"),
-                                                      None))}
-        grads = {"a": put(P(None, None)), "b": put(P(("data", "model"),
-                                                     None))}
-        try:
-            _compressed_sync(grads, params)
-        except ValueError as e:
-            return str(e)
-        return None
+        rep, both = P(None, None), P(("data", "model"), None)
+        params = {k: distribute_tensor(torch.ones(8, 4), dm,
+                                       placements(s, mesh))
+                  for k, s in (("a", rep), ("b", both), ("c", both))}
+        m = shape[1]
+        grads = {
+            "a": DTensor.from_local(torch.randn(8, 4, generator=gen), dm,
+                                    [Partial(), Partial()]),
+            "b": DTensor.from_local(torch.randn(8 // m, 4, generator=gen),
+                                    dm, [Partial()] + list(
+                                        placements(P("model", None), mesh))[1:],
+                                    shape=(8, 4), stride=(4, 1)),
+            "c": DTensor.from_local(torch.randn(8 // (N * m), 4,
+                                                generator=gen), dm,
+                                    placements(both, mesh), shape=(8, 4),
+                                    stride=(4, 1))}
+        ring = _compressed_sync(grads, params)
+        exact = _reduce_to_params(grads, params)
+        out = {}
+        for k, g in grads.items():
+            mid = list(params[k].placements)
+            mid[0] = g.placements[0]          # the data axis left pending
+            amax = g.redistribute(dm, mid).to_local().abs().max()
+            dist.all_reduce(amax, group=dm.get_group("data"))
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+            out[k] = {"ring": ring[k].full_tensor(),
+                      "exact": exact[k].full_tensor(),
+                      "placements": (str(ring[k].placements),
+                                     str(params[k].placements)),
+                      "bound": 2 * (N - 1) * 0.5 / 127 * float(amax)}
+        return out
 
 
 def staged_rank(rank):
@@ -243,7 +274,8 @@ def attn_rank(rank, shape, name, cfg_kw, params_np, x):
 
 
 def proj_rank(rank, shape, h, w):
-    """``int8_ring_proj`` of the model-sharded h (..., F) and w (F, d)."""
+    """``int8_ring_proj`` of the model-sharded h (..., F) and w (F, d), F
+    the MLP's hidden axis (``act_ff``)."""
     from torch.distributed.tensor import distribute_tensor
     from repro_torch.models.layers import int8_ring_proj
     from repro_torch.models.sharding import P, placements
@@ -257,7 +289,7 @@ def proj_rank(rank, shape, h, w):
         wd = distribute_tensor(torch.from_numpy(w), mesh.device_mesh,
                                placements(P("model", None), mesh),
                                src_data_rank=None)
-        return _full(int8_ring_proj(hd, wd))
+        return _full(int8_ring_proj(hd, wd, "act_ff"))
 
 
 # ------------------------------------------------ the five other families
@@ -276,8 +308,9 @@ def _counting_plain(mod, name, seen):
 
 
 def family_grad_rank(rank, shape, name, cfg_kw, params_np, batch_np,
-                     inject_np=None):
-    """One ``loss_and_grads`` of a reduced config on the mesh, float32:
+                     inject_np=None, strategy="tp"):
+    """One ``loss_and_grads`` of a reduced config on the mesh under the
+    rules of ``strategy``, float32:
     the loss, every gradient reduced to its parameter's placements (as
     full tensors), and the (B, T, H, P) shapes the SSD scan's plain
     version was handed (its calls inside the regions)."""
@@ -286,7 +319,7 @@ def family_grad_rank(rank, shape, name, cfg_kw, params_np, batch_np,
     cfg = small_cfg(name, **cfg_kw)
     model = build(cfg)
     mesh = make_mesh(shape, AXES, "cpu")
-    rules = make_rules(cfg, mesh, "train")
+    rules = make_rules(cfg, mesh, "train", strategy=strategy)
     params = _params(model, params_np, True)
     seen = []
     orig = _counting_plain(ssd_ops, "ssd_scan_plain", seen)
@@ -304,12 +337,12 @@ def family_grad_rank(rank, shape, name, cfg_kw, params_np, batch_np,
 
 
 def family_loss_rank(rank, shape, name, cfg_kw, params_np, batch_np,
-                     inject_np=None):
+                     inject_np=None, strategy="tp"):
     """The loss of a reduced config on the mesh, float32, no gradient."""
     cfg = small_cfg(name, **cfg_kw)
     model = build(cfg)
     mesh = make_mesh(shape, AXES, "cpu")
-    rules = make_rules(cfg, mesh, "train")
+    rules = make_rules(cfg, mesh, "train", strategy=strategy)
     params = _params(model, params_np, True)
     with use_mesh(mesh, rules), torch.no_grad():
         pd = distribute_tree(params, model.param_specs, mesh, rules)
@@ -319,7 +352,7 @@ def family_loss_rank(rank, shape, name, cfg_kw, params_np, batch_np,
 
 
 def family_decode_rank(rank, shape, name, cfg_kw, params_np, batch_np,
-                       steps, shape_kind="prefill"):
+                       steps, shape_kind="prefill", strategy="tp"):
     """Prefill and ``steps`` greedy steps of a reduced config on the mesh
     (float32 per ``cfg_kw``): the tokens, the last position's logits of
     the prefill and of every step, and the (B, T, H, P) shapes the SSD
@@ -329,7 +362,7 @@ def family_decode_rank(rank, shape, name, cfg_kw, params_np, batch_np,
     cfg = small_cfg(name, **cfg_kw)
     model = build(cfg)
     mesh = make_mesh(shape, AXES, "cpu")
-    rules = make_rules(cfg, mesh, shape_kind)
+    rules = make_rules(cfg, mesh, shape_kind, strategy=strategy)
     params = _params(model, params_np, cfg.dtype == "float32")
     seen = []
     orig = _counting_plain(ssd_ops, "ssd_scan_plain", seen)

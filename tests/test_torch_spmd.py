@@ -140,10 +140,13 @@ def _flat_np(tree, prefix=""):
     return {prefix[:-1]: np.asarray(tree, np.float32)}
 
 
-def _jax_train_2x4(params_np: dict, batch: dict, tmp) -> dict:
+def _jax_train_2x4(params_np: dict, batch: dict, tmp, strategy: str = "tp",
+                   compression=None) -> dict:
     """The JAX package's train step on a 2x4 mesh of fake devices (as
-    ``tests/test_multidevice.py`` runs it), float32, one step: its loss,
-    gradient norm and parameters by flat name."""
+    ``tests/test_multidevice.py`` runs it), float32, one step under the
+    rules of ``strategy`` with ``grad_compression=compression``, the batch
+    placed as those rules place it: its loss, gradient norm and parameters
+    by flat name."""
     np.savez(os.path.join(tmp, "params.npz"), **_flat_np(params_np))
     np.savez(os.path.join(tmp, "batch.npz"), **batch)
     code = f"""
@@ -154,7 +157,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from repro.compat import make_mesh
 from repro.configs import get_config
 from repro.models import build
-from repro.models.sharding import make_rules, sharding_tree, use_mesh
+from repro.models.sharding import make_rules, resolve, sharding_tree, use_mesh
 from repro.train.optimizer import OptConfig
 from repro.train.train_loop import init_state, make_train_step
 tmp = {str(tmp)!r}
@@ -166,14 +169,16 @@ def unflat(specs, prefix=""):
 mesh = make_mesh((2, 4), ("data", "model"))
 cfg = get_config("llama3.2-3b").reduced().replace(n_layers=2, dtype="float32")
 model = build(cfg)
-rules = make_rules(cfg, mesh, "train")
+rules = make_rules(cfg, mesh, "train", strategy={strategy!r})
 b = dict(np.load(os.path.join(tmp, "batch.npz")))
 with use_mesh(mesh, rules):
     params = unflat(model.param_specs)
     params = jax.tree_util.tree_map(jax.device_put, params,
                                     sharding_tree(model.param_specs, mesh, rules))
-    step = jax.jit(make_train_step(model, OptConfig(lr=1e-3)))
-    batch = {{k: jax.device_put(jnp.asarray(v), NamedSharding(mesh, P("data", None)))
+    step = jax.jit(make_train_step(model, OptConfig(lr=1e-3),
+                                   grad_compression={compression!r}))
+    spec = resolve(("batch", None))
+    batch = {{k: jax.device_put(jnp.asarray(v), NamedSharding(mesh, spec))
              for k, v in b.items()}}
     state, m = step(init_state(params), batch, jax.random.PRNGKey(0))
 out = {{"loss": np.float32(m["loss"]), "grad_norm": np.float32(m["grad_norm"])}}
@@ -222,7 +227,7 @@ def train_run(tmp_path_factory):
             ("train_rank", ((2, 4), "llama3.2-3b", f32, _jax_init_np(),
                             batch, 1, None, 1e-3, True)),
             ("sync_rank", ((2, 4), "llama3.2-3b", f32, pnp, batch)),
-            ("data_sharded_sync_rank", ((2, 4),))]
+            ("fsdp_sync_rank", ((2, 4),))]
     ranks = run_ranks(U.jobs_rank, 8,
                       str(tmp_path_factory.mktemp("train") / "ranks"), jobs)
     # the port's one-rank steps on the same float32 parameters and batch,
@@ -378,7 +383,23 @@ def test_int8_ring_train_step_across_ranks(train_run):
             assert float((a - b).abs().max()) <= 2.01 * 1e-3 * 3
 
 
-def test_int8_ring_refuses_gradients_sharded_over_data(train_run):
+def test_int8_ring_sync_under_fsdp_within_its_bound(train_run):
+    """``_compressed_sync`` beside parameters placed by the ``fsdp`` rules
+    (sharded over data and model on one dim) on 2 x 4: a gradient pending
+    over data is rung, one already summed and sharded is gathered and
+    placed back exact; every element of the ring's within 2(N-1) x 0.5/127
+    x the data ranks' abs-max sum of the exact sync, each result placed as
+    its parameter, the exact sync the same on every rank, and the ring not
+    exact where it ran."""
     ranks, _, _ = train_run
     for r in ranks:
-        assert r[5] is not None and "shard over the data axes" in r[5], r[5]
+        out = r[5]
+        for k, leaf in out.items():
+            ring, exact = leaf["ring"], leaf["exact"]
+            assert leaf["placements"][0] == leaf["placements"][1], k
+            assert float((ring - exact).abs().max()) <= leaf["bound"], k
+            assert leaf["bound"] < 0.5 * float(exact.abs().max()), k
+            assert torch.equal(exact, ranks[0][5][k]["exact"]), k
+        assert not torch.equal(out["a"]["ring"], out["a"]["exact"])
+        assert not torch.equal(out["b"]["ring"], out["b"]["exact"])
+        assert torch.equal(out["c"]["ring"], out["c"]["exact"])
