@@ -37,8 +37,12 @@ Phases, one JSON line each:
   serve         8 OpenVLA-7B int8 requests with the cut walking the pool,
                 one two-pool request, and the checks on what came out;
                 then 4 of them and the two-pool one again with a flight
-                recorder: two executor spans each, the same outputs and
-                launches, a Chrome trace written to build/ and read back
+                recorder: each tier's span and the stages nested in it
+                (CUDA events), the same outputs and launches, a Chrome
+                trace written to build/ and read back; one request under
+                the profiler (the stages' ranges on the host only), and
+                a request's wall without a recorder, with one and under
+                the profiler
   delta         OpenVLA-7B over a static and a dynamic scene, 24 action
                 steps each, through the temporal-delta transport (int8):
                 key and delta frames, the measured fraction of changed
@@ -187,7 +191,8 @@ quantise kernels' rounding division costs (inputs with no tie, random
 ones, all ties), and where the host time of an int4 call goes.  With
 ``--train-only`` runs the gradient cases and the four training paths, and
 ``--spmd-only`` the SPMD phases (``--spmd-lr-probe``: the one-rank
-runs that chose ``spmd_train``'s learning rate).
+runs that chose ``spmd_train``'s learning rate); ``--serve-only`` runs the
+build and the ``serve`` phase alone.
 With ``--src DIR`` each does so for the ``repro_torch`` under ``DIR``, e.g. a
 parent commit unpacked beside this one, so that two versions are compared
 in one call.
@@ -231,7 +236,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import core
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.core.telemetry import FlightRecorder
+from repro_torch.core.telemetry import RANGE_PREFIX, FlightRecorder
 from repro_torch.data.pipeline import DataConfig, SyntheticStream, to_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.activation_codec import ops as codec_ops
@@ -1885,23 +1890,64 @@ def setup_openvla(cfg) -> dict:
             "n_params": sum(t.numel() for t in tree_leaves(params))}
 
 
-def _span_checks(rec, n_before: int, wall_ms: float) -> list:
-    """The two spans one traced request adds: edge then cloud, on the
-    executor lanes, adjacent, together within the request's wall."""
+# the stage tree of a VLA request (``VLASplitExecutor.run``): each tier's
+# span, then the stages nested in it
+EDGE_STAGES = ("edge_fwd", "vit", "edge_blocks", "encode")
+CLOUD_STAGES = ("cloud_fwd", "decode", "cloud_blocks", "action_head")
+CLOUD_STAGES_TWO_POOL = ("cloud_fwd", "decode", "cloud_blocks", "encode",
+                         "decode", "edge_blocks", "action_head")
+
+
+def _span_checks(rec, n_before: int, wall_ms: float, two_pool: bool) -> list:
+    """The two groups one traced request adds: edge then cloud, on the
+    executor lanes, each its tier's span and the stages nested in it, one
+    run number, the stages inside their parent and each starting where the
+    one before it ended, cloud starting where edge ended, both together
+    within the request's wall.  Returns each stage's name (under its
+    parent's) and milliseconds, in the groups' order."""
     groups = rec.spans.items[n_before:]
-    if len(groups) != 2 or any(len(g) != 1 for g in groups):
+    want = (EDGE_STAGES, CLOUD_STAGES_TWO_POOL if two_pool else CLOUD_STAGES)
+    if len(groups) != 2 or tuple(tuple(s.name for s in g)
+                                 for g in groups) != want:
         raise AssertionError(f"a traced request added {groups}")
-    (e,), (c,) = groups
-    if (e.name, e.lane, c.name, c.lane) != ("edge_fwd", "executor:edge",
-                                            "cloud_fwd", "executor:cloud") \
-            or {e.cat, c.cat} != {"executor"}:
-        raise AssertionError(f"executor spans {e}, {c}")
-    if not (e.dur_s >= 0.0 and c.dur_s >= 0.0 and c.t0_s >= e.t0_s
-            and abs(c.t0_s - (e.t0_s + e.dur_s)) <= 1e-9
+    (e, *_), (c, *_) = groups
+    for g, lane in zip(groups, ("executor:edge", "executor:cloud")):
+        top, end = g[0], g[0].t0_s + g[0].dur_s
+        if {s.lane for s in g} != {lane} or {s.cat for s in g} != \
+                {"executor"} or {s.req for s in g} != {e.req} \
+                or [s.parent for s in g] != [""] + [top.name] * (len(g) - 1):
+            raise AssertionError(f"executor spans {g}")
+        for s in g:
+            if not (s.dur_s >= 0.0 and top.t0_s - 1e-9 <= s.t0_s
+                    and s.t0_s + s.dur_s <= end + 1e-9):
+                raise AssertionError(f"{s} outside {top}")
+        for prev, s in zip(g[1:], g[2:]):
+            if abs(s.t0_s - (prev.t0_s + prev.dur_s)) > 1e-9:
+                raise AssertionError(f"{s} does not start where {prev} ends")
+    if not (c.t0_s >= e.t0_s and abs(c.t0_s - (e.t0_s + e.dur_s)) <= 1e-9
             and (e.dur_s + c.dur_s) * 1e3 <= wall_ms):
         raise AssertionError(f"edge {e.dur_s} s + cloud {c.dur_s} s against "
                              f"a request wall of {wall_ms} ms")
-    return [e.dur_s * 1e3, c.dur_s * 1e3]
+    return [[f"{s.parent}/{s.name}" if s.parent else s.name,
+             s.dur_s * 1e3] for g in groups for s in g]
+
+
+def _ranges_on_the_host_only(prof) -> dict:
+    """The profiler's events of a request: the program's ``roboecc.*``
+    ranges are host events, none has a device-side twin and none is a user
+    annotation; returns how many ranges and device operations it holds."""
+    ranges = devs = 0
+    for e in prof.events():
+        cuda = e.device_type == torch.autograd.DeviceType.CUDA
+        ours = e.name.startswith(RANGE_PREFIX)
+        if cuda and (ours or e.is_user_annotation):
+            raise AssertionError(f"device-side event {e.name!r} "
+                                 f"(user annotation {e.is_user_annotation})")
+        if ours and e.is_user_annotation:
+            raise AssertionError(f"range {e.name!r} is a user annotation")
+        ranges += ours
+        devs += cuda
+    return {"ranges": ranges, "device_events": devs}
 
 
 def _same_payload(a: dict, b: dict) -> bool:
@@ -2032,7 +2078,7 @@ def phase_serve(st: dict, n_requests: int = 8) -> dict:
                 or not _same_payload(pay_t, pay_i):
             raise AssertionError("a traced request differs from the same "
                                  "request without a recorder")
-        span_ms.append(_span_checks(rec, n_before, ms))
+        span_ms.append(_span_checks(rec, n_before, ms, exr is ex2))
         traced_walls.append(ms)
     trace_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "build", "serve_executor.trace.json")
@@ -2040,10 +2086,42 @@ def phase_serve(st: dict, n_requests: int = 8) -> dict:
     with open(export_chrome_trace(rec, trace_path)) as f:
         loaded = json.load(f)
     spans_x = [e for e in loaded["traceEvents"] if e["ph"] == "X"]
+    want_x = (EDGE_STAGES + CLOUD_STAGES) * 4 + EDGE_STAGES \
+        + CLOUD_STAGES_TWO_POOL
     if loaded != json.loads(json.dumps(chrome_trace(rec))) \
-            or [e["name"] for e in spans_x] != ["edge_fwd", "cloud_fwd"] * 5:
+            or sorted(e["name"] for e in spans_x) != sorted(want_x) \
+            or any(("parent" in e["args"])
+                   == (e["name"] in ("edge_fwd", "cloud_fwd"))
+                   for e in spans_x):
         raise AssertionError(f"Chrome trace {trace_path} read back as "
                              f"{[e['name'] for e in spans_x]}")
+
+    # ---- the stages under the profiler: FUNCTION-scope ranges on the host,
+    # none on the device; one request's wall without a recorder, with one,
+    # and under the profiler (no recorder), 5 of each
+    p_0, t_0 = requests[0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as rprof:
+        a_p, pay_p = ex.run(params, p_0, t_0, cuts[0])
+        torch.cuda.synchronize()
+    if not torch.equal(a_p, untraced[0][0]) \
+            or not _same_payload(pay_p, untraced[0][1]):
+        raise AssertionError("a profiled request differs from the same "
+                             "request without the profiler")
+    profiled = _ranges_on_the_host_only(rprof)
+    if profiled["ranges"] != len(EDGE_STAGES + CLOUD_STAGES) \
+            or profiled["device_events"] < 1:
+        raise AssertionError(f"a profiled request held {profiled}")
+    stage_walls = {"plain": [], "recorder": [], "profiler": []}
+    for _ in range(5):
+        stage_walls["plain"].append(
+            _wall_ms(lambda: ex.run(params, p_0, t_0, cuts[0]))[0])
+        stage_walls["recorder"].append(_wall_ms(
+            lambda: ex.run(params, p_0, t_0, cuts[0], recorder=rec))[0])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            stage_walls["profiler"].append(
+                _wall_ms(lambda: ex.run(params, p_0, t_0, cuts[0]))[0])
 
     # ---- what the card has no kernel for raises, and launches nothing:
     # int4 at a width that is no multiple of 256 or at a block other than
@@ -2095,9 +2173,12 @@ def phase_serve(st: dict, n_requests: int = 8) -> dict:
             "executor_spans": {
                 "requests": "4 single-pool and the two-pool one, again with "
                             "FlightRecorder(mode='full'): actions, payloads "
-                            "and launches equal to the untraced runs",
-                "edge_cloud_span_ms": span_ms,
+                            "and launches equal to the untraced runs; the "
+                            "stages timed by CUDA events",
+                "stage_span_ms": span_ms,
                 "traced_request_wall_ms": traced_walls,
+                "profiled_request": profiled,
+                "request_wall_ms_by_tracing": stage_walls,
                 "chrome_trace": os.path.relpath(
                     trace_path, os.path.dirname(os.path.abspath(__file__))),
                 "chrome_trace_events": len(loaded["traceEvents"])},
@@ -6045,6 +6126,10 @@ def main() -> None:
     ap.add_argument("--dryrun-only", action="store_true",
                     help="run only the dry run's cells (DRYRUN_CELLS) on "
                          "fake process groups")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="run only the serve phase: OpenVLA-7B requests "
+                         "through the split executor, its stage spans and "
+                         "profiler ranges")
     ap.add_argument("--spmd-lr-probe", action="store_true",
                     help="run only the one-rank training probe that chose "
                          "spmd_train's learning rate")
@@ -6102,6 +6187,14 @@ def main() -> None:
     if args.vit_layers is not None:
         cfg = cfg.replace(vit_layers=args.vit_layers)
         cogact = cogact.replace(vit_layers=args.vit_layers)
+    if args.serve_only:
+        phase_build()
+        phase_serve(setup_openvla(cfg))
+        print(env["nvidia_smi"], flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
 
     dryrun = start_dryrun()
     phase_build()

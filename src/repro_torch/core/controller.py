@@ -17,7 +17,9 @@ Pipeline:
 latency decomposition for that inference — this drives the paper-table
 benchmarks and the serving examples.  ``adjust_overhead_s`` is the *measured
 wall time* of the adjustment decision on this host (paper §V-C-1 reports
-10.7 ms on their hosts).
+10.7 ms on their hosts).  While ``torch.profiler`` records, a tick is the
+range ``roboecc.tick`` around ``roboecc.predict`` (the LSTM's forecast)
+and ``roboecc.adjust`` (the move); otherwise each costs one check.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from .segmentation import (SegmentationResult, evaluate_placement,
                            evaluate_split, search, search_multicut,
                            search_streamed)
 from .structure import LayerCost, Workload, build_graph
+from .telemetry import stage
 
 
 @dataclasses.dataclass
@@ -242,48 +245,57 @@ class RoboECC:
 
     # ------------------------------------------------------------------ tick
     def tick(self, net: NetworkSim, adjust_enabled: bool = True) -> TickResult:
+        with stage("tick"):
+            return self._tick(net, adjust_enabled)
+
+    def _tick(self, net: NetworkSim, adjust_enabled: bool) -> TickResult:
         bw_real = net.now_bps
         decision = None
         bw_pred = bw_real
         t0 = time.perf_counter()
         if adjust_enabled and self.predictor is not None:
-            window = net.window(self.predictor.cfg.window)
-            bw_pred = self.predictor.predict(window)
-            if self.multicut or self.streamed:
-                # the streamed single-cut controller also routes through
-                # the placement adjuster: its move set carries the chunk
-                # axis (pool2=None pins S2 = n, so cuts stay single)
-                decision = adjust_placement(
-                    self.graph, self.pool, self.placement, bw_pred, bw_real,
-                    self.thresholds, pool2=self.pool2,
-                    codecs=self.adjust_codecs,
-                    edge=self.edge_dev, cloud=self.cloud_dev,
-                    down_bw_factor=self.down_bw_factor,
-                    chunk_grid=self.chunk_grid if self.streamed else None,
-                    rtt_s=self.plan_rtt_s if self.streamed else 0.0,
-                    queue_hz=self.queue_hz, queue_cv2=self.queue_cv2,
-                    queue_service_scale=self.queue_service_scale)
-                self.placement = decision.placement
-                self.split = self.placement.primary_cut(len(self.graph))
-            else:
-                decision = adjust(self.graph, self.pool, self.split, bw_pred,
-                                  bw_real, self.thresholds,
-                                  codecs=self.adjust_codecs,
-                                  current_codec=self.codec.name
-                                  if self.codec else None,
-                                  edge=self.edge_dev, cloud=self.cloud_dev)
-                self.split = decision.split
-            if decision.codec is not None and (
-                    self.codec is None or decision.codec != self.codec.name):
-                # resolve within the adjuster's own axis, NOT the global
-                # registry — adjust_codecs may hold custom Codec instances
-                # (e.g. f32-raw variants) that a name lookup in CODECS
-                # would miss or silently swap for the bf16 defaults
-                self.codec = next(c for c in self.adjust_codecs
-                                  if c.name == decision.codec)
-            if not (self.multicut or self.streamed):
-                self.placement = PlacementPlan.single(
-                    self.split, self.codec.name if self.codec else None)
+            with stage("predict"):
+                window = net.window(self.predictor.cfg.window)
+                bw_pred = self.predictor.predict(window)
+            with stage("adjust"):
+                if self.multicut or self.streamed:
+                    # the streamed single-cut controller also routes
+                    # through the placement adjuster: its move set carries
+                    # the chunk axis (pool2=None pins S2 = n, so cuts stay
+                    # single)
+                    decision = adjust_placement(
+                        self.graph, self.pool, self.placement, bw_pred,
+                        bw_real, self.thresholds, pool2=self.pool2,
+                        codecs=self.adjust_codecs,
+                        edge=self.edge_dev, cloud=self.cloud_dev,
+                        down_bw_factor=self.down_bw_factor,
+                        chunk_grid=self.chunk_grid if self.streamed else None,
+                        rtt_s=self.plan_rtt_s if self.streamed else 0.0,
+                        queue_hz=self.queue_hz, queue_cv2=self.queue_cv2,
+                        queue_service_scale=self.queue_service_scale)
+                    self.placement = decision.placement
+                    self.split = self.placement.primary_cut(len(self.graph))
+                else:
+                    decision = adjust(self.graph, self.pool, self.split,
+                                      bw_pred, bw_real, self.thresholds,
+                                      codecs=self.adjust_codecs,
+                                      current_codec=self.codec.name
+                                      if self.codec else None,
+                                      edge=self.edge_dev,
+                                      cloud=self.cloud_dev)
+                    self.split = decision.split
+                if decision.codec is not None and (
+                        self.codec is None
+                        or decision.codec != self.codec.name):
+                    # resolve within the adjuster's own axis, NOT the global
+                    # registry — adjust_codecs may hold custom Codec instances
+                    # (e.g. f32-raw variants) that a name lookup in CODECS
+                    # would miss or silently swap for the bf16 defaults
+                    self.codec = next(c for c in self.adjust_codecs
+                                      if c.name == decision.codec)
+                if not (self.multicut or self.streamed):
+                    self.placement = PlacementPlan.single(
+                        self.split, self.codec.name if self.codec else None)
         overhead = time.perf_counter() - t0
         # the *next* tick's bandwidth is what the transfer actually sees
         net.step()

@@ -1,8 +1,9 @@
 """Flight-recorder telemetry: spans, streaming metrics, drift audit.
 
-The port's own copy of ``src/repro/core/telemetry.py``: the same code
-(standard library only), held equal to the reference by
-``tests/test_torch_telemetry.py``.
+The port's own copy of ``src/repro/core/telemetry.py``: the same code,
+held equal to the reference by ``tests/test_torch_telemetry.py``, plus the
+stage spans of the split executors (``stage``, ``FlightRecorder.open_run``),
+which the reference does not have.
 
 Zero-overhead-when-off observability for the fleet simulator
 (``runtime/fleet.py``).  The design splits cleanly into three layers:
@@ -26,6 +27,15 @@ Zero-overhead-when-off observability for the fleet simulator
   reconciliation check: the measured stages of every joined request must
   re-sum to its reported latency (``reconcile_max_abs_s``).
 
+Stages of the executors (``stage``): the program's own time, split into
+nested stages.  With a recorder, a stage is timed by two CUDA events on
+the card (no synchronisation: the span resolves once the device has passed
+its end) or by the host clock on the CPU; while ``torch.profiler`` records,
+it is also a FUNCTION-scope range ``roboecc.<name>`` on the profiler's
+own clock, so that the device trace can say which stage the host was in;
+with neither, it costs one check of the profiler's state and one ``is
+None``.
+
 Determinism contract: the recorder NEVER touches the simulator's RNG —
 the reservoir keeps its own ``random.Random`` and the sampling decision
 is a pure hash of the request key (robot index × issue tick), so
@@ -35,15 +45,28 @@ recorder-on runs never perturb the simulation's draw order
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import math
 import random
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch._C._profiler import _RecordFunctionFast
 
 __all__ = [
     "Span", "Reservoir", "QuantileSketch", "MetricsRegistry",
     "DriftAudit", "FlightRecorder", "ContObserver", "DRIFT_STAGES",
+    "stage", "RANGE_PREFIX",
 ]
+
+# the host clock of spans timed on the CPU
+_now = time.perf_counter
+_profiler_enabled = torch.autograd._profiler_enabled
+# the profiler's name of a stage: RANGE_PREFIX + the span's name
+RANGE_PREFIX = "roboecc."
 
 
 # ------------------------------------------------------------------- spans
@@ -52,13 +75,24 @@ class Span:
     """One timed stage on one lane.  ``lane`` names the track the span
     renders on (``robot:<arch>`` cohorts, ``replica:<name>``,
     ``proc:<process>``, ``executor:<tier>``); ``req`` ties the stages of
-    one request together across lanes (-1 = unaffiliated)."""
+    one request together across lanes (-1 = unaffiliated; an executor's
+    co-inference takes the run number ``FlightRecorder.open_run`` hands
+    out).  ``parent`` names the enclosing span of a stage nested inside
+    another, which lies on its parent's lane ("" = none).
+
+    The fleet simulator's spans are in its model time.  An executor's
+    stages timed on the CPU are ``perf_counter`` readings; those timed on
+    the card by CUDA events lie on the device's timeline: ``dur_s`` is the
+    time between the two events, and ``t0_s`` the start event's time
+    after the run's first event plus the host time at which that first
+    event was recorded."""
     name: str                 # stage kind: "edge", "uplink", "queue", ...
     cat: str                  # trace category: "request", "cloud", "wall"
     t0_s: float
     dur_s: float
     lane: str
     req: int = -1
+    parent: str = ""
 
 
 # --------------------------------------------------------------- reservoir
@@ -309,7 +343,15 @@ class FlightRecorder:
     request key (robot index and issue tick — NOT arrival order, so the
     sampled set is identical whichever engine or batching path replays
     the run).  Span groups are reservoir-bounded at ``cap``; metrics and
-    drift sketches are O(1) memory either way."""
+    drift sketches are O(1) memory either way.
+
+    The split executors record their stages here (``open_run``, then
+    ``stage``): one group per tier, the tier's span followed by the stages
+    nested in it, whatever the sampling mode.  A group timed by CUDA events
+    stays pending until the device has passed its last event: the next
+    ``open_run`` keeps those whose end event has completed, and reading
+    ``spans`` keeps every pending group, waiting for the device where need
+    be.  So no synchronisation enters the executor's path."""
 
     def __init__(self, mode: str = "sampled", cap: int = 65536,
                  sample_every: int = 64, seed: int = 0,
@@ -321,10 +363,20 @@ class FlightRecorder:
         self.sample_every = max(1, int(sample_every))
         self.metrics = MetricsRegistry(max_centroids)
         self.drift = DriftAudit(max_centroids)
-        self.spans = Reservoir(cap, seed=seed * 0x9E3779B1 + 1)
+        self._spans = Reservoir(cap, seed=seed * 0x9E3779B1 + 1)
         self.n_recorded = 0
         # continuous-tier per-request state fed by ContObserver
         self._cont: Dict[int, dict] = {}
+        # the executors' stages: the open run, closed groups not yet kept
+        self._run: Optional[_Run] = None
+        self._pending: collections.deque = collections.deque()
+        self._n_runs = 0
+
+    @property
+    def spans(self) -> Reservoir:
+        """The kept span groups, every pending stage group included."""
+        self._keep_pending(wait=True)
+        return self._spans
 
     # ------------------------------------------------------------ sampling
     def want(self, key: int) -> bool:
@@ -369,9 +421,8 @@ class FlightRecorder:
 
     # ------------------------------------------------------------ recording
     def record_span(self, span: Span) -> None:
-        """Offer one free-standing span (e.g. executor wall-clock stages
-        from ``runtime/partition.py``) to the reservoir."""
-        self.spans.offer([span])
+        """Offer one free-standing span to the reservoir."""
+        self._spans.offer([span])
 
     def record_request(self, *, req: int, lane: str, t0_s: float,
                        edge_s: float, uplink_s: float, queue_s: float,
@@ -427,7 +478,7 @@ class FlightRecorder:
         if down_s > 0.0:
             group.append(Span("downlink", "request", t, down_s, lane, req))
         group.extend(extra_spans)
-        self.spans.offer(group)
+        self._spans.offer(group)
 
         if pred is not None:
             self.drift.join(pred, {
@@ -439,15 +490,158 @@ class FlightRecorder:
                    else {}),
             })
 
+    # ------------------------------------------------------ executor stages
+    def open_run(self, device, numbered: bool = True) -> None:
+        """Start one co-inference's stages on ``device``: timed by CUDA
+        events on its current stream on the card, by the host clock on the
+        CPU.  Keeps the pending groups whose device work has completed.
+        ``numbered`` hands the run the next run number as its spans'
+        ``req``; without it they keep -1, as the reference's executor
+        spans do."""
+        self._keep_pending(wait=False)
+        req = -1
+        if numbered:
+            req = self._n_runs
+            self._n_runs += 1
+        stream = torch.cuda.current_stream(device) \
+            if torch.device(device).type == "cuda" else None
+        self._run = _Run(req, stream)
+
+    def _mark(self, run: "_Run"):
+        """A stage boundary: a CUDA event recorded on the run's stream, or
+        a host clock reading."""
+        if run.stream is None:
+            return _now()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(run.stream)
+        if run.anchor is None:
+            run.anchor = (_now(), ev)
+        return ev
+
+    def _open(self, name: str, lane: str) -> None:
+        run = self._run
+        if run is None:
+            raise RuntimeError(f"stage {name!r} outside a run: call "
+                               "open_run first")
+        stack = run.stack
+        # a stage that follows its sibling starts where the sibling ended
+        if run.last is not None and run.last[0] == len(stack):
+            start = run.last[1]
+        else:
+            start = self._mark(run)
+        run.last = None
+        if stack:
+            parent, lane = stack[-1][0], stack[-1][2]
+        else:
+            parent, run.group = "", []
+        entry = [name, parent, lane, start, None]
+        run.group.append(entry)
+        stack.append(entry)
+
+    def _close(self) -> None:
+        run = self._run
+        entry = run.stack.pop()
+        entry[4] = self._mark(run)
+        run.last = (len(run.stack), entry[4])
+        if not run.stack:
+            self._pending.append((run.req, run.anchor, run.group))
+            run.group = None
+            if run.stream is None:
+                self._keep_pending(wait=False)
+
+    def _keep_pending(self, wait: bool) -> None:
+        """Offer the pending stage groups, in order, to the reservoir: all
+        of them with ``wait``, else those whose last event has completed."""
+        while self._pending:
+            req, anchor, group = self._pending[0]
+            end = group[0][4]           # the tier's span closes last
+            if not isinstance(end, float) and not end.query():
+                if not wait:
+                    return
+                end.synchronize()
+            self._pending.popleft()
+            spans = []
+            for name, parent, lane, start, stop in group:
+                t0 = _at(anchor, start)
+                spans.append(Span(name, "executor", t0,
+                                  _at(anchor, stop) - t0, lane, req, parent))
+            self._spans.offer(spans)
+
     # ------------------------------------------------------------- snapshot
     def snapshot(self) -> dict:
         return {"mode": self.mode,
                 "n_recorded": self.n_recorded,
                 "spans": {"kept": len(self.spans),
-                          "seen": self.spans.n_seen,
-                          "cap": self.spans.cap},
+                          "seen": self._spans.n_seen,
+                          "cap": self._spans.cap},
                 "metrics": self.metrics.snapshot(),
                 "drift": self.drift.summary()}
+
+
+# ---------------------------------------------------------- executor stages
+@dataclasses.dataclass
+class _Run:
+    """One co-inference's stages while it runs: its number, the stream its
+    events go on (``None``: the host clock), the host time and event of
+    its first event, the stages open, the group of the open tier, and the
+    depth and mark of the stage that closed last."""
+    req: int
+    stream: Optional[object]
+    anchor: Optional[tuple] = None
+    stack: list = dataclasses.field(default_factory=list)
+    group: Optional[list] = None
+    last: Optional[tuple] = None
+
+
+def _at(anchor: Optional[tuple], mark) -> float:
+    """A stage boundary's time: a host clock reading as it is; an event's
+    from the run's first event, so that a boundary two stages share reads
+    the same in both."""
+    if anchor is None:
+        return mark
+    return anchor[0] + anchor[1].elapsed_time(mark) * 1e-3
+
+
+_OFF = contextlib.nullcontext()          # the stage that nothing records
+
+
+class _Stage:
+    """A stage a recorder times, and a profiler range while one records."""
+    __slots__ = ("recorder", "name", "lane", "range")
+
+    def __init__(self, recorder: FlightRecorder, name: str, lane: str):
+        self.recorder, self.name, self.lane = recorder, name, lane
+        self.range = None
+
+    def __enter__(self):
+        if _profiler_enabled():
+            self.range = _RecordFunctionFast(RANGE_PREFIX + self.name)
+            self.range.__enter__()
+        self.recorder._open(self.name, self.lane)
+
+    def __exit__(self, *exc):
+        self.recorder._close()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+def stage(name: str, recorder: Optional[FlightRecorder] = None,
+          lane: str = ""):
+    """A context manager around one stage of the program.
+
+    With ``recorder`` (inside its ``open_run``) the stage becomes a span:
+    on ``lane`` for a tier's span, on its parent's lane (``lane`` unused)
+    for a stage nested in another.  While ``torch.profiler`` records, it is also a
+    FUNCTION-scope range named ``RANGE_PREFIX + name``, which has no
+    device-side twin in the trace (``record_function``'s USER_SCOPE range
+    has one).  With neither, it costs one check of the profiler's state
+    and one ``is None``: no event, no clock, no range."""
+    if recorder is None:
+        if not _profiler_enabled():
+            return _OFF
+        return _RecordFunctionFast(RANGE_PREFIX + name)
+    return _Stage(recorder, name, lane)
 
 
 # -------------------------------------------------------- batcher observer

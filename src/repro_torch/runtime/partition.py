@@ -43,14 +43,18 @@ read back from the device (two syncs a delta frame), and the changed rows
 go through the same codec kernels as a plain payload.
 
 Both executors take an optional ``core.telemetry.FlightRecorder``: with
-one, ``run`` synchronises the device at the cut and at the end and
-records two wall-clock spans on the ``executor:edge`` and
-``executor:cloud`` lanes; without one it neither syncs nor reads a clock.
+one, ``run`` records an ``edge_fwd`` span on the ``executor:edge`` lane
+and a ``cloud_fwd`` span on the ``executor:cloud`` lane, the one ending
+where the other starts, timed by CUDA events on the card (the device is
+never synchronised for them) and by the host clock on the CPU; the VLA
+executor nests its stages in them (``VLASplitExecutor.run``).  While
+``torch.profiler`` records, the same stages are ``roboecc.*`` ranges on
+the profiler's clock, recorder or not.  With neither, a stage costs one
+check of the profiler's state and one ``is None``: no event, no clock.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -58,7 +62,7 @@ import numpy as np
 import torch
 
 from .. import require_device, to_dtype
-from ..core.telemetry import Span
+from ..core.telemetry import stage
 from ..kernels.activation_codec import ops as codec
 from ..models import transformer as T
 from ..models import vla as V
@@ -67,23 +71,6 @@ from ..models.sharding import tree_leaves, tree_map
 from ..models.transformer import block_forward, _layer_slice
 
 Tree = Any
-
-
-def _record_exec_spans(recorder, t0: float, t1: float, t2: float) -> None:
-    """Two wall-clock spans — edge forward, then cloud forward (+ edge
-    tail for two-pool plans) — on the ``executor:*`` lanes.  Host
-    ``perf_counter`` time, so the trace mixes with the simulator's model
-    time only by lane, never by clock."""
-    recorder.record_span(Span(name="edge_fwd", cat="executor", t0_s=t0,
-                              dur_s=t1 - t0, lane="executor:edge"))
-    recorder.record_span(Span(name="cloud_fwd", cat="executor", t0_s=t1,
-                              dur_s=t2 - t1, lane="executor:cloud"))
-
-
-def _sync(device: torch.device) -> None:
-    """Wait for the device's queued work (the card; nothing on the CPU)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def chunk_sizes(total: int, n_chunks: int) -> Sequence[int]:
@@ -515,21 +502,18 @@ class LMSplitExecutor:
         ``(logits, uplink_payload)``; two-pool plans take the second cut
         ``split2`` and return ``(logits, {"up": ..., "down": ...})`` — the
         logits computed on the edge tail.  With a ``FlightRecorder``
-        passed as ``recorder``, emits wall-clock edge/cloud spans (syncs
-        the device at the cut, so only pass one when tracing)."""
+        passed as ``recorder``, records an ``edge_fwd`` and a ``cloud_fwd``
+        span (the latter with the edge tail of a two-pool plan), with no
+        stage nested in them and ``req`` -1, as the reference records
+        them; no synchronisation."""
         _check_device(self.device, tokens=tokens)
         split = self.plan.clamp(split)
-        t0 = time.perf_counter() if recorder is not None else 0.0
-        payload = self._edge_fwd(params, tokens, split)
-        t1 = 0.0
         if recorder is not None:
-            _sync(self.device)
-            t1 = time.perf_counter()
-        out = self._finish(params, payload, payload, split, split2)
-        if recorder is not None:
-            _sync(self.device)
-            _record_exec_spans(recorder, t0, t1, time.perf_counter())
-        return out
+            recorder.open_run(self.device, numbered=False)
+        with stage("edge_fwd", recorder, "executor:edge"):
+            payload = self._edge_fwd(params, tokens, split)
+        with stage("cloud_fwd", recorder, "executor:cloud"):
+            return self._finish(params, payload, payload, split, split2)
 
     @torch.no_grad()
     def run_streamed(self, params, tokens, split: int, n_chunks: int,
@@ -618,24 +602,29 @@ class VLASplitExecutor:
         return V.decode_action(cfg, params["action"], h[:, -1], noise)
 
     # -- edge: ViT + embed + [0, pool_start) + the pool below the cut
-    def _edge_hidden(self, params, patches, tokens, split: int):
+    def _edge_hidden(self, params, patches, tokens, split: int,
+                     recorder=None):
         cfg, plan = self.cfg, self.plan
         Lv = cfg.vit_layers
-        img = V.vit_encode(cfg, params["vit"], patches)
-        txt = embed(params["embed"], tokens).to(to_dtype(cfg.dtype))
-        x = torch.cat([img, txt], dim=1)
-        positions = torch.arange(x.shape[1], device=x.device)
-        x = self._run_blocks(params, x, positions, 0, plan.pool_start - Lv)
-        if plan.pool_end > plan.pool_start:
-            pool = self._blocks(params, plan.pool_start, plan.pool_end)
-            x = _masked_stack(cfg, pool, x, positions, split,
-                              plan.pool_start, "edge")
+        with stage("vit", recorder):
+            img = V.vit_encode(cfg, params["vit"], patches)
+        with stage("edge_blocks", recorder):
+            txt = embed(params["embed"], tokens).to(to_dtype(cfg.dtype))
+            x = torch.cat([img, txt], dim=1)
+            positions = torch.arange(x.shape[1], device=x.device)
+            x = self._run_blocks(params, x, positions, 0,
+                                 plan.pool_start - Lv)
+            if plan.pool_end > plan.pool_start:
+                pool = self._blocks(params, plan.pool_start, plan.pool_end)
+                x = _masked_stack(cfg, pool, x, positions, split,
+                                  plan.pool_start, "edge")
         return x
 
-    def _edge_fwd(self, params, patches, tokens, split: int) -> Dict:
-        return encode_activation(
-            self._edge_hidden(params, patches, tokens, split),
-            self.plan.wire_codec)
+    def _edge_fwd(self, params, patches, tokens, split: int,
+                  recorder=None) -> Dict:
+        x = self._edge_hidden(params, patches, tokens, split, recorder)
+        with stage("encode", recorder):
+            return encode_activation(x, self.plan.wire_codec)
 
     # -- cloud (single-pool): the pool above the cut + [pool_end, L)
     def _cloud_hidden(self, params, x, split: int):
@@ -649,48 +638,60 @@ class VLASplitExecutor:
         return self._run_blocks(params, x, positions, plan.pool_end - Lv,
                                 cfg.n_layers)
 
-    def _cloud_fwd(self, params, payload: Dict, split: int, noise):
-        x = decode_activation(payload, self.cfg.dtype)
-        return self._action_decode(params, self._cloud_hidden(params, x, split),
-                                   noise)
+    def _cloud_fwd(self, params, payload: Dict, split: int, noise,
+                   recorder=None):
+        with stage("decode", recorder):
+            x = decode_activation(payload, self.cfg.dtype)
+        with stage("cloud_blocks", recorder):
+            x = self._cloud_hidden(params, x, split)
+        with stage("action_head", recorder):
+            return self._action_decode(params, x, noise)
 
     # -- two-pool cloud trunk: pool above cut 1 + mid blocks + pool 2 below
     #    cut 2
-    def _cloud_mid_fwd(self, params, payload: Dict, split: int, split2: int
-                       ) -> Dict:
+    def _cloud_mid_fwd(self, params, payload: Dict, split: int, split2: int,
+                       recorder=None) -> Dict:
         cfg, plan = self.cfg, self.plan
         Lv = cfg.vit_layers
-        x = decode_activation(payload, cfg.dtype)
-        positions = torch.arange(x.shape[1], device=x.device)
-        if plan.pool_end > plan.pool_start:
-            pool = self._blocks(params, plan.pool_start, plan.pool_end)
-            x = _masked_stack(cfg, pool, x, positions, split,
-                              plan.pool_start, "cloud")
-        x = self._run_blocks(params, x, positions, plan.pool_end - Lv,
-                             plan.pool2_start - Lv)
-        if plan.pool2_end > plan.pool2_start:
-            # cloud owns the BELOW-split2 half of pool 2 ("edge" predicate)
-            pool2 = self._blocks(params, plan.pool2_start, plan.pool2_end)
-            x = _masked_stack(cfg, pool2, x, positions, split2,
-                              plan.pool2_start, "edge")
-        k = self._tail_slice()
-        if k:
-            x = x[:, -k:]       # semantic downlink: only what the tail reads
-        return encode_activation(x, plan.codec2)
+        with stage("decode", recorder):
+            x = decode_activation(payload, cfg.dtype)
+        with stage("cloud_blocks", recorder):
+            positions = torch.arange(x.shape[1], device=x.device)
+            if plan.pool_end > plan.pool_start:
+                pool = self._blocks(params, plan.pool_start, plan.pool_end)
+                x = _masked_stack(cfg, pool, x, positions, split,
+                                  plan.pool_start, "cloud")
+            x = self._run_blocks(params, x, positions, plan.pool_end - Lv,
+                                 plan.pool2_start - Lv)
+            if plan.pool2_end > plan.pool2_start:
+                # cloud owns the BELOW-split2 half of pool 2 ("edge"
+                # predicate)
+                pool2 = self._blocks(params, plan.pool2_start, plan.pool2_end)
+                x = _masked_stack(cfg, pool2, x, positions, split2,
+                                  plan.pool2_start, "edge")
+            k = self._tail_slice()
+            if k:
+                x = x[:, -k:]   # semantic downlink: only what the tail reads
+        with stage("encode", recorder):
+            return encode_activation(x, plan.codec2)
 
     # -- two-pool edge tail: pool 2 above cut 2 + remaining blocks + action
-    def _tail_fwd(self, params, payload: Dict, split2: int, noise):
+    def _tail_fwd(self, params, payload: Dict, split2: int, noise,
+                  recorder=None):
         cfg, plan = self.cfg, self.plan
         Lv = cfg.vit_layers
-        x = decode_activation(payload, cfg.dtype)
-        positions = torch.arange(x.shape[1], device=x.device)
-        if plan.pool2_end > plan.pool2_start:
-            pool2 = self._blocks(params, plan.pool2_start, plan.pool2_end)
-            x = _masked_stack(cfg, pool2, x, positions, split2,
-                              plan.pool2_start, "cloud")
-        x = self._run_blocks(params, x, positions, plan.pool2_end - Lv,
-                             cfg.n_layers)
-        return self._action_decode(params, x, noise)
+        with stage("decode", recorder):
+            x = decode_activation(payload, cfg.dtype)
+        with stage("edge_blocks", recorder):
+            positions = torch.arange(x.shape[1], device=x.device)
+            if plan.pool2_end > plan.pool2_start:
+                pool2 = self._blocks(params, plan.pool2_start, plan.pool2_end)
+                x = _masked_stack(cfg, pool2, x, positions, split2,
+                                  plan.pool2_start, "cloud")
+            x = self._run_blocks(params, x, positions, plan.pool2_end - Lv,
+                                 cfg.n_layers)
+        with stage("action_head", recorder):
+            return self._action_decode(params, x, noise)
 
     # -- public API
     def _prepare(self, patches, tokens, noise, generator):
@@ -700,15 +701,17 @@ class VLASplitExecutor:
                                  generator)
         return noise
 
-    def _finish(self, params, payload, wire, split: int, split2, noise):
+    def _finish(self, params, payload, wire, split: int, split2, noise,
+                recorder=None):
         """Everything after the uplink: ``payload`` is what the cloud
         decodes, ``wire`` what is reported as shipped."""
         if not self.plan.two_pool:
-            return self._cloud_fwd(params, payload, split, noise), wire
+            return self._cloud_fwd(params, payload, split, noise,
+                                   recorder), wire
         split2 = self.plan.clamp2(
             split2 if split2 is not None else self.plan.pool2_end)
-        down = self._cloud_mid_fwd(params, payload, split, split2)
-        action = self._tail_fwd(params, down, split2, noise)
+        down = self._cloud_mid_fwd(params, payload, split, split2, recorder)
+        action = self._tail_fwd(params, down, split2, noise, recorder)
         return action, {"up": wire, "down": down}
 
     @torch.no_grad()
@@ -722,20 +725,29 @@ class VLASplitExecutor:
         the action decoded on the edge tail.  ``noise`` is the initial
         draw of a ``diffusion`` or ``dit`` head (made from ``generator``
         when left out).
-        ``recorder`` as in ``LMSplitExecutor.run``."""
+
+        With a ``FlightRecorder`` passed as ``recorder``, records one
+        group a tier, each the tier's span and the stages nested in it, all
+        with the run's number as ``req``, timed with no synchronisation
+        (module docstring):
+
+        - ``edge_fwd`` on ``executor:edge``: ``vit``, ``edge_blocks`` (the
+          embedding, the blocks below the pool and the pool below the cut)
+          and ``encode``;
+        - ``cloud_fwd`` on ``executor:cloud``, starting where ``edge_fwd``
+          ends: ``decode``, ``cloud_blocks`` and ``action_head`` (the final
+          norm and the action decode, a DiT's whole sampling loop); under a
+          two-pool plan ``decode``, ``cloud_blocks``, ``encode``, then the
+          edge tail's ``decode``, ``edge_blocks`` and ``action_head``."""
         noise = self._prepare(patches, tokens, noise, generator)
         split = self.plan.clamp(split)
-        t0 = time.perf_counter() if recorder is not None else 0.0
-        payload = self._edge_fwd(params, patches, tokens, split)
-        t1 = 0.0
         if recorder is not None:
-            _sync(self.device)
-            t1 = time.perf_counter()
-        out = self._finish(params, payload, payload, split, split2, noise)
-        if recorder is not None:
-            _sync(self.device)
-            _record_exec_spans(recorder, t0, t1, time.perf_counter())
-        return out
+            recorder.open_run(self.device)
+        with stage("edge_fwd", recorder, "executor:edge"):
+            payload = self._edge_fwd(params, patches, tokens, split, recorder)
+        with stage("cloud_fwd", recorder, "executor:cloud"):
+            return self._finish(params, payload, payload, split, split2,
+                                noise, recorder)
 
     @torch.no_grad()
     def run_streamed(self, params, patches, tokens, split: int,

@@ -7,9 +7,10 @@ by ``tests/test_torch_telemetry.py``.
 Renders the span groups a ``core/telemetry.FlightRecorder`` kept into
 the Trace Event Format that ``chrome://tracing`` and Perfetto load
 directly: one *process* row per lane family (robot cohorts, cloud
-replicas, open-loop arrival processes, executor wall-clock), one
+replicas, open-loop arrival processes, executor spans), one
 *thread* row per lane, ``"X"`` complete events for spans (microsecond
-``ts``/``dur``) and ``"M"`` metadata events naming the rows.  The
+``ts``/``dur``; an executor stage's ``args`` name its ``parent``, on
+whose lane it lies) and ``"M"`` metadata events naming the rows.  The
 export walks only the reservoir-kept groups, so writing a trace of a
 100k-robot run costs the same as a 1k one.
 """
@@ -61,11 +62,16 @@ def chrome_trace(recorder: FlightRecorder) -> dict:
         events.append({"name": "thread_name", "ph": "M", "pid": pid,
                        "tid": tid, "args": {"name": lane}})
 
-    for s in sorted(spans, key=lambda s: (s.t0_s, s.lane, s.name)):
+    # a stage nested in another lies on its parent's lane, and follows its
+    # parent where both start at one instant, so that Perfetto nests it
+    for s in sorted(spans, key=lambda s: (s.t0_s, s.lane, s.parent != "",
+                                          s.name)):
         pid, tid = tid_of[s.lane]
+        args = {"req": s.req, "parent": s.parent} if s.parent \
+            else {"req": s.req}
         events.append({"name": s.name, "cat": s.cat, "ph": "X",
                        "ts": s.t0_s * 1e6, "dur": s.dur_s * 1e6,
-                       "pid": pid, "tid": tid, "args": {"req": s.req}})
+                       "pid": pid, "tid": tid, "args": args})
     return {"traceEvents": events, "displayTimeUnit": "ms",
             "otherData": {"spans_kept": len(recorder.spans),
                           "spans_seen": recorder.spans.n_seen,
