@@ -4,9 +4,13 @@ The window is marked on the device itself: the traced steps start after
 one marker kernel (``torch.cuda._sleep``'s ``spin_kernel``) issued on an
 idle card and end where a second one starts, issued once they are done.
 The card is busy where any device operation runs (the union of their
-intervals: kernels, copies, fills), idle elsewhere; the idle gaps are named
-by the innermost host operation (an ATen operator or a CUDA runtime call)
-at each gap's middle, or "no operation" where the host was running Python
+intervals: kernels, copies, fills), idle elsewhere.  User annotations
+(``record_function`` ranges and their device-side twins) are no
+operations and are dropped, so that they neither count as launches nor
+cover idle time.  The idle gaps are named by the innermost range of the
+program's stages (``roboecc.<stage>``) at each gap's middle, where one
+spans it, else by the innermost host operation there (an ATen operator or
+a CUDA runtime call), or "no operation" where the host was running Python
 between them.  The profiler slows the host (PERF.md gives by how much), so
 the traced window's idle share is higher than an untraced window's.
 Kernel time is grouped by name as ``chip_smoke.py``'s
@@ -26,6 +30,7 @@ from . import stats
 MARKER = "spin_kernel"       # torch.cuda._sleep's kernel
 MARKER_CYCLES = 1000
 NAME_CHARS = 96
+STAGE_PREFIX = "roboecc."    # the program's ranges of its stages
 
 
 @dataclass
@@ -97,6 +102,8 @@ def from_profiler(prof) -> DeviceTrace:
     from torch.autograd import DeviceType
     device, host = [], []
     for e in prof.events():
+        if e.is_user_annotation:
+            continue
         op = Op(e.name, float(e.time_range.start), float(e.time_range.end))
         (device if e.device_type == DeviceType.CUDA else host).append(op)
     return window(device, host)
@@ -142,16 +149,20 @@ def by_group(trace: DeviceTrace) -> Dict[str, float]:
 
 def idle_gaps(trace: DeviceTrace, n: int = 10) -> List[List]:
     """Idle time of the device inside the window, summed by what the host
-    was doing in the middle of each gap: the shortest host call that spans
-    that instant."""
+    was doing in the middle of each gap: the shortest of the program's
+    stage ranges that spans that instant, else the shortest host call."""
     start = np.array([o.start_us for o in trace.host_ops])
     end = np.array([o.end_us for o in trace.host_ops])
     dur = end - start
+    stage = np.array([o.name.startswith(STAGE_PREFIX)
+                      for o in trace.host_ops], dtype=bool)
     by: Dict[str, float] = {}
     spans = [(o.start_us, o.end_us) for o in trace.device_ops]
     for lo, hi in stats.gaps(spans, trace.start_us, trace.end_us):
         mid = 0.5 * (lo + hi)
         hit = np.flatnonzero((start <= mid) & (end >= mid))
+        if stage[hit].any():
+            hit = hit[stage[hit]]
         key = "host: " + (trace.host_ops[hit[np.argmin(dur[hit])]]
                           .name[:NAME_CHARS] if hit.size else "no operation")
         by[key] = by.get(key, 0.0) + (hi - lo) * 1e-6

@@ -43,6 +43,7 @@ class Reading:
     setup_s: float
     window_s: float
     steps: List[Step]
+    wire_steps: int             # the window's first steps the wire counts
     spans_ms: Dict[str, List[float]] = field(default_factory=dict)
     trace: Optional[devtrace.DeviceTrace] = None
     power_limit_w: Optional[float] = None
@@ -164,17 +165,23 @@ class Run:
             torch.cuda.empty_cache()
 
 
-def _describe(steps: List[Step], window_s: float, setup_s: float) -> None:
-    """One line on standard error about the window's steps."""
-    ms = sorted((s.t1 - s.t0) * 1e3 for s in steps)
+def _mix(steps: List[Step]) -> Dict[str, int]:
     mix: Dict[str, int] = {}
     for s in steps:
         key = f"{s.codec or 'raw'}@{s.edge_blocks}"
         mix[key] = mix.get(key, 0) + 1
+    return mix
+
+
+def _describe(steps: List[Step], window_s: float, setup_s: float,
+              wire_steps: int) -> None:
+    """One line on standard error about the window's steps."""
+    ms = sorted((s.t1 - s.t0) * 1e3 for s in steps)
     print(f"window {window_s:.3f} s, setup {setup_s:.3f} s, {len(steps)} "
           f"steps: least {ms[0]:.2f} ms, median {ms[len(ms) // 2]:.2f}, "
           f"most {ms[-1]:.2f}, mean {sum(ms) / len(ms):.2f}; cut and codec "
-          f"{mix}", file=sys.stderr)
+          f"{_mix(steps)}, of the first {wire_steps} "
+          f"{_mix(steps[:wire_steps])}", file=sys.stderr)
 
 
 def run(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
@@ -187,19 +194,19 @@ def run(cell: catalog.Cell, seed: int, seconds: float, trace: bool,
     rec = r.program.recorder() if trace else None
     steps = r.window(seconds, rec)
     window_s = steps[-1].t1 - steps[0].t0
-    _describe(steps, window_s, setup_s)
+    wire_steps = int(cell.traffic["wire_steps"])
+    _describe(steps, window_s, setup_s, wire_steps)
     dtrace = r.traced() if trace and r.device.type == "cuda" else None
     dev = r.device
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    spans = {} if rec is None else {
-        n: r.program.span_ms(rec, n) for n in ("edge_fwd", "cloud_fwd")}
+    spans = {} if rec is None else r.program.spans_ms(rec)
     r.close()
 
     readings = check.judge(cell.family, cell.config["config"], r.params,
                            r.inputs, r.sample)
     table = check.verdict(readings, cell.limits)
     reading = Reading(cell.config["config"], r.inputs.seq,
-                      setup_s, window_s, steps, spans, dtrace,
+                      setup_s, window_s, steps, wire_steps, spans, dtrace,
                       power_limit_w() if dev.type == "cuda" else None)
     wanted = cell.per_layer if trace else cell.end_to_end
     metrics = {}

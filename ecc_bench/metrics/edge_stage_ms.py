@@ -1,7 +1,8 @@
 """edge_stage_ms (layer: executor, edge stage; moves action_p95_ms): the
 median over the window's steps of the executor's ``edge_fwd`` span (ViT,
 embedding, the edge's LLM blocks and the encode), recorded by the
-program's flight recorder, which synchronises the device at the cut."""
+program's flight recorder, which times it on the device by CUDA events
+and synchronises nothing."""
 from ecc_bench import stats
 
 

@@ -39,9 +39,13 @@ def recorder() -> FlightRecorder:
     return FlightRecorder(mode="full")
 
 
-def span_ms(rec: FlightRecorder, name: str) -> list:
-    return [s.dur_s * 1e3 for group in rec.spans.items for s in group
-            if s.name == name]
+def spans_ms(rec: FlightRecorder) -> Dict[str, List[float]]:
+    """Every span the recorder kept, in ms, by the span's name."""
+    out: Dict[str, List[float]] = {}
+    for group in rec.spans.items:
+        for s in group:
+            out.setdefault(s.name, []).append(s.dur_s * 1e3)
+    return out
 
 
 @dataclass

@@ -83,6 +83,8 @@ def test_every_cell_finds_its_files(name):
     cell = catalog.cell(name)
     assert cell.config["config"]["name"] == cell.entry["config"]
     assert cell.traffic["loop"] == "closed"
+    assert isinstance(cell.traffic["wire_steps"], int)
+    assert cell.traffic["wire_steps"] >= 1
     assert callable(cell.loop.window)
     assert callable(cell.server.make)
     assert all(callable(getattr(cell.family, f)) for f in (

@@ -33,14 +33,10 @@ def test_a_sound_run_is_correct(name, trace):
     assert out["failed"] == 0 and out["attempted"] > 0
     assert list(out)[-1] == "check"
     want = cell.per_layer if trace else cell.end_to_end
-    got = set(out["metrics"])
-    if trace:       # on the CPU only the host's readings exist
-        assert got == {m["name"] for m in want} - {
-            "launches_per_action", "attn_roofline_share",
-            "codec_roofline_share", "device_idle_share"}
-    else:
-        assert got == {m["name"] for m in want}
-        assert out["metrics"]["wire_bytes_per_action"]["value"] > 0
+    # on the CPU there is no device trace: every other reading exists
+    assert set(out["metrics"]) == {m["name"] for m in want
+                                   if m["source"] != "device_trace"}
+    assert all(e["value"] > 0 for e in out["metrics"].values())
 
 
 def test_the_same_seed_gives_the_same_inputs():

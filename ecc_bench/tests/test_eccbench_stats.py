@@ -1,6 +1,9 @@
 """Exact percentiles, rates, the union of intervals and the reading of a
 device trace, on hand-made inputs."""
+from types import SimpleNamespace
+
 import pytest
+from torch.autograd import DeviceType
 
 from ecc_bench import devtrace, stats
 from ecc_bench.devtrace import Op
@@ -74,6 +77,41 @@ def test_idle_gaps_named_by_the_innermost_host_call():
     assert gaps["host: cudaLaunchKernel"] == pytest.approx(10e-6)
     assert gaps["host: cudaMemcpyAsync"] == pytest.approx(19e-6)
     assert gaps["host: no operation"] == pytest.approx(14e-6)
+
+
+def test_idle_gaps_named_by_the_innermost_stage_range():
+    t = _trace()
+    # the program's stages: cloud_fwd over 0-100, action_head 45-100
+    t.host_ops += [Op("roboecc.cloud_fwd", 0.0, 100.0),
+                   Op("roboecc.action_head", 45.0, 100.0)]
+    gaps = dict(devtrace.idle_gaps(t))
+    # 1-10 (mid 5.5): cloud_fwd, not the shorter aten::mm; 50-60, 62-70,
+    # 71-90, 95-101 (mids 55, 66, 80.5, 98): action_head
+    assert gaps == {"host: roboecc.cloud_fwd": pytest.approx(9e-6),
+                    "host: roboecc.action_head": pytest.approx(43e-6)}
+
+
+def _event(name, start, end, device, annotation=False):
+    return SimpleNamespace(
+        name=name, time_range=SimpleNamespace(start=start, end=end),
+        device_type=DeviceType.CUDA if device else DeviceType.CPU,
+        is_user_annotation=annotation)
+
+
+def test_user_annotations_are_no_operations():
+    """A ``record_function`` range and its device-side twin neither count
+    as launches nor cover the device's idle time."""
+    prof = SimpleNamespace(events=lambda: [
+        _event(devtrace.MARKER, 0.0, 1.0, True),
+        _event("nvjet_tst_gemm", 10.0, 40.0, True),
+        _event("head", 5.0, 95.0, True, annotation=True),
+        _event("head", 4.0, 96.0, False, annotation=True),
+        _event("aten::mm", 2.0, 60.0, False),
+        _event(devtrace.MARKER, 101.0, 102.0, True)])
+    t = devtrace.from_profiler(prof)
+    assert [o.name for o in t.kernels] == ["nvjet_tst_gemm"]
+    assert t.busy_s() == pytest.approx(30e-6)
+    assert [o.name for o in t.host_ops] == ["aten::mm"]
 
 
 def test_window_needs_two_markers():

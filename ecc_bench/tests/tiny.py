@@ -17,7 +17,8 @@ def cell(name: str, limit: float = 1e9) -> catalog.Cell:
     if cfg["vla_action_head"] == "dit":
         cfg.update(TINY_DIT)
     t = c.traffic
-    t.update(robots=2, warmup_steps=1, trace_steps=2, check_steps=2)
+    t.update(robots=2, warmup_steps=1, trace_steps=2, check_steps=2,
+             wire_steps=3)
     if "plan" in t:
         t["plan"] = {"pool_blocks": [0, 2], "edge_blocks": 1,
                      "codec": t["plan"]["codec"]}
