@@ -255,6 +255,7 @@ from repro_torch.models.ssm import ssd_step
 from repro_torch.models.transformer import _layer_slice, lm_hidden, lm_logits
 from repro_torch.models.vla import (action_head_specs, decode_action,
                                    draw_noise, vla_backbone)
+from repro_torch.runtime import action_graph as AG
 from repro_torch.runtime.kvcache import cache_bytes
 from repro_torch.runtime.partition import (DeltaTransport, LMSplitExecutor,
                                            SplitPlan, VLASplitExecutor,
@@ -2633,6 +2634,10 @@ def phase_serve_cogact(st: dict, n_requests: int = 8) -> dict:
         patches, tokens, noise = _cogact_request(st)
         ex.run(params, patches, tokens, cuts[0], noise)
     torch.cuda.synchronize()
+    warm_calls = dict(ex.dit.calls)
+    if warm_calls != {AG.REPLAYS: 1, AG.CAPTURES: 1, AG.EAGER: 0}:
+        raise AssertionError(f"the warm-up's DiT head calls {warm_calls}: "
+                             "expected one capture, then one replay")
 
     # ---- the main path: counts set to 0 just before, read just after
     requests = [_cogact_request(st) for _ in range(n_requests)]
@@ -2655,6 +2660,10 @@ def phase_serve_cogact(st: dict, n_requests: int = 8) -> dict:
             raise AssertionError(f"payload {payload_bytes(payload)} bytes, "
                                  f"expected {want_bytes} of packed int4")
     launches = _counts()
+    moved_calls = {k: ex.dit.calls[k] - warm_calls[k] for k in warm_calls}
+    if moved_calls != {AG.REPLAYS: n_requests, AG.CAPTURES: 0, AG.EAGER: 0}:
+        raise AssertionError(f"after the warm-up the DiT head's calls moved "
+                             f"by {moved_calls}: expected only replays")
 
     # ---- streamed == run, bit for bit, at the same cut and noise
     patches, tokens, noise = requests[0]
@@ -2723,6 +2732,8 @@ def phase_serve_cogact(st: dict, n_requests: int = 8) -> dict:
         ms, _ = _wall_ms(lambda: ex._action_decode(params, h, noise))
         stages["action_dit"].append(ms)
 
+    dit_graph = _dit_graph_checks(st, ex, h, [r[2] for r in requests[:2]])
+
     peak = torch.cuda.max_memory_allocated()
     prof = profile_request(lambda: ex.run(params, patches, tokens, cut, noise))
     prof_dit = profile_request(lambda: ex._action_decode(params, h, noise))
@@ -2741,6 +2752,7 @@ def phase_serve_cogact(st: dict, n_requests: int = 8) -> dict:
             "two_pool_request_wall_ms": ms2,
             "profile_one_request": prof,
             "profile_action_dit": prof_dit,
+            "dit_graph": dit_graph,
             "payload_bytes": want_bytes,
             "downlink_payload_bytes": payload_bytes(pay2["down"]),
             "launches": launches,
@@ -2754,6 +2766,58 @@ def phase_serve_cogact(st: dict, n_requests: int = 8) -> dict:
             "peak_memory_bytes": peak}
     emit(info)
     return info
+
+
+@torch.no_grad()
+def _dit_graph_checks(st: dict, ex, x, noises) -> dict:
+    """The DiT head from the executor's CUDA graph against the eager head
+    (the final norm and ``decode_action``), bit for bit, with autograd off
+    as in the executor's ``run`` (with it on, the head runs eagerly, as it
+    does in this phase's stage walls and profile): at batch 1 on the
+    served hidden state ``x`` and at the DiT cell's batch 64; two answers
+    in a row, the first compared after the second is made, so that neither
+    is the graph's own output; a new batch captures once, then replays.
+    Then both heads' walls and the profiler's view of a replay at 64."""
+    cfg, params = st["cfg"], st["params"]
+    g = gen(SEED + 22)
+
+    def eager(x, noise):
+        h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        return decode_action(cfg, params["action"], h[:, -1], noise)
+
+    x64 = torch.randn((64, 2, cfg.d_model), generator=g, device=DEV
+                      ).to(x.dtype)
+    n64 = [torch.randn((64, cfg.action_horizon, cfg.action_dim), generator=g,
+                       device=DEV) for _ in range(2)]
+    out = {}
+    for name, xs, ns, want_calls in (
+            ("batch_1", x, noises, {AG.REPLAYS: 2, AG.CAPTURES: 0}),
+            ("batch_64", x64, n64, {AG.REPLAYS: 1, AG.CAPTURES: 1})):
+        before = dict(ex.dit.calls)
+        got = [ex._action_decode(params, xs, n) for n in ns]
+        moved = {k: ex.dit.calls[k] - before[k] for k in before}
+        if moved != dict(want_calls, **{AG.EAGER: 0}):
+            raise AssertionError(f"DiT head at {name}: calls moved by "
+                                 f"{moved}, expected {want_calls}")
+        want = [eager(xs, n) for n in ns]
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"DiT head at {name}: the graph's replay is "
+                                 f"{err} from the eager head")
+        if torch.equal(got[0], got[1]):
+            raise AssertionError(f"DiT head at {name}: two noises, one answer")
+        graph_ms = [_wall_ms(lambda: ex._action_decode(params, xs, ns[0]))[0]
+                    for _ in range(5)]
+        eager_ms = [_wall_ms(lambda: eager(xs, ns[0]))[0] for _ in range(5)]
+        out[name] = {"bit_equal": True, "max_abs_diff": err,
+                     "calls_moved": moved,
+                     "graph_wall_ms_median": statistics.median(graph_ms),
+                     "eager_wall_ms_median": statistics.median(eager_ms)}
+    out["profile_replay_batch_64"] = profile_request(
+        lambda: ex._action_decode(params, x64, n64[0]))
+    out["profile_eager_batch_64"] = profile_request(lambda: eager(x64, n64[0]))
+    out["calls"] = dict(ex.dit.calls)
+    return out
 
 
 # ================================================================= control

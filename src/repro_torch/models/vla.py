@@ -131,13 +131,22 @@ def action_head_specs(cfg) -> Dict:
     raise ValueError(f"unknown action head {kind!r}")
 
 
-def _timestep_embed(t: torch.Tensor, dim: int = 64) -> torch.Tensor:
+def _timestep_freqs(device, dim: int = 64) -> torch.Tensor:
+    """The timestep embedding's frequencies, made on ``device`` with no
+    copy from the host (a CUDA graph cannot capture one)."""
     half = dim // 2
-    idx = torch.arange(half, dtype=torch.float32, device=t.device)
-    freqs = torch.exp(-torch.log(torch.tensor(10_000.0, device=t.device))
-                      * idx / half)
+    idx = torch.arange(half, dtype=torch.float32, device=device)
+    return torch.exp(-torch.log(torch.full((), 10_000.0, device=device))
+                     * idx / half)
+
+
+def _fourier(t: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     ang = t[..., None].float() * freqs
     return torch.cat([torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
+def _timestep_embed(t: torch.Tensor, dim: int = 64) -> torch.Tensor:
+    return _fourier(t, _timestep_freqs(t.device, dim))
 
 
 def _ln(x):
@@ -170,10 +179,16 @@ def _dit_block(cfg, pl, x, cond):
 def dit_denoise(cfg, p, noisy: torch.Tensor, t: torch.Tensor,
                 cognition: torch.Tensor):
     """noisy: (B, horizon, action_dim); t: (B,); cognition: (B, d_model)."""
+    return _dit_eps(cfg, p, noisy, t, dense(cognition, p["cond"]),
+                    _timestep_freqs(t.device))
+
+
+def _dit_eps(cfg, p, noisy, t, cog_cond, freqs):
+    """:func:`dit_denoise` from the cognition's conditioning product
+    ``cog_cond`` (B, dit_dim) and the embedding's ``freqs``."""
     dt = to_dtype(cfg.dtype)
     x = dense(noisy.to(dt), p["x_in"])
-    cond = dense(cognition, p["cond"]) + dense(_timestep_embed(t).to(dt),
-                                               p["t_emb"])
+    cond = cog_cond + dense(_fourier(t, freqs).to(dt), p["t_emb"])
 
     def one(pl, h):
         return _dit_block(cfg, pl, h, cond), None, 0.0
@@ -184,29 +199,54 @@ def dit_denoise(cfg, p, noisy: torch.Tensor, t: torch.Tensor,
     return dense(_ln(x) * (1 + sc) + sh, p["out"])     # predicted noise
 
 
+def check_noise(cfg, cognition: torch.Tensor, noise: torch.Tensor) -> None:
+    """``noise`` must be the (B, action_horizon, action_dim) draw of the
+    DiT head for ``cognition``'s batch B."""
+    want = (cognition.shape[0], cfg.action_horizon, cfg.action_dim)
+    if tuple(noise.shape) != want:
+        raise ValueError(f"noise {tuple(noise.shape)} != {want}")
+
+
+def ddim_constants(cfg, device) -> tuple:
+    """What the DDIM loop reads besides its inputs, the same in every call:
+    the timestep embedding's frequencies and, indexed by the timestep t,
+    sqrt(1 - ab_t), sqrt(ab_t), sqrt(ab_{t-1}) and sqrt(1 - ab_{t-1})
+    (ab_{-1} = 1), all float32 on ``device``."""
+    n = cfg.diffusion_steps
+    betas = torch.linspace(1e-4, 0.02, n, dtype=torch.float32, device=device)
+    ab = torch.cumprod(1.0 - betas, dim=0)
+    prev = torch.cat([torch.ones((1,), dtype=torch.float32, device=device),
+                      ab[:-1]])
+    return (_timestep_freqs(device), torch.sqrt(1 - ab), torch.sqrt(ab),
+            torch.sqrt(prev), torch.sqrt(1 - prev))
+
+
+def dit_ddim(cfg, p, cog_cond: torch.Tensor, x: torch.Tensor,
+             consts: tuple) -> torch.Tensor:
+    """The DDIM loop of :func:`dit_sample` from the cognition's
+    conditioning product ``cog_cond`` (B, dit_dim), the float32 noise ``x``
+    and :func:`ddim_constants`: nothing in it copies from the host or waits
+    for the device, so a CUDA graph can capture it."""
+    freqs, s1ab, sab, sprev, s1prev = consts
+    B, n = x.shape[0], cfg.diffusion_steps
+    for i in range(n):
+        t = n - 1 - i
+        eps = _dit_eps(cfg, p, x, torch.full((B,), t, device=x.device),
+                       cog_cond, freqs).float()
+        x0 = (x - s1ab[t] * eps) / sab[t]
+        x = sprev[t] * x0 + s1prev[t] * eps
+    return x
+
+
 def dit_sample(cfg, p, cognition: torch.Tensor, noise: torch.Tensor
                ) -> torch.Tensor:
     """DDIM sampling over cfg.diffusion_steps, starting from ``noise`` of
     shape (B, action_horizon, action_dim), float32."""
-    B = cognition.shape[0]
-    a, h = cfg.action_dim, cfg.action_horizon
-    if tuple(noise.shape) != (B, h, a):
-        raise ValueError(f"noise {tuple(noise.shape)} != {(B, h, a)}")
+    check_noise(cfg, cognition, noise)
     dev = cognition.device
-    x = noise.to(device=dev, dtype=torch.float32)
-    n = cfg.diffusion_steps
-    betas = torch.linspace(1e-4, 0.02, n, dtype=torch.float32, device=dev)
-    alphas = torch.cumprod(1.0 - betas, dim=0)
-    one = torch.ones((), dtype=torch.float32, device=dev)
-    for i in range(n):
-        t = n - 1 - i
-        ab = alphas[t]
-        ab_prev = alphas[t - 1] if t > 0 else one
-        eps = dit_denoise(cfg, p, x, torch.full((B,), t, device=dev),
-                          cognition).float()
-        x0 = (x - torch.sqrt(1 - ab) * eps) / torch.sqrt(ab)
-        x = torch.sqrt(ab_prev) * x0 + torch.sqrt(1 - ab_prev) * eps
-    return x
+    return dit_ddim(cfg, p, dense(cognition, p["cond"]),
+                    noise.to(device=dev, dtype=torch.float32),
+                    ddim_constants(cfg, dev))
 
 
 def _gelu(x):

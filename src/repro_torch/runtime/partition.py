@@ -69,6 +69,7 @@ from ..models import vla as V
 from ..models.layers import embed, rmsnorm, unembed
 from ..models.sharding import tree_leaves, tree_map
 from ..models.transformer import block_forward, _layer_slice
+from .action_graph import DiTGraphs
 
 Tree = Any
 
@@ -564,6 +565,9 @@ class VLASplitExecutor:
             raise ValueError(f"second pool [{plan.pool2_start}, "
                              f"{plan.pool2_end}) must end by {end}")
         self.action_on_cloud = action_on_cloud and not plan.two_pool
+        # the DiT head's DDIM loop, from a CUDA graph on the card; its
+        # calls counted in ``dit.calls``
+        self.dit = DiTGraphs(cfg) if cfg.vla_action_head == "dit" else None
 
     def _blocks(self, params, start: int, end: int) -> Tree:
         """Stacked LLM-block params [start, end) in graph indexing (views)."""
@@ -591,14 +595,17 @@ class VLASplitExecutor:
                 else 1
         return 0
 
-    def _action_decode(self, params, x, noise):
+    def _action_decode(self, params, x, noise, recorder=None):
         """Final norm + action decode — runs on whichever tier owns the
-        last segment."""
+        last segment.  The DiT head goes to ``self.dit``, which counts the
+        call in ``recorder``'s metrics."""
         cfg = self.cfg
         h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         if cfg.vla_action_head in ("detok", ""):
             return V.detokenize(unembed(params["head"],
                                         h[:, -cfg.action_dim:]))
+        if self.dit is not None:
+            return self.dit(params["action"], h[:, -1], noise, recorder)
         return V.decode_action(cfg, params["action"], h[:, -1], noise)
 
     # -- edge: ViT + embed + [0, pool_start) + the pool below the cut
@@ -645,7 +652,7 @@ class VLASplitExecutor:
         with stage("cloud_blocks", recorder):
             x = self._cloud_hidden(params, x, split)
         with stage("action_head", recorder):
-            return self._action_decode(params, x, noise)
+            return self._action_decode(params, x, noise, recorder)
 
     # -- two-pool cloud trunk: pool above cut 1 + mid blocks + pool 2 below
     #    cut 2
@@ -691,7 +698,7 @@ class VLASplitExecutor:
             x = self._run_blocks(params, x, positions, plan.pool2_end - Lv,
                                  cfg.n_layers)
         with stage("action_head", recorder):
-            return self._action_decode(params, x, noise)
+            return self._action_decode(params, x, noise, recorder)
 
     # -- public API
     def _prepare(self, patches, tokens, noise, generator):

@@ -84,6 +84,7 @@ def test_the_package_lists_every_module_of_the_slice():
                  "models.layers", "models.attention", "models.transformer",
                  "models.moe", "models.vlm", "models.encdec",
                  "models.vla", "models.model", "runtime.partition",
+                 "runtime.action_graph",
                  "kernels._build", "kernels.activation_codec.ops",
                  "kernels.activation_codec.ref",
                  "kernels.flash_attention.ops", "kernels.flash_attention.ref",
