@@ -57,6 +57,11 @@ Phases, one JSON line each:
                 loop, each request served at the tick's cut and codec:
                 codec and split mix, forecast time against request wall,
                 planner-priced against shipped bytes
+  serve_vla_moe one MoE layer of the benchmark's sparse-expert VLA
+                (Kimi-VL-A3B's: 64 experts, top-6, 2 shared) at the DiT
+                cell's batch, 64 x 273 tokens: the dropless FFN against a
+                loop over the experts on the card, its time, the expert
+                load and the kernels of one call
   generate      Llama-3.2-3B: a 512-token prompt and 64 greedy steps at
                 batch 1 and 4, exact launch counts, step walls, a profiled
                 step, the logits against one full forward
@@ -192,7 +197,8 @@ ones, all ties), and where the host time of an int4 call goes.  With
 ``--train-only`` runs the gradient cases and the four training paths, and
 ``--spmd-only`` the SPMD phases (``--spmd-lr-probe``: the one-rank
 runs that chose ``spmd_train``'s learning rate); ``--serve-only`` runs the
-build and the ``serve`` phase alone.
+build and the ``serve`` phase alone, ``--vla-moe-only`` the
+``serve_vla_moe`` phase alone (no build).
 With ``--src DIR`` each does so for the ``repro_torch`` under ``DIR``, e.g. a
 parent commit unpacked beside this one, so that two versions are compared
 in one call.
@@ -287,6 +293,11 @@ PHI3_STEPS = 16
 # each generate_* phase's greedy steps
 GRANITE, DEEPSEEK = "granite-moe-3b-a800m", "deepseek-v2-lite-16b"
 MOE_STEPS = 32
+# the benchmark's VLA over Kimi-VL-A3B's MoE + MLA trunk, and its cell's
+# batch: 64 robots of 256 image rows and a 17-token instruction
+VLA_MOE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "ecc_bench", "configs", "vla16b-a3b-vitl-dit.json")
+VLA_MOE_BATCH, VLA_MOE_SEQ = 64, 273
 # the cross-attention paths: llama-3.2-vision-11b (VLM: a 512-token prompt
 # over 1600 vision embeddings, 16 greedy steps) and seamless-m4t-large-v2
 # (encoder-decoder: 512 source frames, a 16-token teacher-forced decoder
@@ -2821,6 +2832,100 @@ def _dit_graph_checks(st: dict, ex, x, noises) -> dict:
 
 
 # ================================================================= control
+def _loop_moe_ffn(cfg, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The plain version of the dropless MoE FFN: the sigmoid routing
+    written out (float32 scores, the top-k of the scores plus the bias,
+    the gates the chosen scores over their sum times the routed scale),
+    each expert's tokens through its own three products, each token's
+    choices added in increasing expert id in float32, the shared expert
+    after."""
+    x2d = x.reshape(-1, x.shape[-1])
+    scores = torch.sigmoid(x2d.float() @ p["router"].float())
+    eids = torch.topk(scores + p["bias"], cfg.moe_top_k, dim=-1).indices
+    gates = torch.gather(scores, 1, eids)
+    gates = gates / gates.sum(-1, keepdim=True) * cfg.moe_routed_scale
+    eids, order = torch.sort(eids, dim=1)
+    gates = torch.gather(gates, 1, order)
+    outs = torch.empty((x2d.shape[0], eids.shape[1], x2d.shape[1]),
+                       dtype=x.dtype, device=x.device)
+    for e in range(cfg.n_experts):
+        rows, slot = (eids == e).nonzero(as_tuple=True)
+        h = F.silu(x2d[rows] @ p["wg"][e]) * (x2d[rows] @ p["wu"][e])
+        outs[rows, slot] = (h @ p["wd"][e]) * gates[rows, slot, None].to(
+            x.dtype)
+    y = outs[:, 0].float()
+    for j in range(1, eids.shape[1]):
+        y = y + outs[:, j]
+    y = y.to(x.dtype).reshape(x.shape)
+    sh = p["shared"]
+    return y + (F.silu(x @ sh["wg"]) * (x @ sh["wu"])) @ sh["wd"]
+
+
+def phase_serve_vla_moe() -> dict:
+    """One MoE layer of the benchmark's sparse-expert VLA at the DiT cell's
+    batch (T = 64 x 273 = 17 472 tokens, 104 832 choices over 64
+    experts): ``moe_ffn``'s dropless dispatch equal to :func:`_loop_moe_ffn`
+    on the card, with no synchronisation with the host, the FFN's device
+    time and rate, its call counted by a recorder, the expert load and the
+    kernels of one call by name.  The selection bias, learned from zero,
+    is drawn at its spread."""
+    from repro_torch.configs.base import ModelConfig
+    with open(VLA_MOE) as f:
+        cfg = ModelConfig(**json.load(f)["config"])
+    p = init_params(moe_mod.moe_specs(cfg), gen(SEED + 140), DEV)
+    p["bias"].normal_(generator=gen(SEED + 142)).mul_(moe_mod.BIAS_SPREAD)
+    T = VLA_MOE_BATCH * VLA_MOE_SEQ
+    x = torch.randn((VLA_MOE_BATCH, VLA_MOE_SEQ, cfg.d_model),
+                    generator=gen(SEED + 141), device=DEV
+                    ).to(torch.bfloat16)
+    with torch.no_grad():
+        rec = FlightRecorder(mode="full")
+        rec.open_run(torch.device(DEV))
+        y, _ = moe_ffn(cfg, p, x, rec)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        moe_ffn(cfg, p, x)                      # raises on a host sync
+        torch.cuda.set_sync_debug_mode(0)
+        spans = [s.name for g in rec.spans.items for s in g]
+        counters = rec.metrics.snapshot()["counters"]
+        assert counters == {moe_mod.DROPLESS: 1} and spans == ["moe"], \
+            (counters, spans)
+        want = _loop_moe_ffn(cfg, p, x)
+        again, _ = moe_ffn(cfg, p, x)
+        _, eids, _ = moe_mod.route(cfg, p, x.reshape(T, -1))
+        load = torch.bincount(eids.reshape(-1), minlength=cfg.n_experts)
+        diff = (y.float() - want.float()).abs()
+        out = {"phase": "serve_vla_moe", "tokens": T,
+               "choices": T * cfg.moe_top_k, "host_syncs": 0,
+               "equal_to_loop": bool(torch.equal(y, want)),
+               "max_abs_diff": float(diff.max()),
+               "rel_l2_diff": float(diff.norm() / want.float().norm()),
+               "repeats": bool(torch.equal(y, again)),
+               "load_max": int(load.max()), "load_min": int(load.min()),
+               "load_mean": float(load.float().mean()),
+               "ms": time_ms(lambda: moe_ffn(cfg, p, x), warmup=2, reps=5,
+                             inner=3),
+               "loop_ms": time_ms(lambda: _loop_moe_ffn(cfg, p, x),
+                                  warmup=1, reps=3, inner=1)}
+        assert out["repeats"] and out["equal_to_loop"], out
+        flops = 2 * T * 3 * cfg.d_model * cfg.moe_d_ff * (
+            cfg.moe_top_k + cfg.n_shared_experts)
+        out["tflops_per_s"] = flops / out["ms"] * 1e-9
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            moe_ffn(cfg, p, x)
+            torch.cuda.synchronize()
+        rows = sorted(((e.key[:200], e.self_device_time_total / 1e3,
+                        int(e.count)) for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda r: -r[1])
+        out["kernels"] = rows
+        out["launches"] = sum(r[2] for r in rows)
+    emit(out)
+    return out
+
+
 def phase_control(st: dict, n_ticks: int = 60) -> dict:
     """The closed loop of ``examples/serve_vla_ecc.py`` at full width: the
     LSTM trained on the card on the first 3000 steps of the trace, then one
@@ -6194,6 +6299,9 @@ def main() -> None:
                     help="run only the serve phase: OpenVLA-7B requests "
                          "through the split executor, its stage spans and "
                          "profiler ranges")
+    ap.add_argument("--vla-moe-only", action="store_true",
+                    help="run only the serve_vla_moe phase: one MoE layer "
+                         "of the benchmark's sparse-expert VLA")
     ap.add_argument("--spmd-lr-probe", action="store_true",
                     help="run only the one-rank training probe that chose "
                          "spmd_train's learning rate")
@@ -6204,6 +6312,13 @@ def main() -> None:
 
     env = phase_env()
     torch.cuda.set_device(0)
+    if args.vla_moe_only:
+        phase_serve_vla_moe()
+        print(env["nvidia_smi"], flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     if args.dryrun_only:
         phase_dryrun()
         print(env["nvidia_smi"], flush=True)
@@ -6278,6 +6393,9 @@ def main() -> None:
     runs["serve_cogact"] = phase_serve_cogact(cst)["launches"]
     runs["control"] = phase_control(cst)["launches"]
     del cst                         # the CogACT parameters go before Llama
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_vla_moe()
     gc.collect()
     torch.cuda.empty_cache()
     lst = setup_lm("llama3.2-3b", SEED + 30)

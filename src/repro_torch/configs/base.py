@@ -48,6 +48,12 @@ class ModelConfig:
     moe_d_ff: int = 0
     moe_capacity_factor: float = 1.25
     first_dense_layers: int = 0     # deepseek: first k layers use dense FFN
+    # the port's own, absent from the JAX package: their defaults are its
+    # routing (softmax scores, top-k gates normalised, capacity and drops)
+    moe_score: str = "softmax"      # softmax | sigmoid (noaux_tc: a
+    #                                 per-expert selection bias, dropless)
+    moe_routed_scale: float = 1.0   # routed_scaling_factor on the sigmoid
+    #                                 router's gates
 
     # -- SSM (mamba2 / SSD) ---------------------------------------------------
     ssm_state: int = 0
@@ -141,6 +147,13 @@ class ModelConfig:
         def mlp_params(ff: int) -> int:
             return 3 * d * ff  # SwiGLU: gate, up, down
 
+        def moe_trunk_params() -> int:
+            n_moe = nl - self.first_dense_layers
+            moe = self.n_experts * mlp_params(self.moe_d_ff) + d * self.n_experts
+            moe += self.n_shared_experts * mlp_params(self.moe_d_ff)
+            return nl * (attn_params() + 2 * d) \
+                + self.first_dense_layers * mlp_params(self.d_ff) + n_moe * moe
+
         total = self.vocab_size * d  # embed
         if not self.tie_embeddings:
             total += self.vocab_size * d  # head
@@ -151,11 +164,7 @@ class ModelConfig:
                 n_x = nl // self.cross_attn_every
                 total += n_x * (attn_params() + 2 * d)
         elif self.family == "moe":
-            n_moe = nl - self.first_dense_layers
-            moe = self.n_experts * mlp_params(self.moe_d_ff) + d * self.n_experts
-            moe += self.n_shared_experts * mlp_params(self.moe_d_ff)
-            total += nl * (attn_params() + 2 * d)
-            total += self.first_dense_layers * mlp_params(self.d_ff) + n_moe * moe
+            total += moe_trunk_params()
         elif self.family == "ssm":
             total += nl * (self._mamba_params() + d)
         elif self.family == "hybrid":
@@ -168,7 +177,10 @@ class ModelConfig:
         elif self.family == "vla":
             total += self.vit_layers * (4 * self.vit_dim ** 2 + 8 * self.vit_dim ** 2) \
                 + self.vit_dim * d
-            total += nl * (attn_params() + mlp_params(self.d_ff) + 2 * d)
+            if self.n_experts:     # a sparse-expert trunk
+                total += moe_trunk_params()
+            else:
+                total += nl * (attn_params() + mlp_params(self.d_ff) + 2 * d)
             total += self._action_head_params()
         return total
 

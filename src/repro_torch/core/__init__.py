@@ -5,6 +5,8 @@ copies (same code, held equal to the reference), and the LSTM predictor
 rewritten in PyTorch:
 
 * structure.py    — Eq. 1 structure model (flattened layer graphs)
+* graph.py        — the port's graph: structure's, and a VLA over a
+                    sparse-expert trunk costed layer by layer as MoE
 * hardware.py     — Eq. 2 hardware roofline model (Table I + TPU v5e)
 * segmentation.py — Alg. 1 optimal split search, the codec axis and the
                     multi-cut (S1, S2) placement search
@@ -50,8 +52,8 @@ from .segmentation import (GraphArrays, MulticutResult, PlacementEval,
                            search_multicut_scalar, search_streamed,
                            search_streamed_scalar, search_vec,
                            sweep_multicut, sweep_search)
-from .structure import LayerCost, Workload, build_graph, total_flops, \
-    total_weight_bytes
+from .graph import build_graph
+from .structure import LayerCost, Workload, total_flops, total_weight_bytes
 
 __all__ = [
     "AdjustmentDecision", "PlacementDecision", "Thresholds", "adjust",

@@ -43,7 +43,8 @@ from .pipeline import DEFAULT_CHUNK_GRID
 from .segmentation import (SegmentationResult, evaluate_placement,
                            evaluate_split, search, search_multicut,
                            search_streamed)
-from .structure import LayerCost, Workload, build_graph
+from .graph import build_graph
+from .structure import LayerCost, Workload
 from .telemetry import stage
 
 

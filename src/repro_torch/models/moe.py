@@ -32,6 +32,24 @@ activations' dtype — the expert-major slot order in which the JAX package
 scatter-adds them.  A scatter-add on the card (``index_add_``) would add
 through atomics in an order that changes from run to run, and greedy
 tokens would no longer repeat.
+
+Besides the JAX package's routing (softmax scores, the top-k gates
+normalised over the chosen experts), the port serves DeepSeek-V3's
+(Kimi-VL's): sigmoid scores, the top-k chosen by the scores plus a
+per-expert selection bias (``noaux_tc``; the ``bias`` leaf), the gates
+normalised over the chosen experts' own scores and multiplied by
+``moe_routed_scale``; no auxiliary loss.  That routing serves every choice
+(:func:`_dropless_expert_ffn`), as the models that publish it do at
+inference: the (token, choice) pairs sorted by expert, the three expert
+products one grouped product each over the groups' device-side ends, and
+the same fixed-order combine, with no capacity, no drop and no
+synchronisation with the host.  Off a mesh only; the capacity path stays
+the JAX package's.
+
+With a recorder each call is a ``moe`` span (routing through the combine,
+the shared expert included; a ``roboecc.moe`` range under the profiler)
+and counts in its metrics as ``moe.dropless`` or ``moe.capacity``.  With a
+``choices`` list each call appends the experts its tokens chose.
 """
 from __future__ import annotations
 
@@ -41,9 +59,14 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.telemetry import stage
 from .layers import dense, linear_spec, mlp
 from .sharding import (act_axis, axis_rank, axis_size, batch_axes,
                        bound_mesh, is_dtensor, shard, spec)
+
+DROPLESS = "moe.dropless"
+CAPACITY = "moe.capacity"
+BIAS_SPREAD = 0.05      # about a quarter of the sigmoid scores' spread
 
 
 def _pad_experts(n_experts: int, shards: int) -> int:
@@ -72,6 +95,12 @@ def moe_specs(cfg, layers: Optional[int] = None) -> Dict:
         "wu": spec(L + (E, d, fe), lax + ("experts", "d_model", "moe_ff")),
         "wd": spec(L + (E, fe, d), lax + ("experts", "moe_ff", "d_model")),
     }
+    if cfg.moe_score == "sigmoid":
+        # learned from zero; ``scale`` is its spread where a tree is drawn
+        # with no leaf at zero
+        out["bias"] = spec(L + (cfg.n_experts,), lax + (None,),
+                           dtype=torch.float32, init="zeros",
+                           scale=BIAS_SPREAD)
     if cfg.n_shared_experts:
         fs = fe * cfg.n_shared_experts
         out["shared"] = {
@@ -103,6 +132,78 @@ def _route(x2d: torch.Tensor, router: torch.Tensor, top_k: int):
     ce = F.one_hot(eids[:, 0], E).float().mean(dim=0)
     aux = E * (me * ce).sum()
     return gates, eids, aux
+
+
+def _route_sigmoid(x2d: torch.Tensor, router: torch.Tensor,
+                   bias: Optional[torch.Tensor], top_k: int, scale: float):
+    """DeepSeek-V3's routing: float32 sigmoid scores, the top-k of the
+    scores plus ``bias`` (the selection only), the gates the chosen
+    scores over their sum, times ``scale``.  Returns (gates (T,k) f32,
+    eids (T,k) int64)."""
+    scores = torch.sigmoid(torch.matmul(x2d.float(), router.float()))
+    pick = scores if bias is None else scores + bias.float()
+    eids = torch.topk(pick, top_k, dim=-1, sorted=True).indices
+    gates = torch.gather(scores, 1, eids)
+    return gates / gates.sum(-1, keepdim=True) * scale, eids
+
+
+def route(cfg, p: Dict, x2d: torch.Tensor):
+    """The configuration's routing of the rows ``x2d`` (T, d): (gates (T,k)
+    f32, eids (T,k) int64, aux_loss)."""
+    if cfg.moe_score == "sigmoid":
+        gates, eids = _route_sigmoid(x2d, p["router"], p.get("bias"),
+                                     cfg.moe_top_k, cfg.moe_routed_scale)
+        return gates, eids, 0.0
+    if cfg.moe_score != "softmax":
+        raise ValueError(f"no MoE scoring {cfg.moe_score!r}")
+    return _route(x2d, p["router"], cfg.moe_top_k)
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor
+               ) -> torch.Tensor:
+    """Rows ``x`` (N, k) in groups, group ``e`` ending at row ``ends[e]``
+    (int32 on x's device), each times ``w[e]`` (E, k, n) -> (N, n).  On the
+    card the library's grouped product reads the ends where they lie; the
+    plain version reads them on the host and runs one product a group."""
+    if x.is_cuda:
+        return F.grouped_mm(x, w, offs=ends)
+    out, lo = [], 0
+    for e, hi in enumerate(ends.tolist()):
+        out.append(dense(x[lo:hi], w[e]))
+        lo = hi
+    return torch.cat(out)
+
+
+def _dropless_expert_ffn(x2d, gates, eids, wg, wu, wd):
+    """Every choice served: the (token, choice) pairs sorted by expert (a
+    stable sort keeps token order within an expert), each expert's rows
+    gathered into one block of a (T*k, d) buffer, the three products as
+    grouped products over the blocks, then each token's choices added in
+    increasing expert id (the capacity path's fixed order), each weighted
+    by its gate.  The sum is kept in float32 and rounded once.  Returns
+    (T, d) in x2d's dtype."""
+    T, d = x2d.shape
+    k = eids.shape[1]
+    eids, order = torch.sort(eids, dim=1)          # the combine's order
+    gates = torch.gather(gates, 1, order)
+    flat, by_expert = torch.sort(eids.reshape(-1), stable=True)
+    # each group's end, found on the device (a bincount would read the
+    # ids' range back to the host to size its output)
+    ends = torch.searchsorted(
+        flat, torch.arange(wg.shape[0], device=flat.device),
+        right=True).to(torch.int32)
+    xs = x2d[by_expert // k]
+    h = F.silu(grouped_mm(xs, wg, ends)) * grouped_mm(xs, wu, ends)
+    ys = grouped_mm(h, wd, ends)
+    ys.mul_(gates.reshape(-1)[by_expert, None].to(ys.dtype))
+    # where each (token, choice) pair's row lies in ``ys``
+    at = torch.empty_like(by_expert)
+    at[by_expert] = torch.arange(by_expert.numel(), device=at.device)
+    at = at.view(T, k)
+    y = ys.index_select(0, at[:, 0]).float()
+    for j in range(1, k):
+        y = y + ys.index_select(0, at[:, j])
+    return y.to(x2d.dtype)
 
 
 def _local_expert_ffn(x2d, gates, eids, wg, wu, wd, *, E: int, C: int,
@@ -146,24 +247,41 @@ def _local_expert_ffn(x2d, gates, eids, wg, wu, wd, *, E: int, C: int,
     return y
 
 
-def moe_ffn(cfg, p: Dict, x: torch.Tensor
+def moe_ffn(cfg, p: Dict, x: torch.Tensor, recorder=None,
+            choices: Optional[list] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out (B,S,d), aux_loss scalar)."""
+    """x: (B, S, d) -> (out (B,S,d), aux_loss scalar); with ``recorder`` a
+    ``moe`` span and a count of the dispatch, with ``choices`` the experts
+    each token chose appended ((B*S, k) int64; module docstring)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     m = bound_mesh()
     if m is not None and is_dtensor(x):
         ax = act_axis("act_experts")
         if ax is None or axis_size(ax) > 1:
+            if cfg.moe_score != "softmax":
+                raise ValueError("the sigmoid router and the dropless "
+                                 "dispatch run off a mesh only")
             return _moe_ep(cfg, p, x, m, ax)
-    x2d = x.reshape(B * S, d)
-    gates, eids, aux = _route(x2d, p["router"], k)
-    C = capacity(B * S, E, k, cfg.moe_capacity_factor)
-    y = _local_expert_ffn(x2d, gates, eids, p["wg"], p["wu"], p["wd"],
-                          E=E, C=C).reshape(B, S, d)
-    if cfg.n_shared_experts:
-        y = y + mlp(p["shared"], x)
-    return y, aux
+    dropless = cfg.moe_score == "sigmoid"
+    with stage("moe", recorder):
+        if recorder is not None:
+            recorder.metrics.inc(DROPLESS if dropless else CAPACITY)
+        x2d = x.reshape(B * S, d)
+        gates, eids, aux = route(cfg, p, x2d)
+        if choices is not None:
+            choices.append(eids)
+        if dropless:
+            y = _dropless_expert_ffn(x2d, gates, eids, p["wg"], p["wu"],
+                                     p["wd"])
+        else:
+            C = capacity(B * S, E, k, cfg.moe_capacity_factor)
+            y = _local_expert_ffn(x2d, gates, eids, p["wg"], p["wu"],
+                                  p["wd"], E=E, C=C)
+        y = y.reshape(B, S, d)
+        if cfg.n_shared_experts:
+            y = y + mlp(p["shared"], x)
+        return y, aux
 
 
 def _moe_ep(cfg, p: Dict, x: torch.Tensor, m, ax: Optional[str]):

@@ -97,8 +97,11 @@ def _self_attn(cfg, p, x, positions, *, return_kv=False):
 
 
 def block_forward(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
-                  *, is_moe: bool = False, return_kv: bool = False):
-    """Returns (x, kv_cache_or_None, aux_loss)."""
+                  *, is_moe: bool = False, return_kv: bool = False,
+                  recorder=None, choices=None):
+    """Returns (x, kv_cache_or_None, aux_loss); ``recorder`` and
+    ``choices`` reach the MoE FFN (its ``moe`` span, its experts
+    chosen)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     a = _self_attn(cfg, p["attn"], h, positions, return_kv=return_kv)
     a, kv = a if return_kv else (a, None)
@@ -108,7 +111,7 @@ def block_forward(cfg, p: Dict, x: torch.Tensor, positions: torch.Tensor,
     x = x + a
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if is_moe:
-        m, aux = moe_ffn(cfg, p["moe"], h)
+        m, aux = moe_ffn(cfg, p["moe"], h, recorder, choices)
     else:
         m, aux = mlp(p["mlp"], h), 0.0
     return shard(x + m, "batch", "seq", None), kv, aux
@@ -174,8 +177,10 @@ def run_stack_decode(cfg, blocks_p: Tree, caches: Tree, x: torch.Tensor,
 
 # ================================================================ LM api
 def _groups(cfg):
-    """[(name, n_layers, is_moe)] in execution order."""
-    if cfg.family == "moe":
+    """[(name, n_layers, is_moe)] in execution order: a trunk with experts
+    (the moe family, or a VLA over one) runs its dense blocks, then its
+    MoE blocks."""
+    if cfg.n_experts:
         g = []
         if cfg.first_dense_layers:
             g.append(("dense_blocks", cfg.first_dense_layers, False))

@@ -32,7 +32,8 @@ from . import attention as A
 from .layers import (dense, embed, embed_spec, linear_spec, mlp, mlp_specs,
                      rmsnorm, rmsnorm_spec, softmax_xent, unembed)
 from .sharding import is_dtensor, shard, spec, tree_map
-from .transformer import block_forward, dense_block_specs, run_stack
+from .transformer import (_groups, block_forward, dense_block_specs,
+                          moe_block_specs, run_stack)
 
 HEADS = ("detok", "", "mlp", "lstm", "diffusion", "dit")
 NOISY_HEADS = ("diffusion", "dit")      # heads that start from a draw
@@ -323,11 +324,23 @@ def decode_action(cfg, p, cog: torch.Tensor, noise=None) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ VLA model
+def trunk_specs(cfg) -> Dict:
+    """The LLM trunk's stacks by group name: ``blocks`` for a dense trunk;
+    for one with experts ``dense_blocks`` (the first
+    ``first_dense_layers``) then ``moe_blocks``, attention MLA where the
+    config says so."""
+    out = {}
+    for name, n, is_moe in _groups(cfg):
+        out[name] = moe_block_specs(cfg, n) if is_moe \
+            else dense_block_specs(cfg, n)
+    return out
+
+
 def vla_specs(cfg) -> Dict:
     return {
         "vit": vit_specs(cfg),
         "embed": embed_spec(cfg.vocab_size, cfg.d_model),
-        "blocks": dense_block_specs(cfg, cfg.n_layers),
+        **trunk_specs(cfg),
         "final_norm": rmsnorm_spec(cfg.d_model),
         "head": embed_spec(cfg.vocab_size, cfg.d_model),
         "action": action_head_specs(cfg),
@@ -340,13 +353,12 @@ def vla_backbone(cfg, params, patches, tokens, *, remat=False):
     txt = embed(params["embed"], tokens).to(to_dtype(cfg.dtype))
     x = torch.cat([img, txt], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
+    for name, n, is_moe in _groups(cfg):
+        def one(pl, h, _moe=is_moe):
+            h, _, a = block_forward(cfg, pl, h, positions, is_moe=_moe)
+            return h, None, a
 
-    def one(pl, h):
-        h, _, a = block_forward(cfg, pl, h, positions)
-        return h, None, a
-
-    x, _, _ = run_stack(cfg, params["blocks"], x, one, cfg.n_layers,
-                        remat=remat)
+        x, _, _ = run_stack(cfg, params[name], x, one, n, remat=remat)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 

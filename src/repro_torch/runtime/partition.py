@@ -67,7 +67,6 @@ from ..kernels.activation_codec import ops as codec
 from ..models import transformer as T
 from ..models import vla as V
 from ..models.layers import embed, rmsnorm, unembed
-from ..models.sharding import tree_leaves, tree_map
 from ..models.transformer import block_forward, _layer_slice
 from .action_graph import DiTGraphs
 
@@ -139,25 +138,58 @@ class SplitPlan:
 
 
 # ------------------------------------------------------------------ helpers
-def _masked_stack(cfg, pool_params: Tree, x: torch.Tensor, positions,
-                  split: int, offset: int, side: str, *, is_moe: bool = False):
-    """Run the pool layers that are active on this side of the cut.
+def block_at(cfg, params, i: int) -> Tuple[Tree, bool]:
+    """LLM block ``i``'s params (views) and whether it is an MoE block: the
+    trunk's groups (a dense model's ``blocks``; the dense blocks, then the
+    MoE blocks, of a trunk with experts) in execution order."""
+    for name, n, is_moe in T._groups(cfg):
+        if i < n:
+            return _layer_slice(params[name], i), is_moe
+        i -= n
+    raise IndexError(f"the trunk has {cfg.n_layers} blocks")
+
+
+def run_blocks(cfg, params, x: torch.Tensor, positions, start: int,
+               end: int, recorder=None, choices=None) -> torch.Tensor:
+    """LLM blocks [start, end) in LLM indexing; ``recorder`` and
+    ``choices`` reach the MoE FFNs."""
+    for i in range(start, end):
+        pl, is_moe = block_at(cfg, params, i)
+        x, _, _ = block_forward(cfg, pl, x, positions, is_moe=is_moe,
+                                recorder=recorder, choices=choices)
+    return x
+
+
+def _masked_stack(cfg, params, x: torch.Tensor, positions, split: int,
+                  start: int, end: int, side: str, lv: int = 0,
+                  recorder=None, choices=None):
+    """Run the pool layers [start, end) that are active on this side of
+    the cut (graph indexing: LLM block ``i - lv``).
 
     ``side`` names the *predicate*, not the physical tier: ``"edge"`` runs
     layers with ``i < split`` (the below-the-cut half), ``"cloud"`` those
     with ``i >= split``.  A two-pool plan reuses the same predicates around
     its second cut with the tiers swapped."""
-    n = tree_leaves(pool_params)[0].shape[0]
-    for j in range(n):
-        i = offset + j
+    for i in range(start, end):
         if (i < split) if side == "edge" else (i >= split):
-            x, _, _ = block_forward(cfg, _layer_slice(pool_params, j), x,
-                                    positions, is_moe=is_moe)
+            x = run_blocks(cfg, params, x, positions, i - lv, i - lv + 1,
+                           recorder, choices)
     return x
 
 
 def _codec_block(D: int) -> int:
     return 128 if D % 128 == 0 else D
+
+
+class Shipped(dict):
+    """A payload: the tensors shipped, which are all the wire carries,
+    and beside them ``choices``, which stay where they were made: the
+    experts each token chose in each MoE block the run went through, in
+    block order ((tokens, top_k) int64 each)."""
+
+    def __init__(self, payload: Dict, choices: List[torch.Tensor]):
+        super().__init__(payload)
+        self.choices = choices
 
 
 def encode_activation(x: torch.Tensor, wire_codec) -> Dict:
@@ -394,42 +426,13 @@ class LMSplitExecutor:
         self.plan = plan
         self.device = require_device(device)
 
-    # -- groups bookkeeping (dense vs moe layer groups)
-    def _block_at(self, params, i: int) -> Tuple[Tree, bool]:
-        """Block ``i``'s params (views) and whether it is an MoE block."""
-        cfg = self.cfg
-        if cfg.family == "moe" and i >= cfg.first_dense_layers:
-            return _layer_slice(params["moe_blocks"],
-                                i - cfg.first_dense_layers), True
-        name = "dense_blocks" if cfg.family == "moe" else "blocks"
-        return _layer_slice(params[name], i), False
-
-    def _group_params(self, params, start: int, end: int
-                      ) -> Tuple[Tree, bool]:
-        """Stacked params of blocks [start, end) (one pool's weights,
-        views), which lie in one group."""
-        cfg = self.cfg
-        if cfg.family != "moe":
-            return tree_map(lambda w: w[start:end], params["blocks"]), False
-        nd = cfg.first_dense_layers
-        if start >= nd:
-            return tree_map(lambda w: w[start - nd:end - nd],
-                            params["moe_blocks"]), True
-        return tree_map(lambda w: w[start:end], params["dense_blocks"]), False
-
     def _run_blocks(self, params, x, positions, start: int, end: int):
-        for i in range(start, end):
-            pl, is_moe = self._block_at(params, i)
-            x, _, _ = block_forward(self.cfg, pl, x, positions, is_moe=is_moe)
-        return x
+        return run_blocks(self.cfg, params, x, positions, start, end)
 
     def _pool(self, params, x, positions, split: int, start: int, end: int,
               side: str):
-        if end > start:
-            pool, is_moe = self._group_params(params, start, end)
-            x = _masked_stack(self.cfg, pool, x, positions, split, start,
-                              side, is_moe=is_moe)
-        return x
+        return _masked_stack(self.cfg, params, x, positions, split, start,
+                             end, side)
 
     # -- edge side: embed + [0, pool_start) + masked pool
     def _edge_hidden(self, params, tokens, split: int):
@@ -568,18 +571,20 @@ class VLASplitExecutor:
         # the DiT head's DDIM loop, from a CUDA graph on the card; its
         # calls counted in ``dit.calls``
         self.dit = DiTGraphs(cfg) if cfg.vla_action_head == "dit" else None
+        self._choices: Optional[list] = None    # the run's, in ``run``
 
-    def _blocks(self, params, start: int, end: int) -> Tree:
-        """Stacked LLM-block params [start, end) in graph indexing (views)."""
-        Lv = self.cfg.vit_layers
-        return tree_map(lambda w: w[start - Lv:end - Lv], params["blocks"])
+    def _blocks(self, params, x, positions, start: int, end: int,
+                recorder=None):
+        """LLM blocks [start, end), the experts they choose kept."""
+        return run_blocks(self.cfg, params, x, positions, start, end,
+                          recorder, self._choices)
 
-    def _run_blocks(self, params, x, positions, start: int, end: int):
-        """LLM blocks [start, end) in LLM indexing, outside any pool."""
-        for i in range(start, end):
-            x, _, _ = block_forward(self.cfg, _layer_slice(params["blocks"], i),
-                                    x, positions)
-        return x
+    def _pool(self, params, x, positions, split: int, start: int, end: int,
+              side: str, recorder=None):
+        """The pool [start, end) (graph indexing) on ``side`` of ``split``."""
+        return _masked_stack(self.cfg, params, x, positions, split, start,
+                             end, side, self.cfg.vit_layers, recorder,
+                             self._choices)
 
     def _tail_slice(self) -> int:
         """Static downlink sequence length.  When pool 2 is degenerate at
@@ -619,12 +624,10 @@ class VLASplitExecutor:
             txt = embed(params["embed"], tokens).to(to_dtype(cfg.dtype))
             x = torch.cat([img, txt], dim=1)
             positions = torch.arange(x.shape[1], device=x.device)
-            x = self._run_blocks(params, x, positions, 0,
-                                 plan.pool_start - Lv)
-            if plan.pool_end > plan.pool_start:
-                pool = self._blocks(params, plan.pool_start, plan.pool_end)
-                x = _masked_stack(cfg, pool, x, positions, split,
-                                  plan.pool_start, "edge")
+            x = self._blocks(params, x, positions, 0, plan.pool_start - Lv,
+                             recorder)
+            x = self._pool(params, x, positions, split, plan.pool_start,
+                           plan.pool_end, "edge", recorder)
         return x
 
     def _edge_fwd(self, params, patches, tokens, split: int,
@@ -634,23 +637,21 @@ class VLASplitExecutor:
             return encode_activation(x, self.plan.wire_codec)
 
     # -- cloud (single-pool): the pool above the cut + [pool_end, L)
-    def _cloud_hidden(self, params, x, split: int):
+    def _cloud_hidden(self, params, x, split: int, recorder=None):
         cfg, plan = self.cfg, self.plan
-        Lv = cfg.vit_layers
         positions = torch.arange(x.shape[1], device=x.device)
-        if plan.pool_end > plan.pool_start:
-            pool = self._blocks(params, plan.pool_start, plan.pool_end)
-            x = _masked_stack(cfg, pool, x, positions, split,
-                              plan.pool_start, "cloud")
-        return self._run_blocks(params, x, positions, plan.pool_end - Lv,
-                                cfg.n_layers)
+        x = self._pool(params, x, positions, split, plan.pool_start,
+                       plan.pool_end, "cloud", recorder)
+        return self._blocks(params, x, positions,
+                            plan.pool_end - cfg.vit_layers, cfg.n_layers,
+                            recorder)
 
     def _cloud_fwd(self, params, payload: Dict, split: int, noise,
                    recorder=None):
         with stage("decode", recorder):
             x = decode_activation(payload, self.cfg.dtype)
         with stage("cloud_blocks", recorder):
-            x = self._cloud_hidden(params, x, split)
+            x = self._cloud_hidden(params, x, split, recorder)
         with stage("action_head", recorder):
             return self._action_decode(params, x, noise, recorder)
 
@@ -664,18 +665,13 @@ class VLASplitExecutor:
             x = decode_activation(payload, cfg.dtype)
         with stage("cloud_blocks", recorder):
             positions = torch.arange(x.shape[1], device=x.device)
-            if plan.pool_end > plan.pool_start:
-                pool = self._blocks(params, plan.pool_start, plan.pool_end)
-                x = _masked_stack(cfg, pool, x, positions, split,
-                                  plan.pool_start, "cloud")
-            x = self._run_blocks(params, x, positions, plan.pool_end - Lv,
-                                 plan.pool2_start - Lv)
-            if plan.pool2_end > plan.pool2_start:
-                # cloud owns the BELOW-split2 half of pool 2 ("edge"
-                # predicate)
-                pool2 = self._blocks(params, plan.pool2_start, plan.pool2_end)
-                x = _masked_stack(cfg, pool2, x, positions, split2,
-                                  plan.pool2_start, "edge")
+            x = self._pool(params, x, positions, split, plan.pool_start,
+                           plan.pool_end, "cloud", recorder)
+            x = self._blocks(params, x, positions, plan.pool_end - Lv,
+                             plan.pool2_start - Lv, recorder)
+            # cloud owns the BELOW-split2 half of pool 2 ("edge" predicate)
+            x = self._pool(params, x, positions, split2, plan.pool2_start,
+                           plan.pool2_end, "edge", recorder)
             k = self._tail_slice()
             if k:
                 x = x[:, -k:]   # semantic downlink: only what the tail reads
@@ -691,12 +687,10 @@ class VLASplitExecutor:
             x = decode_activation(payload, cfg.dtype)
         with stage("edge_blocks", recorder):
             positions = torch.arange(x.shape[1], device=x.device)
-            if plan.pool2_end > plan.pool2_start:
-                pool2 = self._blocks(params, plan.pool2_start, plan.pool2_end)
-                x = _masked_stack(cfg, pool2, x, positions, split2,
-                                  plan.pool2_start, "cloud")
-            x = self._run_blocks(params, x, positions, plan.pool2_end - Lv,
-                                 cfg.n_layers)
+            x = self._pool(params, x, positions, split2, plan.pool2_start,
+                           plan.pool2_end, "cloud", recorder)
+            x = self._blocks(params, x, positions, plan.pool2_end - Lv,
+                             cfg.n_layers, recorder)
         with stage("action_head", recorder):
             return self._action_decode(params, x, noise, recorder)
 
@@ -729,7 +723,9 @@ class VLASplitExecutor:
         """One co-inference.  Single-pool plans return
         ``(action, uplink_payload)``; two-pool plans take the second cut
         ``split2`` and return ``(action, {"up": ..., "down": ...})`` with
-        the action decoded on the edge tail.  ``noise`` is the initial
+        the action decoded on the edge tail.  Over a trunk with experts
+        the payload is a :class:`Shipped`, which keeps the experts each
+        MoE block chose beside what it ships.  ``noise`` is the initial
         draw of a ``diffusion`` or ``dit`` head (made from ``generator``
         when left out).
 
@@ -750,11 +746,14 @@ class VLASplitExecutor:
         split = self.plan.clamp(split)
         if recorder is not None:
             recorder.open_run(self.device)
+        self._choices = [] if self.cfg.n_experts else None
         with stage("edge_fwd", recorder, "executor:edge"):
             payload = self._edge_fwd(params, patches, tokens, split, recorder)
         with stage("cloud_fwd", recorder, "executor:cloud"):
-            return self._finish(params, payload, payload, split, split2,
-                                noise, recorder)
+            action, wire = self._finish(params, payload, payload, split,
+                                        split2, noise, recorder)
+        choices, self._choices = self._choices, None
+        return action, wire if choices is None else Shipped(wire, choices)
 
     @torch.no_grad()
     def run_streamed(self, params, patches, tokens, split: int,

@@ -45,7 +45,7 @@ def test_the_import_rule_covers_the_control_plane_copies():
                                                      .read_text()))
                if isinstance(n, ast.ImportFrom) and n.level > 0]
         assert all(m is None or m.split(".")[0] in (
-            "structure", "hardware", "codec", "pipeline", "placement",
+            "structure", "graph", "hardware", "codec", "pipeline", "placement",
             "segmentation", "pool", "network", "adjustment", "predictor",
             "controller", "configs", "scene", "telemetry") for m in rel), \
             (name, rel)
@@ -91,7 +91,7 @@ def test_the_package_lists_every_module_of_the_slice():
                  "core", "core.structure", "core.hardware", "core.codec",
                  "core.pipeline", "core.placement", "core.segmentation",
                  "core.pool", "core.network", "core.adjustment",
-                 "core.predictor", "core.controller",
+                 "core.predictor", "core.controller", "core.graph",
                  "kernels.decode_attention.ops", "kernels.decode_attention.ref",
                  "runtime.kvcache", "runtime.serving", "runtime.scheduler",
                  "launch", "launch.serve", "models.ssm", "models.hybrid",
